@@ -1,0 +1,10 @@
+"""argparse command tree: ``regression|reg`` x ``test|ts``, ``predict|pr``."""
+
+from snngp_torch.cli import regression
+
+
+def add_subparser(subparsers):
+    regression.add_subparser(subparsers)
+
+
+__all__ = ["add_subparser", "regression"]

@@ -1,0 +1,80 @@
+"""Regression likelihoods: the predictive densities (counterpart of
+``snngp/models/likelihoods.py``).
+
+- :class:`GaussianLikelihood` -> exact GP regression.
+- :class:`StudentTLikelihood` -> Student-t process: the predictive is a
+  conditional-t with 2a + N degrees of freedom and the data-dependent scale
+  inflation d / (2a + N), d = 2a + y^T ((b/a) K + jitter)^{-1} y.
+
+The marginal likelihoods (``prior_logpdf``) come with training.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from snngp_torch.models import params as P
+from snngp_torch.models.bijectors import positive
+from snngp_torch.ops.linalg import add_jitter, chol_quad_form, cholesky
+
+__all__ = ["Likelihood", "GaussianLikelihood", "StudentTLikelihood",
+           "normal_logpdf", "student_t_logpdf"]
+
+
+def normal_logpdf(x, mean, sigma):
+    """``jax.scipy.stats.norm.logpdf``."""
+    z = (x - mean) / sigma
+    return -0.5 * z * z - torch.log(sigma) - 0.5 * math.log(2.0 * math.pi)
+
+
+def student_t_logpdf(x, df, mean, sigma):
+    """``jax.scipy.stats.t.logpdf`` (location-scale Student-t)."""
+    z = (x - mean) / sigma
+    half_df = df / 2.0
+    norm = (torch.lgamma(half_df) + torch.log(sigma * sigma * math.pi * df) / 2.0
+            - torch.lgamma(half_df + 0.5))
+    return -(norm + (half_df + 0.5) * torch.log1p(z * z / df))
+
+
+class Likelihood(nn.Module):
+    require = None
+
+
+class GaussianLikelihood(Likelihood):
+    require = None
+
+    def logpdf(self, x, mean, cov, aux):
+        """Diagonal-Normal predictive density (spax/likelihoods.py:30-33)."""
+        return normal_logpdf(x, mean, torch.sqrt(torch.diagonal(cov)))
+
+
+class StudentTLikelihood(Likelihood):
+    require = ["cov_data", "y_data"]
+
+    def __init__(self, alpha: float, beta: float):
+        super().__init__()
+        self.bij = positive()
+        self.a = P.constrained_init(alpha, self.bij)
+        self.b = P.constrained_init(beta, self.bij)
+
+    def _ab(self):
+        return (P.constrained_read(self.a, self.bij),
+                P.constrained_read(self.b, self.bij))
+
+    def logpdf(self, x, mean, cov, aux):
+        """Conditional-t predictive (spax/likelihoods.py:52-65):
+
+        df* = 2a + N,  d = 2a + y^T ((b/a) K_dd + jitter)^{-1} y,
+        sigma^2 = (d / df*) (b/a) diag(cov).
+        """
+        a, b = self._ab()
+        cov_data, y_data = aux
+        df = 2 * a
+        cond_df = df + cov_data.shape[-1]
+        chol = cholesky(add_jitter((b / a) * cov_data, 1e-6))
+        d = df + chol_quad_form(chol, y_data)
+        sigma = torch.sqrt(torch.diagonal((d / cond_df) * (b / a) * cov))
+        return student_t_logpdf(x, cond_df, mean, sigma)

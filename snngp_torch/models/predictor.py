@@ -1,0 +1,173 @@
+"""Fitted-state predictor: factorize once, predict many times (counterpart
+of ``fit_spr`` / ``FittedSPR`` in ``snngp/models/predictor.py``).
+
+:func:`fit_spr` runs the train-side work once — the train Gram, its
+regularized Cholesky factor, the target solve and, for a Student-t
+likelihood, the conditional-t degrees of freedom and data scale ``d`` — and
+returns a :class:`FittedSPR` whose ``predict`` / ``test_nll`` cost only the
+cross-Gram, the test Gram of each chunk and triangular solves.
+
+The fitted state is a flat dict of tensors. ``save`` / ``load`` use the JAX
+package's ``.npz`` layout (state arrays plus ``param:<dotted name>``), so a
+file written by either package loads in the other.
+
+Not ported yet (they raise ``NotImplementedError``): ``memory_lean`` (the
+in-place blocked factorization for Grams past one chip's memory),
+``extendable`` / ``FittedSPR.extend`` and ``var_floor``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from snngp_torch.models import params as P
+from snngp_torch.models.likelihoods import normal_logpdf, student_t_logpdf
+from snngp_torch.ops.linalg import (add_diag_reg, add_jitter, chol_quad_form,
+                                    chol_solve, cholesky)
+
+__all__ = ["fit_spr", "FittedSPR"]
+
+
+def fit_spr(model, memory_lean: bool = False, extendable: bool = False,
+            gram=None, var_floor: float = 0.0,
+            t_jitter: float = 1e-6) -> "FittedSPR":
+    """One-time train-side solve for an :class:`snngp_torch.models.gp.SPR`,
+    with the parameters the model holds.
+
+    ``gram`` optionally supplies the precomputed train Gram; it must equal
+    ``model._gram(kernel_fn)`` for the same parameters, since the fitted
+    state stores solved quantities, not the inputs.
+
+    ``t_jitter`` is the absolute jitter on the scaled Gram ``(b/a) K`` whose
+    factor defines the Student-t data scale ``d`` (the reference hardcodes
+    1e-6). At large N the Gram's own fp32 noise exceeds 1e-6 and the
+    factorization needs a proportionally larger value to stay PD.
+    """
+    if memory_lean or extendable or var_floor:
+        raise NotImplementedError(
+            "memory_lean, extendable and var_floor are not ported yet")
+    eps = P.constrained_read(model.eps, model.bij)
+    kernel_fn = model.kernel.get_kernel_fn()
+
+    k_dd = model._gram(kernel_fn) if gram is None else gram
+    chol = cholesky(add_diag_reg(k_dd, eps))                    # [N, N]
+    alpha = chol_solve(chol, model.y_data[:, None])             # [N, 1]
+
+    state = {
+        "chol": chol,
+        "alpha": alpha,
+        "y_mean": model.y_mean,
+        "y_std": model.y_std,
+    }
+    if model.likelihood.require:  # Student-t conditional predictive
+        a, b = model.likelihood._ab()
+        df = 2.0 * a
+        chol_t = cholesky(add_jitter((b / a) * k_dd, t_jitter))
+        state["d"] = df + chol_quad_form(chol_t, model.y_data)
+        state["cond_df"] = df + model.num_data
+        state["scale_ba"] = b / a
+    return FittedSPR(model, state)
+
+
+class FittedSPR:
+    """Cheap repeated prediction from a one-time :func:`fit_spr` solve."""
+
+    def __init__(self, model, state: Dict[str, torch.Tensor]):
+        if "chol_lower" in state and not bool(state["chol_lower"]):
+            raise NotImplementedError(
+                "upper-factor (memory_lean) fitted states are not ported yet")
+        if "var_floor" in state or "reg" in state:
+            raise NotImplementedError(
+                "var_floor / extendable fitted states are not ported yet")
+        self.model = model
+        self.state = state
+        self._kernel_fn = model.kernel.get_kernel_fn()
+        self._student_t = "d" in state
+
+    # -- prediction -------------------------------------------------------
+
+    def predict(self, x, batch: int = None):
+        """De-normalized predictive mean and variance at ``x`` ([n], [n]).
+
+        ``batch`` chunks the test points: the variance needs only the
+        diagonal, but the cancellation-safe ordering builds a [c, c] test
+        Gram per chunk; ~4096 keeps it at 64 MB. Each diagonal element is
+        computed by the same arithmetic either way.
+        """
+        mean_n, var_n = self._posterior(x, batch=batch)
+        return self._denorm(mean_n, var_n)
+
+    def test_nll(self, x, y, batch: int = None):
+        """Predictive NLL on de-normalized targets; equals SPR.test_nll."""
+        mean_n, var_n = self._posterior(x, batch=batch)
+        return self._score_nll(mean_n, var_n, y)
+
+    def _denorm(self, mean_n, var_n):
+        s = self.state
+        mean = mean_n * s["y_std"] + s["y_mean"]
+        var = var_n * s["y_std"] ** 2
+        if self._student_t:
+            var = (s["d"] / s["cond_df"]) * s["scale_ba"] * var
+        return mean, var
+
+    def _score_nll(self, mean_n, var_n, y):
+        s = self.state
+        y_den = y * s["y_std"] + s["y_mean"]
+        mean = mean_n * s["y_std"] + s["y_mean"]
+        var = var_n * s["y_std"] ** 2
+        if self._student_t:
+            sigma = torch.sqrt((s["d"] / s["cond_df"]) * s["scale_ba"] * var)
+            log_prob = student_t_logpdf(y_den, s["cond_df"], mean, sigma)
+        else:
+            log_prob = normal_logpdf(y_den, mean, torch.sqrt(var))
+        return -torch.mean(log_prob)
+
+    def _posterior(self, x, batch: int = None):
+        """Normalized posterior mean + variance diagonal ([n], [n]).
+
+        The variance is diag(k_tt - v^T v), the full-covariance form that
+        ``gp_predict`` uses, not diag(k_tt) - sum(v*v): when the posterior
+        variance is tiny the latter cancels catastrophically in fp32.
+        """
+        if batch is not None and x.shape[0] > batch:
+            parts = [self._posterior(x[i:i + batch])
+                     for i in range(0, x.shape[0], batch)]
+            return (torch.cat([p[0] for p in parts]),
+                    torch.cat([p[1] for p in parts]))
+        model, s = self.model, self.state
+        k_td = model.kernel.K(self._kernel_fn, x, model.x_data)  # [n, N]
+        mean = (k_td @ s["alpha"]).flatten()
+        v = self._whiten(k_td)                                   # [N, n]
+        k_tt = model.kernel.K(self._kernel_fn, x)                # [n, n]
+        var = torch.diagonal(k_tt - v.T @ v)
+        return mean, var
+
+    def _whiten(self, k_td):
+        """L^{-1} K* for the cached lower factor ([N, n])."""
+        return torch.linalg.solve_triangular(self.state["chol"], k_td.T, upper=False)
+
+    # -- persistence ------------------------------------------------------
+
+    def save(self, path):
+        """Write the fitted state to ``path`` (.npz); parameters travel too."""
+        flat = dict(self.state)
+        for name, leaf in P.named_leaves(self.model):
+            flat["param:" + name] = leaf
+        np.savez(path, **{k: torch.as_tensor(v).detach().cpu().numpy()
+                          for k, v in flat.items()})
+
+    @classmethod
+    def load(cls, path, model):
+        """Rebuild from :meth:`save` output (either package's). The saved
+        parameters are loaded into ``model``; the state goes to its device."""
+        like = model.x_data
+        with np.load(path) as data:
+            state = {k: torch.as_tensor(data[k], device=like.device)
+                     for k in data.files if not k.startswith("param:")}
+            saved = {k[len("param:"):]: data[k]
+                     for k in data.files if k.startswith("param:")}
+        model.load_state_dict(P.from_jax_named(saved))
+        return cls(model, state)

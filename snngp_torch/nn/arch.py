@@ -1,0 +1,98 @@
+"""Architecture builders (counterpart of ``snngp/nn/arch.py``: the MLP and
+dense-ResNet networks).
+
+``get_*_layer`` compose the layer tier; ``get_*_kernel`` return a
+``kernel_fn(x1, x2=None, get="nngp")`` that sends every 2-D NNGP block to
+the fused Gram (:mod:`snngp_torch.ops.gram`), which launches the CUDA kernel
+for CUDA tensors and runs its plain version for CPU tensors. There is no
+size threshold: the JAX package's ``SNNGP_PALLAS_MIN_N`` amortized TPU
+compile latency, which a prebuilt CUDA kernel does not have.
+"""
+
+from __future__ import annotations
+
+from snngp_torch.nn import layers as L
+from snngp_torch.ops import gram as G
+
+__all__ = [
+    "get_act",
+    "get_mlp_kernel",
+    "get_dense_resnet_kernel",
+    "get_mlp_layer",
+    "get_dense_resnet_layer",
+    "KERNELS",
+]
+
+
+def get_act(act: str) -> L.Layer:
+    if act == "relu":
+        return L.Relu()
+    if act == "erf":
+        return L.Erf()
+    raise KeyError(f"Unsupported act '{act}'")
+
+
+def get_mlp_layer(num_hiddens, num_class=1, act="relu", w_std=1.0, b_std=0.0,
+                  last_w_std=1.0, width=512) -> L.Layer:
+    """N x [Dense(512) + act] + Dense(num_class)  (nt_kernels.py:21-31)."""
+    stack = []
+    for _ in range(num_hiddens):
+        stack.append(L.Dense(width, w_std=w_std, b_std=b_std))
+        stack.append(get_act(act))
+    stack.append(L.Dense(num_class, w_std=last_w_std))
+    return L.serial(*stack)
+
+
+def get_dense_resnet_layer(num_hiddens, num_class=1, act="relu", w_std=1.0,
+                           b_std=0.0, last_w_std=1.0, width=512) -> L.Layer:
+    """Dense residual blocks (nt_kernels.py:83-103)."""
+
+    def res_block():
+        return L.serial(
+            L.FanOut(2),
+            L.parallel(
+                L.serial(get_act(act), L.Dense(width, w_std=w_std, b_std=b_std)),
+                L.Identity(),
+            ),
+            L.FanInSum(),
+        )
+
+    stack = [L.Dense(width, w_std=w_std, b_std=b_std)]
+    stack += [res_block() for _ in range(num_hiddens)]
+    stack += [get_act(act), L.Dense(num_class, w_std=last_w_std)]
+    return L.serial(*stack)
+
+
+def _fused_kernel_fn(layer_builder, gram_fn, num_hiddens, num_class, act,
+                     w_std, b_std, last_w_std, width):
+    ref_fn = L.kernel_fn_of(layer_builder(num_hiddens, num_class, act, w_std,
+                                          b_std, last_w_std, width=width))
+
+    def kernel_fn(x1, x2=None, get="nngp"):
+        if get == "nngp" and x1.ndim == 2:
+            return gram_fn(x1, x1 if x2 is None else x2, depth=num_hiddens,
+                           act=act, w_std=w_std, b_std=b_std,
+                           last_w_std=last_w_std)
+        return ref_fn(x1, x2, get=get)
+
+    return kernel_fn
+
+
+def get_mlp_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0, b_std=0.0,
+                   last_w_std=1.0, width=512):
+    """MLP kernel_fn: 2-D NNGP blocks go to the fused Gram."""
+    return _fused_kernel_fn(get_mlp_layer, G.mlp_gram, num_hiddens, num_class,
+                            act, w_std, b_std, last_w_std, width)
+
+
+def get_dense_resnet_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0,
+                            b_std=0.0, last_w_std=1.0, width=512):
+    """Dense-ResNet kernel_fn: 2-D NNGP blocks go to the fused Gram."""
+    return _fused_kernel_fn(get_dense_resnet_layer, G.resnet_gram, num_hiddens,
+                            num_class, act, w_std, b_std, last_w_std, width)
+
+
+KERNELS = {
+    "mlp": get_mlp_kernel,
+    "resnet-dense": get_dense_resnet_kernel,
+}

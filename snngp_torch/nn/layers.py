@@ -1,0 +1,140 @@
+"""Compositional NNGP layers, dense kernel tier (counterpart of
+``snngp/nn/layers.py``).
+
+Each layer is a :class:`Layer` whose ``kfn`` maps a
+:class:`~snngp_torch.nn.state.KernelState` to the next one, forward only:
+
+- Dense(w, b):   K' = w^2 K + b^2
+- Relu:          arccos kernel  K' = (s sin t + (pi - t) K) / (2 pi),
+                 s = sqrt(v1 v2), t = arccos(K / s)
+- Erf:           arcsin kernel  K' = (2/pi) asin(2K / sqrt((1+2v1)(1+2v2)))
+- FanOut/parallel/FanInSum/Identity: residual-branch bookkeeping.
+
+This tier materializes every layer's [N1, N2] state; the architectures'
+kernel functions (:mod:`snngp_torch.nn.arch`) route 2-D Gram blocks to the
+fused Gram instead, and keep this tier as the independent reference. The
+finite-width ``init``/``apply``, the conv/pooling layers, the NTK and the
+custom backward of the arccos kernel land in later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+from snngp_torch.nn.state import KernelState, input_state
+
+__all__ = [
+    "Layer",
+    "Dense",
+    "Relu",
+    "Erf",
+    "Identity",
+    "FanOut",
+    "FanInSum",
+    "serial",
+    "parallel",
+    "kernel_fn_of",
+]
+
+_TINY = 1e-30
+
+
+@dataclasses.dataclass(frozen=True)
+class Layer:
+    kfn: Callable[[Any], Any]
+
+
+def Dense(out_dim: int, w_std, b_std=0.0) -> Layer:
+    """Fully-connected layer, NTK parameterization (stax.Dense analogue).
+    ``out_dim`` only matters to the finite-width tier."""
+
+    def kfn(k: KernelState) -> KernelState:
+        w2 = w_std * w_std
+        b2 = b_std * b_std
+        return KernelState(nngp=w2 * k.nngp + b2, var1=w2 * k.var1 + b2,
+                           var2=w2 * k.var2 + b2)
+
+    return Layer(kfn)
+
+
+def _relu_t(nngp, v1, v2):
+    """Arccos kernel T(K) = E[relu(u) relu(v)] for (u,v) ~ N(0, [[v1,K],[K,v2]])."""
+    s = torch.sqrt(torch.clamp(v1 * v2, min=_TINY))
+    c = torch.clamp(nngp / s, -1.0, 1.0)
+    theta = torch.acos(c)
+    return (s * torch.sin(theta) + (math.pi - theta) * nngp) / (2.0 * math.pi)
+
+
+def Relu() -> Layer:
+    def kfn(k: KernelState) -> KernelState:
+        nngp = _relu_t(k.nngp, k.var1[:, None], k.var2[None, :])
+        return KernelState(nngp=nngp, var1=k.var1 / 2.0, var2=k.var2 / 2.0)
+
+    return Layer(kfn)
+
+
+def _erf_t(nngp, v1, v2):
+    """Arcsin kernel T(K) = E[erf(u) erf(v)] = (2/pi) asin(2K / sqrt((1+2v1)(1+2v2)))."""
+    denom = torch.sqrt((1.0 + 2.0 * v1) * (1.0 + 2.0 * v2))
+    return (2.0 / math.pi) * torch.asin(torch.clamp(2.0 * nngp / denom, -1.0, 1.0))
+
+
+def Erf() -> Layer:
+    def kfn(k: KernelState) -> KernelState:
+        nngp = _erf_t(k.nngp, k.var1[:, None], k.var2[None, :])
+        return KernelState(nngp=nngp, var1=_erf_t(k.var1, k.var1, k.var1),
+                           var2=_erf_t(k.var2, k.var2, k.var2))
+
+    return Layer(kfn)
+
+
+def Identity() -> Layer:
+    return Layer(lambda k: k)
+
+
+def FanOut(n: int) -> Layer:
+    return Layer(lambda k: tuple(k for _ in range(n)))
+
+
+def FanInSum() -> Layer:
+    """Sum of parallel branches: branch outputs have zero cross-covariance
+    (each weighted branch ends in an independent zero-mean affine layer),
+    so kernels add."""
+
+    def kfn(ks):
+        return KernelState(nngp=sum(k.nngp for k in ks),
+                           var1=sum(k.var1 for k in ks),
+                           var2=sum(k.var2 for k in ks))
+
+    return Layer(kfn)
+
+
+def serial(*layers: Layer) -> Layer:
+    def kfn(k):
+        for layer in layers:
+            k = layer.kfn(k)
+        return k
+
+    return Layer(kfn)
+
+
+def parallel(*layers: Layer) -> Layer:
+    def kfn(ks):
+        return tuple(layer.kfn(k) for layer, k in zip(layers, ks))
+
+    return Layer(kfn)
+
+
+def kernel_fn_of(layer: Layer):
+    """Turn a composed Layer into ``kernel_fn(x1, x2=None, get="nngp")``."""
+
+    def kernel_fn(x1, x2=None, get="nngp"):
+        if get != "nngp":
+            raise NotImplementedError(f"get={get!r}: only the NNGP is ported")
+        return layer.kfn(input_state(x1, x2)).nngp
+
+    return kernel_fn

@@ -1,0 +1,70 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers) and is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under the
+repository's ``build/kernels/`` directory, keyed by a hash of the source and
+the flags, so an edited source rebuilds and an unchanged one loads at once.
+``nvcc``'s output (including ``-Xptxas -v``: registers, shared memory and
+spills per kernel) is kept beside the library as ``.log``.
+
+Nothing here runs at import: a machine without ``nvcc`` imports the port and
+uses the plain PyTorch versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["load", "library_path", "NVCC_FLAGS"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+# No --use_fast_math: it changes sqrtf / division / acosf accuracy, and the
+# kernels are held to fp32 parity with their plain versions.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels cannot be built on this machine")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to, for its current source and flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` unless its library exists, then load it."""
+    out = library_path(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return ctypes.CDLL(str(out))

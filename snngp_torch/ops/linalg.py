@@ -1,0 +1,100 @@
+"""Dense linear algebra core: Cholesky-everything (counterpart of
+``snngp/ops/linalg.py``). On the card these calls go to cuSOLVER/cuBLAS, as
+the JAX package left the factorization to XLA.
+
+Two differences from ``torch.linalg`` that the port hides, so that it
+behaves like the reference:
+
+- ``jnp.linalg.cholesky`` symmetrizes its input, ``(A + A^T) / 2``;
+  ``torch.linalg.cholesky`` reads only the lower triangle. :func:`cholesky`
+  symmetrizes at every site where the JAX package calls
+  ``jnp.linalg.cholesky``.
+- JAX returns a factor whose lower triangle is all NaN when the
+  factorization fails (and the CLI then logs a NaN NLL); torch raises.
+  :func:`cholesky` uses ``cholesky_ex`` and sets the factor's diagonal to
+  NaN where ``info > 0``, in place and without a host sync: every solve,
+  quadratic form and log-determinant taken from it is then NaN, as in JAX,
+  for O(N) work instead of a pass over the N x N factor.
+
+``gp_predict`` regularizes with ``diag_reg * mean(diag(K)) * I`` — the
+*relative* scaling of neural_tangents' ``gradient_descent_mse_ensemble``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = [
+    "add_jitter",
+    "add_diag_reg",
+    "cholesky",
+    "chol_solve",
+    "chol_quad_form",
+    "gp_predict",
+]
+
+
+def _add_to_diagonal(mat: torch.Tensor, value) -> torch.Tensor:
+    """mat + value * I as one copy plus an O(N) update (no N x N identity)."""
+    out = mat.clone()
+    out.diagonal(dim1=-2, dim2=-1).add_(value)
+    return out
+
+
+def add_jitter(mat: torch.Tensor, eps=1e-6) -> torch.Tensor:
+    return _add_to_diagonal(mat, eps)
+
+
+def add_diag_reg(mat: torch.Tensor, diag_reg) -> torch.Tensor:
+    """K + diag_reg * mean(diag(K)) * I — neural_tangents' relative diag_reg."""
+    scale = torch.diagonal(mat, dim1=-2, dim2=-1).sum(-1) / mat.shape[-1]
+    return _add_to_diagonal(mat, (diag_reg * scale)[..., None])
+
+
+def cholesky(mat: torch.Tensor) -> torch.Tensor:
+    """Lower factor of the symmetrized ``mat``; NaN on the diagonal where it
+    is not PD, so everything solved with it is NaN (``jnp.linalg.cholesky``
+    semantics downstream)."""
+    sym = (mat + mat.mT).mul_(0.5)      # == (A + A^T) / 2 bitwise
+    chol, info = torch.linalg.cholesky_ex(sym)
+    nan_if_failed = torch.where(info > 0, float("nan"), 0.0).to(chol.dtype)
+    chol.diagonal(dim1=-2, dim2=-1).add_(nan_if_failed[..., None])
+    return chol
+
+
+def chol_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b given the lower Cholesky factor of A (b is [n, k])."""
+    return torch.cholesky_solve(b, chol, upper=False)
+
+
+def chol_quad_form(chol: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y^T A^{-1} y via one triangular solve (y is [n] or [n, k])."""
+    rhs = y[:, None] if y.ndim == 1 else y
+    alpha = torch.linalg.solve_triangular(chol, rhs, upper=False)
+    if y.ndim == 1:
+        return torch.sum(alpha * alpha)
+    return torch.sum(alpha * alpha, dim=-2)
+
+
+def gp_predict(
+    kernel_fn,
+    x_train: torch.Tensor,
+    y_train: torch.Tensor,
+    x_test: torch.Tensor,
+    diag_reg=1e-6,
+    compute_cov: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Exact NNGP posterior: mean = K*^T (K + r I)^-1 y,
+    cov = K** - K*^T (K + r I)^-1 K*, with the trace-relative ``diag_reg``."""
+    k_dd = kernel_fn(x_train, x_train, get="nngp")
+    k_td = kernel_fn(x_test, x_train, get="nngp")
+    chol = cholesky(add_diag_reg(k_dd, diag_reg))
+    mean = k_td @ chol_solve(chol, y_train)
+    if not compute_cov:
+        return mean, None
+    k_tt = kernel_fn(x_test, x_test, get="nngp")
+    v = torch.linalg.solve_triangular(chol, k_td.T, upper=False)
+    cov = k_tt - v.T @ v
+    return mean, cov

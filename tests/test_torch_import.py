@@ -1,0 +1,39 @@
+"""The port never imports JAX: checked in a fresh interpreter, since this
+test process has JAX loaded already (tests/conftest.py)."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = ["snngp_torch", "snngp_torch.__main__", "snngp_torch.cli.regression",
+           "snngp_torch.models.predictor", "snngp_torch.nn.arch",
+           "snngp_torch.ops.gram", "snngp_torch.ops._build",
+           "snngp_torch.utils.checkpoint", "snngp_torch.data.regression"]
+
+
+def _run(code):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_leaves_jax_out(module):
+    proc = _run(f"import importlib, sys; importlib.import_module({module!r}); "
+                "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_precision_policy_and_no_pandas_for_synthetic_data():
+    proc = _run("import sys, torch, snngp_torch\n"
+                "from snngp_torch.data import get_dataset\n"
+                "get_dataset('syn-t')\n"
+                "print(torch.backends.cuda.matmul.allow_tf32, "
+                "torch.backends.cudnn.allow_tf32, 'pandas' in sys.modules)")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "False", "False"]

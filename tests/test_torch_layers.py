@@ -1,0 +1,86 @@
+"""Port parity: the dense NNGP layer tier (snngp_torch/nn/layers.py,
+state.py, arch.py builders) against snngp.nn.layers on the same inputs.
+
+Tolerance: atol 2e-6 for the MLP recursions and 5e-6 for the dense ResNet
+(whose Gram grows to ~10), the JAX package's own fp32 bars for this
+recursion (tests/test_pallas.py:27,72); the two frameworks' matmul and
+acos/asin differ in the last bits only.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from snngp.nn import arch as jarch
+from snngp.nn import layers as JL
+from snngp.nn.state import input_state as j_input_state
+
+from snngp_torch.nn import arch as tarch
+from snngp_torch.nn import layers as TL
+from snngp_torch.nn.state import input_state as t_input_state
+
+from _torch_parity import randn, to_numpy, to_torch
+
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("depth", [1, 3])
+def test_mlp_layer_kernel_matches(depth, act):
+    x1, x2 = randn(10, (40, 6), (25, 6))
+    want = JL.kernel_fn_of(jarch.get_mlp_layer(depth, 1, act, 1.4, 0.2, 0.8))(x1, x2, get="nngp")
+    got = TL.kernel_fn_of(tarch.get_mlp_layer(depth, 1, act, 1.4, 0.2, 0.8))(*to_torch(x1, x2))
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=2e-6)
+
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("depth", [1, 3])
+def test_dense_resnet_layer_kernel_matches(depth, act):
+    (x,) = randn(11, (40, 6))
+    want = JL.kernel_fn_of(jarch.get_dense_resnet_layer(depth, 1, act, 1.1, 0.3, 0.9))(
+        x, None, get="nngp")
+    got = TL.kernel_fn_of(tarch.get_dense_resnet_layer(depth, 1, act, 1.1, 0.3, 0.9))(
+        to_torch(x), None)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=5e-6)
+
+
+def test_input_state_matches():
+    x1, x2 = randn(12, (9, 4), (7, 4))
+    want = j_input_state(x1, x2)
+    got = t_input_state(*to_torch(x1, x2))
+    for field in ("nngp", "var1", "var2"):
+        np.testing.assert_allclose(to_numpy(getattr(got, field)),
+                                   np.asarray(getattr(want, field)), rtol=1e-6)
+    assert got.ntk is None
+
+
+@pytest.mark.parametrize("layer", ["Relu", "Erf"])
+def test_dual_activation_at_gram_diagonal(layer):
+    # K == sqrt(v1 v2) (correlation 1) and K == -sqrt(v1 v2) hit the clip
+    # at c = +-1; both tiers must agree there and stay finite.
+    v = np.array([0.5, 2.0, 1.3], np.float32)
+    k = np.outer(np.sqrt(v), np.sqrt(v)) * np.array([[1, -1, 0.3]] * 3, np.float32)
+    from snngp.nn.state import KernelState as JS
+    from snngp_torch.nn.state import KernelState as TS
+    want = getattr(JL, layer)().kfn(JS(nngp=k, var1=v, var2=v))
+    got = getattr(TL, layer)().kfn(TS(nngp=to_torch(k), var1=to_torch(v), var2=to_torch(v)))
+    for field in ("nngp", "var1", "var2"):
+        g = to_numpy(getattr(got, field))
+        assert np.all(np.isfinite(g))
+        np.testing.assert_allclose(g, np.asarray(getattr(want, field)), atol=1e-6)
+
+
+def test_fanout_parallel_faninsum_identity():
+    x1, x2 = randn(13, (8, 3), (5, 3))
+    branch = (lambda L: L.serial(L.FanOut(2), L.parallel(
+        L.serial(L.Relu(), L.Dense(4, 1.2, 0.1)), L.Identity()), L.FanInSum()))
+    want = JL.kernel_fn_of(branch(JL))(x1, x2, get="nngp")
+    got = TL.kernel_fn_of(branch(TL))(*to_torch(x1, x2))
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=1e-6)
+
+
+def test_kernel_fn_rejects_unported_requests():
+    (x,) = randn(14, (4, 3))
+    kfn = TL.kernel_fn_of(tarch.get_mlp_layer(1))
+    with pytest.raises(NotImplementedError):
+        kfn(to_torch(x), get="ntk")
+    with pytest.raises(ValueError):
+        kfn(torch.zeros(2, 4, 4, 1))
