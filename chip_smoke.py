@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of snngp_torch's exact-GP serving path on one NVIDIA card.
+"""GPU smoke run of snngp_torch's exact-GP regression on one NVIDIA card:
+serving and ML-II training.
 
     python3 chip_smoke.py
 
@@ -7,7 +8,8 @@ Phases, each printing what it found; any failed check raises and the
 script exits non-zero:
 
 0. setup: the card (``nvidia-smi`` name and power limit), torch / CUDA
-   versions, and the build of the CUDA kernels from ``snngp_torch/csrc``;
+   versions, and the build of the CUDA kernels from ``snngp_torch/csrc``
+   with ``nvcc``'s register / shared-memory / spill report;
 1. the fused Gram kernel (K1) against its plain PyTorch version on the same
    inputs, mlp / resnet x relu / erf at depth 4, at the headline shape
    (10,000 x 16 against itself), a ragged cross shape and a shape whose
@@ -16,14 +18,32 @@ script exits non-zero:
 2. serving at size: fit_spr + four 1,000-point requests of FittedSPR.predict
    on a depth-4 ReLU MLP NNGP with a Student-t likelihood, N = 10,000, D = 16,
    against the plain fp32 tier and the plain float64 tier on the card;
-3. the CLI: ``python -m snngp_torch reg ts`` / ``reg pr`` on a checkpoint
-   written in the JAX package's format, on CUDA and on the CPU.
+3. the serving CLI: ``python -m snngp_torch reg ts`` / ``reg pr`` on a
+   checkpoint written in the JAX package's format, on CUDA and on the CPU;
+4. the Gram's scalar-tangent backward kernel (K2) against its plain version
+   at phase 1's shapes and variants, on a random cotangent and, at
+   10,000 x 16, on the cotangent of the ML-II loss; gate: for each of the
+   three sums, |s_kernel - s_plain| / sum |g dK| <= 1e-5;
+5. ML-II training at size, same model and data as phase 2 with eps = 1e-2
+   absolute: one loss and gradient through the kernels (K1 forward, K2
+   backward) against float64 autograd through the plain layer tier on the
+   card (gate: within 2x the plain fp32 tier's error), then
+   ``SNNGPRegressor(max_steps=10).fit`` (finite, decreasing losses, one K1
+   and one K2 launch per step, a per-phase step breakdown), a 1,000-point
+   ``predict``, five more steps timed one by one and a ``torch.profiler``
+   profile of one step;
+6. the training CLI: ``reg tr`` on CUDA, ``reg ts`` on its checkpoint,
+   ``reg tr -rs`` resuming it, and the same training on the CPU; the best
+   NLLs of CUDA and CPU agree.
 
-The launch counts of the kernel are reset before phase 2 and read after
-phase 3. The line before the last is one JSON object describing the kernel;
-the last line is ``{"ok": true, "device": {...}}``. Exits non-zero without a
-result when CUDA is not available or the ``snngp_torch`` package is not
-beside this script. Imports nothing of JAX.
+Two main paths run with the kernels' launch counts set to 0 just before
+and read just after: serving (phases 2-3) and training (phases 5-6); each
+fails if a kernel of its path never launched. Launches made to compare a
+kernel with its plain version (phases 1 and 4) are not counted. The line
+before the last is one JSON object describing the kernels; the last line is
+``{"ok": true, "device": {...}}``. Exits non-zero without a result when CUDA
+is not available or the ``snngp_torch`` package is not beside this script.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,16 +63,32 @@ REPO = Path(__file__).resolve().parent
 DEPTH = 4
 W_STD, B_STD, LAST_W_STD = 1.3, 0.3, 1.0
 KERNEL_REL_TOL = 1e-5      # bench.py's _pallas_parity bar for the TPU kernels
+# K2's sums against the plain version's, relative to sum |g dK| (the scale of
+# the terms the sum cancels): the same 1e-5 bar.
+K2_REL_TOL = 1e-5
+SHAPES = {"10000x16 sym": (10_000, None, 16),
+          "1001x7 vs 333x7": (1_001, 333, 7),
+          "512x100 sym": (512, None, 100)}
+HEAD_SHAPE = "10000x16 sym"
+# H100 SXM peaks (NVIDIA's data sheet).
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_PER_S = 67e12
+H100_FP64_PER_S = 34e12
 SERVE_N, SERVE_D = 10_000, 16
 REQUESTS, REQUEST_SIZE, PREDICT_BATCH = 4, 1_000, 4096
 SERVE_EPS = 1e-3           # relative diag_reg of the main factorization
 SERVE_T_JITTER = 1e-4      # absolute jitter of the Student-t scale factorization
+TRAIN_EPS = 1e-2           # absolute eps of the ML-II loss (K + eps I)
+TRAIN_STEPS = 10
 CLI_RTOL = 5e-3            # CUDA vs CPU CLI NLL (tests/test_cli_smoke.py:47-51)
-# Student-t (a, b) of the CLI checkpoint. syn-t's Gram is near rank-1 (1-D
+# Student-t (a, b) of the CLI runs. syn-t's Gram is near rank-1 (1-D
 # inputs); at b/a = 1 the reference's hardcoded 1e-6 jitter on (b/a) K cannot
 # absorb its fp32 rounding, and both packages log NLL nan. b/a = 0.01 keeps
-# that factorization PD in both.
+# that factorization PD in both, and on syn-normal keeps the predictive NLL
+# of either package within 1e-3 of the other's.
 CLI_A, CLI_B = 2.0, 0.02
+CLI_TRAIN = ["-m", "tp", "-a", str(CLI_A), "-b", str(CLI_B), "-dn", "syn-normal",
+             "-vi", "10", "-pi", "10", "-nh", "2", "-eps", "1e-2", "-q"]
 
 
 def _sync():
@@ -75,6 +111,24 @@ def _time_ms(fn, reps=5):
     return start.elapsed_time(stop) / reps
 
 
+def _reset_launches():
+    from snngp_torch.ops import gram as G
+    for name in G.LAUNCHES:
+        G.LAUNCHES[name] = 0
+
+
+def _read_launches(path, kernels):
+    """The counts since _reset_launches; fails if a kernel of the path never
+    launched."""
+    from snngp_torch.ops import gram as G
+    counts = dict(G.LAUNCHES)
+    print(f"[{path}] main-path launches {counts}")
+    for name in kernels:
+        if counts[name] <= 0:
+            raise AssertionError(f"the {path} path never launched kernel {name!r}")
+    return counts
+
+
 def phase0_setup():
     import torch
     from snngp_torch.ops import _build
@@ -90,12 +144,13 @@ def phase0_setup():
     t0 = time.perf_counter()
     _build.load("gram")
     build_s = time.perf_counter() - t0
-    print(f"[setup] gram kernel {'loaded (cached build)' if built else 'built'} "
+    print(f"[setup] gram kernels {'loaded (cached build)' if built else 'built'} "
           f"in {build_s:.2f} s")
     log = _build.library_path("gram").with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("Function properties" in line or "registers" in line
+                    or "spill" in line):
                 print(f"[setup] ptxas: {line.strip()}")
     return card
 
@@ -105,12 +160,9 @@ def phase1_kernel_vs_plain():
     from snngp_torch.ops import gram as G
 
     rng = np.random.RandomState(0)
-    shapes = {"10000x16 sym": (10_000, None, 16),
-              "1001x7 vs 333x7": (1_001, 333, 7),
-              "512x100 sym": (512, None, 100)}
     rows = {}
     worst_abs = 0.0
-    for shape_name, (n1, n2, d) in shapes.items():
+    for shape_name, (n1, n2, d) in SHAPES.items():
         x1 = torch.as_tensor(rng.randn(n1, d).astype(np.float32), device="cuda")
         x2 = x1 if n2 is None else torch.as_tensor(
             rng.randn(n2, d).astype(np.float32), device="cuda")
@@ -142,12 +194,160 @@ def phase1_kernel_vs_plain():
                         f"K1 {mode}/{act} at {shape_name}: rel_err {rel_err:.3e} "
                         f"(tol {KERNEL_REL_TOL}), finite={finite}")
                 worst_abs = max(worst_abs, abs_err)
+                nbytes = sum(t.numel() * 4 for t in {id(t): t for t in args}.values())
+                bound, by = bound_ms(nbytes + n1 * x2.shape[0] * 4,
+                                     k1_ops(n1, x2.shape[0], d, DEPTH, act, mode))
                 rows[f"{mode}/{act}/{shape_name}"] = dict(
-                    ms=ms, plain_ms=plain_ms, rel_err=rel_err, abs_err=abs_err)
+                    ms=ms, plain_ms=plain_ms, rel_err=rel_err, abs_err=abs_err,
+                    bound_ms=bound, bound_by=by)
                 del k_kernel, k_plain
     torch.cuda.empty_cache()
     return rows, worst_abs
 
+
+# -- bounds ---------------------------------------------------------------------
+
+def _dual_act_ops(act, partials):
+    """fp32 operations of one dual activation (or of its partials, as K2
+    computes them), counted from csrc/gram.cu: an FMA is 2, every other
+    arithmetic op, min/max, compare and select is 1, and acosf, asinf, sqrtf
+    and an IEEE divide count 1 each (on the card each is a multi-instruction
+    sequence, so the count is a floor and the bound a least time)."""
+    if act == "relu":
+        return 20 if partials else 17
+    return 31 if partials else 12
+
+
+def k1_ops(n1, n2, d, depth, act, mode):
+    """fp32 operations of K1 on these shapes (see _dual_act_ops)."""
+    a = _dual_act_ops(act, False)
+    per = 2 * d + 1 + (depth * (2 + a) + 1 if mode == "mlp"
+                       else 2 + depth * (a + 3) + a + 1)
+    return n1 * n2 * per
+
+
+def k2_ops(n1, n2, d, depth, act, mode):
+    """(fp32, fp64) operations of K2 on these shapes (see _dual_act_ops);
+    the fp64 ones are the contraction's three FMAs per output."""
+    p = _dual_act_ops(act, True)
+    per = 2 * d + 1 + (depth * (17 + p) + 3 if mode == "mlp"
+                       else 3 + depth * (p + 20) + p + 13)
+    return n1 * n2 * per, n1 * n2 * 6
+
+
+def bound_ms(nbytes, fp32_ops, fp64_ops=0):
+    """Least time on an H100 SXM: the larger of the bytes over 3.35 TB/s and
+    the operations over 67 TFLOP/s fp32 (34 TFLOP/s fp64); and which bounds."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = (fp32_ops / H100_FP32_PER_S + fp64_ops / H100_FP64_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- K2 -------------------------------------------------------------------------
+
+def _k2_inputs(x1, x2, mode, act):
+    import torch
+    from snngp_torch.ops import gram as G
+
+    w, b, last = (torch.tensor(v, device="cuda") for v in (W_STD, B_STD, LAST_W_STD))
+    v1s, dv1s = G._stack_with_tangents(mode, x1, DEPTH, act, w, b)
+    v2s, dv2s = ((v1s, dv1s) if x2 is x1
+                 else G._stack_with_tangents(mode, x2, DEPTH, act, w, b))
+    scales = torch.stack([w * w, b * b, last * last,
+                          torch.tensor(1.0 / x1.shape[1], device="cuda"), w, b, last])
+    return [t.contiguous() for t in (x1, x2, v1s, v2s, dv1s, dv2s, scales)]
+
+
+def _k2_check(args, g, kw, label):
+    """K2 against its plain version on one cotangent; returns the row."""
+    import torch
+    from snngp_torch.ops import gram as G
+
+    s_kernel = G.gram_grads_cuda(*args, g, **kw)
+    s_plain = G.gram_grads_plain(*args, g, **kw)
+    _, dkw, dkb, dkl = G.gram_tangents_plain(*args, **kw)
+    g64 = g.double().abs()
+    scale = torch.stack([torch.sum(g64 * t.double().abs()) for t in (dkw, dkb, dkl)])
+    del dkw, dkb, dkl, g64
+    abs_err = (s_kernel - s_plain).abs()
+    rel = (abs_err / scale).max().item()
+    finite = bool(torch.isfinite(s_kernel).all())
+    ms = _time_ms(lambda: G.gram_grads_cuda(*args, g, **kw))
+    plain_ms = _time_ms(lambda: G.gram_grads_plain(*args, g, **kw), reps=2)
+    print(f"[K2] {label:34s} rel_err {rel:.3e} abs_err {abs_err.max().item():.3e}  "
+          f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  sums "
+          + " ".join(f"{v:.6e}" for v in s_kernel.tolist()))
+    if not finite or not rel <= K2_REL_TOL:
+        raise AssertionError(f"K2 {label}: rel_err {rel:.3e} (tol {K2_REL_TOL}), "
+                             f"finite={finite}")
+    n1, n2 = g.shape
+    nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in args}.values())
+              + g.numel() * 4 + 3 * (-(-n1 // 64)) * (-(-n2 // 64)) * 8)
+    bound, by = bound_ms(nbytes, *k2_ops(n1, n2, args[0].shape[1], kw["depth"],
+                                          kw["act"], kw["mode"]))
+    return dict(ms=ms, plain_ms=plain_ms, rel_err=rel, abs_err=abs_err.max().item(),
+                bound_ms=bound, bound_by=by)
+
+
+def phase4_k2_vs_plain(x_train, ml2_cotangent):
+    """K2 against its plain version at phase 1's shapes, on a random
+    cotangent and, at 10,000 x 16, also on the training inputs with the
+    cotangent of the ML-II loss."""
+    import torch
+
+    rng = np.random.RandomState(4)
+    rows = {}
+    for shape_name, (n1, n2, d) in SHAPES.items():
+        x1 = torch.as_tensor(rng.randn(n1, d).astype(np.float32), device="cuda")
+        x2 = x1 if n2 is None else torch.as_tensor(
+            rng.randn(n2, d).astype(np.float32), device="cuda")
+        g = torch.as_tensor(rng.randn(n1, x2.shape[0]).astype(np.float32), device="cuda")
+        cases = {"random": (x1, x2, g)}
+        if shape_name == HEAD_SHAPE:
+            cases["ml2"] = (x_train, x_train, ml2_cotangent)
+        for mode in ("mlp", "resnet"):
+            for act in ("relu", "erf"):
+                for case, (a1, a2, cot) in cases.items():
+                    rows[f"{mode}/{act}/{shape_name}/{case}"] = _k2_check(
+                        _k2_inputs(a1, a2, mode, act), cot,
+                        dict(depth=DEPTH, act=act, mode=mode),
+                        f"{mode} {act} {shape_name} {case}")
+        del x1, x2, g, cases
+    _k2_repeat_and_depth(x_train, ml2_cotangent)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _k2_repeat_and_depth(x_train, cot):
+    """K2's sums repeat bitwise (a fixed-order reduction, no atomics), and
+    K2 holds its plain version at its deepest supported depth."""
+    import torch
+    from snngp_torch.ops import gram as G
+
+    args = _k2_inputs(x_train, x_train, "mlp", "relu")
+    kw = dict(depth=DEPTH, act="relu", mode="mlp")
+    first, second = (G.gram_grads_cuda(*args, cot, **kw) for _ in range(2))
+    if not torch.equal(first, second):
+        raise AssertionError(f"K2 sums differ between two runs: {first} {second}")
+    depth = G._MAX_GRAD_DEPTH
+    rng = np.random.RandomState(5)
+    x = torch.as_tensor(rng.randn(300, 8).astype(np.float32), device="cuda")
+    w, b, last = (torch.tensor(v, device="cuda") for v in (1.0, 0.1, 1.0))
+    v, dv = G._stack_with_tangents("mlp", x, depth, "relu", w, b)
+    scales = torch.stack([w * w, b * b, last * last, torch.tensor(1.0 / 8, device="cuda"),
+                          w, b, last])
+    g = torch.as_tensor(rng.randn(300, 300).astype(np.float32), device="cuda")
+    kw = dict(depth=depth, act="relu", mode="mlp")
+    got = G.gram_grads_cuda(x, x, v, v, dv, dv, scales, g, **kw)
+    want = G.gram_grads_plain(x, x, v, v, dv, dv, scales, g, **kw)
+    rel = ((got - want).abs() / want.abs()).max().item()
+    print(f"[K2] sums repeat bitwise: True; depth {depth} (the kernel's limit) vs plain "
+          f"rel err {rel:.3e}")
+    if not rel <= K2_REL_TOL:
+        raise AssertionError(f"K2 at depth {depth}: rel err {rel:.3e}")
+
+
+# -- serving --------------------------------------------------------------------
 
 def _serving_data():
     rng = np.random.RandomState(1)
@@ -159,20 +359,32 @@ def _serving_data():
     return x, ((y - y_mean) / y_std).astype(np.float32), x_req, y_mean, y_std
 
 
-def _serving_model(x, y, y_mean, y_std, *, fused, dtype):
-    import torch
+def _model(x, y, y_mean, y_std, *, fused, dtype, eps=SERVE_EPS):
+    """The depth-4 ReLU MLP NNGP with a Student-t likelihood, built as the
+    CLI builds it (scalar-tangent backward: ML-II trains only the scales)
+    or on the plain layer tier."""
     from snngp_torch.models import SPR, NNGPKernel, StudentTLikelihood
     from snngp_torch.nn import arch, layers
 
     if fused:
         def get_kernel_fn(w, b, last):
-            return arch.get_mlp_kernel(DEPTH, act="relu", w_std=w, b_std=b, last_w_std=last)
+            return arch.get_mlp_kernel(DEPTH, act="relu", w_std=w, b_std=b, last_w_std=last,
+                                       trainable_inputs=False)
     else:  # the plain layer tier, an independent reference
         def get_kernel_fn(w, b, last):
             return layers.kernel_fn_of(arch.get_mlp_layer(DEPTH, 1, "relu", w, b, last))
     model = SPR(NNGPKernel(get_kernel_fn, W_STD, B_STD, LAST_W_STD),
-                StudentTLikelihood(2.0, 2.0), x, y, y_mean, y_std, eps=SERVE_EPS)
+                StudentTLikelihood(2.0, 2.0), x, y, y_mean, y_std, eps=eps)
     return model.to(device="cuda", dtype=dtype)
+
+
+def _raise_with_spectrum(gram, what):
+    """A failed factorization: report the Gram's spectrum, then fail."""
+    import torch
+    ev = torch.linalg.eigvalsh(gram.detach().double())
+    raise AssertionError(
+        f"{what}: fp{torch.finfo(gram.dtype).bits} factorization failed; "
+        f"Gram eigenvalues min {ev[0].item():.3e} max {ev[-1].item():.3e}")
 
 
 def _serve(model, x_req, *, timed):
@@ -193,10 +405,7 @@ def _serve(model, x_req, *, timed):
     bad = {k: v.item() for k, v in fitted.state.items()
            if v.numel() == 1 and not math.isfinite(v.item())}
     if bad or not bool(torch.isfinite(fitted.state["chol"]).all()):
-        ev = torch.linalg.eigvalsh(gram.double())
-        raise AssertionError(
-            f"fp{torch.finfo(gram.dtype).bits} factorization failed ({bad}); "
-            f"Gram eigenvalues min {ev[0].item():.3e} max {ev[-1].item():.3e}")
+        _raise_with_spectrum(gram, f"serving ({bad})")
     del gram
     xs = torch.as_tensor(x_req, device="cuda", dtype=model.x_data.dtype)
     means, vars_, lat = [], [], []
@@ -226,7 +435,7 @@ def _warm_up(data):
     import torch
 
     x, y, x_req, y_mean, y_std = data
-    _serve(_serving_model(x, y, y_mean, y_std, fused=False, dtype=torch.float32),
+    _serve(_model(x, y, y_mean, y_std, fused=False, dtype=torch.float32),
            x_req, timed=False)
 
 
@@ -237,17 +446,17 @@ def phase2_serving(data):
     x, y, x_req, y_mean, y_std = data
     print(f"[serve] N={SERVE_N} D={SERVE_D} depth {DEPTH} relu MLP, Student-t a=b=2, "
           f"eps={SERVE_EPS} (relative), t_jitter={SERVE_T_JITTER}")
-    before = G.LAUNCHES
-    model = _serving_model(x, y, y_mean, y_std, fused=True, dtype=torch.float32)
+    before = G.LAUNCHES["gram"]
+    model = _model(x, y, y_mean, y_std, fused=True, dtype=torch.float32)
     mean_k, var_k, timings = _serve(model, x_req, timed=True)
-    launched = G.LAUNCHES - before
+    launched = G.LAUNCHES["gram"] - before
     expected = 1 + REQUESTS * 2  # train Gram; cross + test Gram per request
     print(f"[serve] kernel launches {launched} (expected {expected})")
     del model
 
     ref = {}
     for name, dtype in (("plain fp32", torch.float32), ("plain fp64", torch.float64)):
-        m = _serving_model(x, y, y_mean, y_std, fused=False, dtype=dtype)
+        m = _model(x, y, y_mean, y_std, fused=False, dtype=dtype)
         mean, var, t = _serve(m, x_req, timed=False)
         print(f"[serve] {name}: gram {t['gram_s']:.4f} s  cholesky+solves {t['factor_s']:.4f} s")
         ref[name] = (mean.double(), var.double())
@@ -325,7 +534,7 @@ def phase3_cli():
     common = ["-cd", str(ckpt), "-dr", str(work / "data"), "-q"]
     fitted = ckpt / "fitted.npz"
 
-    before = G.LAUNCHES
+    before = G.LAUNCHES["gram"]
     _run_cli(["--device", "cuda", "reg", "ts", *common])
     nll_ts = _nll(ckpt / "test" / "test.log")
     _run_cli(["--device", "cuda", "reg", "pr", *common, "-fs", str(fitted)])
@@ -336,7 +545,7 @@ def phase3_cli():
     _run_cli(["--device", "cuda", "reg", "pr", *common, "-fs", str(fitted)])
     pr2_log = (ckpt / "predict" / "predict.log").read_text()
     nll_pr2 = _nll(ckpt / "predict" / "predict.log")
-    launched = G.LAUNCHES - before
+    launched = G.LAUNCHES["gram"] - before
     _run_cli(["--device", "cpu", "reg", "ts", *common])
     nll_cpu = _nll(ckpt / "test" / "test.log")
 
@@ -356,6 +565,208 @@ def phase3_cli():
         raise AssertionError("the CLI never launched the Gram kernel")
 
 
+# -- training -------------------------------------------------------------------
+
+def _loss_and_grads(model):
+    """ML-II loss and its six gradients, in sorted-name order, as float64."""
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    gram = model._gram(model.kernel.get_kernel_fn())
+    loss = model.loss(gram)
+    if not math.isfinite(loss.item()):
+        _raise_with_spectrum(gram, "ML-II loss")
+    loss.backward()
+    names = sorted(n for n, _ in model.named_parameters())
+    params = dict(model.named_parameters())
+    return loss.item(), names, torch.stack([params[n].grad.double() for n in names])
+
+
+def ml2_cotangent(data):
+    """dLoss/dK of the ML-II loss at the initial parameters, on the training
+    inputs (phase 4's realistic cotangent); returns (x_train, g)."""
+    import torch
+
+    x, y, _, y_mean, y_std = data
+    model = _model(x, y, y_mean, y_std, fused=True, dtype=torch.float32, eps=TRAIN_EPS)
+    gram = model._gram(model.kernel.get_kernel_fn())
+    gram.retain_grad()
+    model.loss(gram).backward()
+    return model.x_data, gram.grad.detach()
+
+
+def phase5_training(data):
+    import torch
+    from snngp_torch.ops import gram as G
+    from snngp_torch.sklearn import SNNGPRegressor
+    from snngp_torch.utils import Profiler
+
+    x, y, x_req, y_mean, y_std = data
+    print(f"[train] N={SERVE_N} D={SERVE_D} depth {DEPTH} relu MLP, Student-t a=b=2, "
+          f"eps={TRAIN_EPS} (absolute)")
+    grads, errs = {}, {}
+    for name, fused, dtype in (("kernel", True, torch.float32),
+                               ("plain fp32", False, torch.float32),
+                               ("plain fp64", False, torch.float64)):
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(G.LAUNCHES)
+        t0 = time.perf_counter()
+        model = _model(x, y, y_mean, y_std, fused=fused, dtype=dtype, eps=TRAIN_EPS)
+        loss, names, grads[name] = _loss_and_grads(model)
+        _sync()
+        wall = time.perf_counter() - t0
+        launched = {k: G.LAUNCHES[k] - before[k] for k in before}
+        print(f"[train] {name:10s} loss {loss:.8f}  grads "
+              + " ".join(f"{n}={v:.6e}" for n, v in zip(names, grads[name].tolist()))
+              + f"  {wall:.3f} s  peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+              f"  launches {launched}")
+        del model
+        torch.cuda.empty_cache()
+    g64 = grads["plain fp64"]
+    for name in ("kernel", "plain fp32"):
+        errs[name] = ((grads[name] - g64).norm() / g64.norm()).item()
+        per = ((grads[name] - g64).abs() / g64.abs()).tolist()
+        print(f"[train] {name:10s} vs fp64: gradient rel err {errs[name]:.3e}  per parameter "
+              + " ".join(f"{v:.2e}" for v in per))
+    bar = 2.0 * max(errs["plain fp32"], 1e-6)
+    if not errs["kernel"] <= bar:
+        raise AssertionError(f"kernel-path gradient error {errs['kernel']:.3e} above 2x "
+                             f"the plain fp32 error ({bar:.3e})")
+
+    X = x * 1.0
+    y_raw = y * y_std + y_mean
+    prof = Profiler()
+    before = dict(G.LAUNCHES)
+    _sync()
+    t0 = time.perf_counter()
+    reg = SNNGPRegressor(method="tp", num_hiddens=DEPTH, activation="relu", w_std=W_STD,
+                         b_std=B_STD, last_w_std=LAST_W_STD, eps=TRAIN_EPS,
+                         max_steps=TRAIN_STEPS, device="cuda").fit(X, y_raw, profiler=prof)
+    _sync()
+    fit_s = time.perf_counter() - t0
+    launched = {k: G.LAUNCHES[k] - before[k] for k in before}
+    losses = reg.losses_
+    print(f"[train] SNNGPRegressor.fit: {TRAIN_STEPS} steps + fit_spr in {fit_s:.4f} s; "
+          f"losses " + " ".join(f"{v:.6f}" for v in losses))
+    print(f"[train] fit launches {launched} (expected gram {TRAIN_STEPS + 1}: one per "
+          f"step and fit_spr's; gram_grads {TRAIN_STEPS}: one per step)")
+    steps = {k: 1e3 * prof.totals[k] / prof.counts[k] for k in prof.totals}
+    print("[train] ML-II step (synchronized host clock, mean of "
+          f"{TRAIN_STEPS}): " + "  ".join(f"{k} {v:.3f} ms" for k, v in steps.items())
+          + f"  total {sum(steps.values()):.3f} ms")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"ML-II losses not finite and decreasing: {losses}")
+    if launched != {"gram": TRAIN_STEPS + 1, "gram_grads": TRAIN_STEPS}:
+        raise AssertionError(f"fit launched {launched}; expected one K1 and one K2 "
+                             "per step, plus fit_spr's K1")
+
+    t0 = time.perf_counter()
+    mean, std = reg.predict(x_req[:REQUEST_SIZE], return_std=True)
+    predict_s = time.perf_counter() - t0
+    print(f"[train] predict {REQUEST_SIZE} points in {predict_s * 1e3:.2f} ms: "
+          f"shapes {mean.shape} {std.shape}, finite "
+          f"{bool(np.all(np.isfinite(mean)) and np.all(np.isfinite(std)))}")
+    if mean.shape != (REQUEST_SIZE,) or std.shape != mean.shape:
+        raise AssertionError(f"unexpected predict shapes {mean.shape}, {std.shape}")
+    if not (np.all(np.isfinite(mean)) and np.all(std > 0)):
+        raise AssertionError("predictions not finite / std not positive")
+    _warm_steps(reg.model_)
+    _profile_step(reg.model_)
+    return dict(errs=errs, steps_ms=steps, fit_s=fit_s, losses=losses.tolist())
+
+
+def _warm_steps(model, n=5):
+    """n more ML-II steps (lr 0: the parameters stay as fitted), each phase
+    of each step on its own: the spread that the fit's mean hides."""
+    from snngp_torch.utils import Adam, Profiler, train_step
+
+    opt = Adam(model)
+    for i in range(n):
+        prof = Profiler()
+        train_step(model, opt, 0.0, prof)
+        ms = {k: 1e3 * v for k, v in prof.totals.items()}
+        print(f"[train] warm step {i}: " + "  ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+              + f"  total {sum(ms.values()):.3f} ms")
+
+
+def _profile_step(model, top=12):
+    """One warm ML-II step under torch.profiler: device time by kernel (self
+    time), and the step's device time against its wall time (the profiler
+    adds host overhead, so the idle share it implies is an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from snngp_torch.utils import Adam, train_step
+
+    opt = Adam(model)
+    train_step(model, opt, 0.0)          # lr 0: the parameters stay as fitted
+    _sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_step(model, opt, 0.0)
+        _sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # Kernels only: an operator's own event carries the device time of the
+    # kernels it launched, which would count them twice.
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    total_ms = sum(device_us(e) for e in events) / 1e3
+    print(f"[profile] one ML-II step: kernels {total_ms:.3f} ms of {wall_ms:.3f} ms wall "
+          f"(profiled); top {top} kernels by device time:")
+    for e in sorted(events, key=device_us, reverse=True)[:top]:
+        print(f"[profile]   {device_us(e) / 1e3:9.3f} ms  {100 * device_us(e) / 1e3 / total_ms:5.1f}%"
+              f"  x{e.count:<4d} {e.key[:90]}")
+
+
+def _best_nll(log_path):
+    """NLL of the final best-step line of a ``reg tr`` log."""
+    text = Path(log_path).read_text()
+    if "Traceback" in text:
+        raise AssertionError(f"{log_path}:\n{text}")
+    best = [line for line in text.splitlines() if line.startswith("[") and "TEST:" in line]
+    return float(best[-1].split("NLL:")[1].split()[0])
+
+
+def phase6_train_cli():
+    work = REPO / "build" / "chip_smoke" / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    common = [*CLI_TRAIN, "-cr", str(work), "-dr", str(work / "data")]
+    t0 = time.perf_counter()
+    _run_cli(["--device", "cuda", "reg", "tr", *common, "-t", "20", "-cn", "cuda"])
+    t_cuda = time.perf_counter() - t0
+    nll_cuda = _best_nll(work / "cuda" / "train.log")
+    _run_cli(["--device", "cuda", "reg", "ts", "-cd", str(work / "cuda"),
+              "-dr", str(work / "data"), "-q"])
+    nll_ts = _nll(work / "cuda" / "test" / "test.log")
+    _run_cli(["--device", "cuda", "reg", "tr", *common, "-t", "30", "-cn", "cuda", "-rs"])
+    resumed = (work / "cuda" / "train.log").read_text()
+    nll_resumed = _best_nll(work / "cuda" / "train.log")
+    t0 = time.perf_counter()
+    _run_cli(["--device", "cpu", "reg", "tr", *common, "-t", "20", "-cn", "cpu"])
+    t_cpu = time.perf_counter() - t0
+    nll_cpu = _best_nll(work / "cpu" / "train.log")
+    print(f"[cli] syn-normal tp reg tr -t 20: best NLL {nll_cuda:.5f} (cuda, {t_cuda:.2f} s) "
+          f"{nll_cpu:.5f} (cpu, {t_cpu:.2f} s); reg ts {nll_ts:.5f}; "
+          f"resumed to step 30: best NLL {nll_resumed:.5f}")
+    if "at step 20" not in resumed or "[   30] nll:" not in resumed \
+            or "[   10] nll:" in resumed:
+        raise AssertionError(f"reg tr -rs did not resume from step 20:\n{resumed}")
+    if not all(math.isfinite(v) for v in (nll_cuda, nll_cpu, nll_ts, nll_resumed)):
+        raise AssertionError("non-finite NLL")
+    np.testing.assert_allclose(nll_cuda, nll_cpu, rtol=CLI_RTOL)
+
+
+def _kernel_entry(name, source, replaces, launches, rows, head, worst_abs):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": worst_abs,
+            "ms": rows[head]["ms"], "plain_ms": rows[head]["plain_ms"],
+            "bound_ms": rows[head]["bound_ms"], "bound_by": rows[head]["bound_by"],
+            "library_ms": None, "variants": rows}
+
+
 def main() -> int:
     import torch
 
@@ -368,29 +779,40 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
 
     import snngp_torch  # noqa: F401  (precision policy)
-    from snngp_torch.ops import gram as G
 
+    t_start = time.perf_counter()
     phase0_setup()
     with torch.inference_mode():
-        variants, worst_abs = phase1_kernel_vs_plain()
+        k1_rows, k1_abs = phase1_kernel_vs_plain()
         data = _serving_data()
         _warm_up(data)
-        G.LAUNCHES = 0                   # main path starts here
+        _reset_launches()                 # serving path starts here
         phase2_serving(data)
     phase3_cli()
-    launches = G.LAUNCHES                # main path ends here
+    serving = _read_launches("serve", ["gram"])   # serving path ends here
+
+    x_train, cot = ml2_cotangent(data)
+    with torch.inference_mode():
+        k2_rows = phase4_k2_vs_plain(x_train, cot)
+    del x_train, cot
+    torch.cuda.empty_cache()
+    _reset_launches()                     # training path starts here
+    phase5_training(data)
+    phase6_train_cli()
+    training = _read_launches("train", ["gram", "gram_grads"])  # training path ends here
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    head = variants["mlp/relu/10000x16 sym"]
-    print(json.dumps({"kernels": [{
-        "name": "gram (K1, fused NNGP Gram)", "route": "cuda",
-        "source": "snngp_torch/csrc/gram.cu",
-        "replaces": "snngp/ops/pallas/gram.py:180",
-        "launches": launches, "max_abs_err": worst_abs,
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "variants": variants,
-    }]}))
+    k1 = _kernel_entry("gram (K1, fused NNGP Gram)", "snngp_torch/csrc/gram.cu",
+                       "snngp/ops/pallas/gram.py:180",
+                       serving["gram"] + training["gram"], k1_rows,
+                       f"mlp/relu/{HEAD_SHAPE}", k1_abs)
+    k2 = _kernel_entry("gram_grads (K2, scalar-tangent Gram backward, fused contraction)",
+                       "snngp_torch/csrc/gram.cu", "snngp/ops/pallas/gram.py:249",
+                       training["gram_grads"], k2_rows, f"mlp/relu/{HEAD_SHAPE}/random",
+                       max(r["abs_err"] for r in k2_rows.values()))
+    print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""CLI entry point: ``python -m snngp_torch [--device DEV] reg {ts,pr} ...``
+"""CLI entry point: ``python -m snngp_torch [--device DEV] reg {tr,ts,pr} ...``
 (counterpart of the JAX package's ``run.py``).
 
 ``--device`` (default ``cuda``) names the torch device every tensor lives

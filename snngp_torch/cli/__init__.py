@@ -1,4 +1,5 @@
-"""argparse command tree: ``regression|reg`` x ``test|ts``, ``predict|pr``."""
+"""argparse command tree: ``regression|reg`` x ``train|tr``, ``test|ts``,
+``predict|pr``."""
 
 from snngp_torch.cli import regression
 

@@ -6,7 +6,8 @@ names: ``eps``, ``kernel.{b_std,last_w_std,w_std}`` and, for a Student-t
 likelihood, ``likelihood.{a,b}``. The training data and the target
 normalization are non-persistent buffers, so ``.to(device)`` moves them
 with the parameters and ``state_dict()`` holds the parameters only.
-The marginal-likelihood ``loss`` comes with training.
+``loss`` is the ML-II objective (differentiable in every parameter);
+``test_nll`` the predictive NLL.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from torch import nn
 
 from snngp_torch.models import params as P
 from snngp_torch.models.bijectors import positive
+from snngp_torch.ops.linalg import add_jitter
 
 __all__ = ["SPR"]
 
@@ -43,6 +45,17 @@ class SPR(nn.Module):
     def _gram(self, kernel_fn):
         """Full training Gram."""
         return self.kernel.K(kernel_fn, self.x_data)
+
+    def loss(self, gram=None):
+        """Negative marginal log-likelihood / N (spax/models.py:93-98), with
+        eps added to the Gram's diagonal. ``gram`` optionally supplies the
+        train Gram for the current parameters (``_gram``'s result, still on
+        the autograd graph)."""
+        eps = P.constrained_read(self.eps, self.bij)
+        if gram is None:
+            gram = self._gram(self.kernel.get_kernel_fn())
+        log_prob = self.likelihood.prior_logpdf(self.y_data, add_jitter(gram, eps))
+        return -log_prob / self.num_data
 
     def test_nll(self, x, y):
         """Predictive NLL on de-normalized targets (spax/models.py:100-120)."""

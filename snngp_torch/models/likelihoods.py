@@ -1,12 +1,11 @@
-"""Regression likelihoods: the predictive densities (counterpart of
-``snngp/models/likelihoods.py``).
+"""Regression likelihoods (counterpart of ``snngp/models/likelihoods.py``).
 
-- :class:`GaussianLikelihood` -> exact GP regression.
-- :class:`StudentTLikelihood` -> Student-t process: the predictive is a
+- :class:`GaussianLikelihood` -> exact GP regression: a zero-mean normal
+  marginal.
+- :class:`StudentTLikelihood` -> Student-t process: the marginal is a
+  multivariate t with df = 2a and scale (b/a) K; the predictive is a
   conditional-t with 2a + N degrees of freedom and the data-dependent scale
   inflation d / (2a + N), d = 2a + y^T ((b/a) K + jitter)^{-1} y.
-
-The marginal likelihoods (``prior_logpdf``) come with training.
 """
 
 from __future__ import annotations
@@ -18,7 +17,8 @@ from torch import nn
 
 from snngp_torch.models import params as P
 from snngp_torch.models.bijectors import positive
-from snngp_torch.ops.linalg import add_jitter, chol_quad_form, cholesky
+from snngp_torch.ops.linalg import add_jitter, chol_quad_form, cholesky, mvn_logpdf
+from snngp_torch.ops.mvt import multivariate_t_logpdf
 
 __all__ = ["Likelihood", "GaussianLikelihood", "StudentTLikelihood",
            "normal_logpdf", "student_t_logpdf"]
@@ -46,6 +46,10 @@ class Likelihood(nn.Module):
 class GaussianLikelihood(Likelihood):
     require = None
 
+    def prior_logpdf(self, x, cov):
+        """Zero-mean MVN marginal log-likelihood (spax/likelihoods.py:25-28)."""
+        return mvn_logpdf(x, cov)
+
     def logpdf(self, x, mean, cov, aux):
         """Diagonal-Normal predictive density (spax/likelihoods.py:30-33)."""
         return normal_logpdf(x, mean, torch.sqrt(torch.diagonal(cov)))
@@ -63,6 +67,12 @@ class StudentTLikelihood(Likelihood):
     def _ab(self):
         return (P.constrained_read(self.a, self.bij),
                 P.constrained_read(self.b, self.bij))
+
+    def prior_logpdf(self, x, cov):
+        """Multivariate-t marginal, df = 2a, scale (b/a) K
+        (spax/likelihoods.py:45-50)."""
+        a, b = self._ab()
+        return multivariate_t_logpdf(x, torch.zeros_like(x), (b / a) * cov, 2 * a)
 
     def logpdf(self, x, mean, cov, aux):
         """Conditional-t predictive (spax/likelihoods.py:52-65):

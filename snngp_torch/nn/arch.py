@@ -64,7 +64,7 @@ def get_dense_resnet_layer(num_hiddens, num_class=1, act="relu", w_std=1.0,
 
 
 def _fused_kernel_fn(layer_builder, gram_fn, num_hiddens, num_class, act,
-                     w_std, b_std, last_w_std, width):
+                     w_std, b_std, last_w_std, width, trainable_inputs):
     ref_fn = L.kernel_fn_of(layer_builder(num_hiddens, num_class, act, w_std,
                                           b_std, last_w_std, width=width))
 
@@ -72,24 +72,32 @@ def _fused_kernel_fn(layer_builder, gram_fn, num_hiddens, num_class, act,
         if get == "nngp" and x1.ndim == 2:
             return gram_fn(x1, x1 if x2 is None else x2, depth=num_hiddens,
                            act=act, w_std=w_std, b_std=b_std,
-                           last_w_std=last_w_std)
+                           last_w_std=last_w_std, trainable_inputs=trainable_inputs)
         return ref_fn(x1, x2, get=get)
 
     return kernel_fn
 
 
 def get_mlp_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0, b_std=0.0,
-                   last_w_std=1.0, width=512):
-    """MLP kernel_fn: 2-D NNGP blocks go to the fused Gram."""
+                   last_w_std=1.0, width=512, trainable_inputs=True):
+    """MLP kernel_fn: 2-D NNGP blocks go to the fused Gram.
+
+    ``trainable_inputs=False`` declares that gradients are only ever taken
+    with respect to the scale scalars (the ML-II regression configuration):
+    the fused Gram's backward is then K2, the scalar-tangent kernel, with
+    zero x cotangents."""
     return _fused_kernel_fn(get_mlp_layer, G.mlp_gram, num_hiddens, num_class,
-                            act, w_std, b_std, last_w_std, width)
+                            act, w_std, b_std, last_w_std, width, trainable_inputs)
 
 
 def get_dense_resnet_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0,
-                            b_std=0.0, last_w_std=1.0, width=512):
-    """Dense-ResNet kernel_fn: 2-D NNGP blocks go to the fused Gram."""
+                            b_std=0.0, last_w_std=1.0, width=512,
+                            trainable_inputs=True):
+    """Dense-ResNet kernel_fn: 2-D NNGP blocks go to the fused Gram.
+    ``trainable_inputs``: see :func:`get_mlp_kernel`."""
     return _fused_kernel_fn(get_dense_resnet_layer, G.resnet_gram, num_hiddens,
-                            num_class, act, w_std, b_std, last_w_std, width)
+                            num_class, act, w_std, b_std, last_w_std, width,
+                            trainable_inputs)
 
 
 KERNELS = {

@@ -12,9 +12,11 @@ Each layer is a :class:`Layer` whose ``kfn`` maps a
 
 This tier materializes every layer's [N1, N2] state; the architectures'
 kernel functions (:mod:`snngp_torch.nn.arch`) route 2-D Gram blocks to the
-fused Gram instead, and keep this tier as the independent reference. The
-finite-width ``init``/``apply``, the conv/pooling layers, the NTK and the
-custom backward of the arccos kernel land in later slices.
+fused Gram instead, and keep this tier as the independent reference and as
+the backward of the fused Gram's ``trainable_inputs=True`` contract. The
+arccos kernel carries the JAX package's analytic backward, finite on the
+Gram's diagonal. The finite-width ``init``/``apply``, the conv/pooling
+layers and the NTK land in later slices.
 """
 
 from __future__ import annotations
@@ -61,12 +63,35 @@ def Dense(out_dim: int, w_std, b_std=0.0) -> Layer:
     return Layer(kfn)
 
 
+class _ReluT(torch.autograd.Function):
+    """Arccos kernel with the JAX package's analytic derivatives, which are
+    finite at c = +-1 (the Gram's diagonal), where autograd through
+    ``acos`` gives NaN:
+
+        dT/dK = (pi - theta) / (2 pi),  dT/dv1 = sin(theta) v2 / (4 pi s),
+
+    and symmetrically for v2 (``snngp/nn/layers.py:_relu_t_jvp``)."""
+
+    @staticmethod
+    def forward(ctx, nngp, v1, v2):
+        s = torch.sqrt(torch.clamp(v1 * v2, min=_TINY))
+        c = torch.clamp(nngp / s, -1.0, 1.0)
+        theta = torch.acos(c)
+        sin_t = torch.sin(theta)
+        ctx.save_for_backward(v1, v2, s, theta, sin_t)
+        return (s * sin_t + (math.pi - theta) * nngp) / (2.0 * math.pi)
+
+    @staticmethod
+    def backward(ctx, g):
+        v1, v2, s, theta, sin_t = ctx.saved_tensors
+        q = g * sin_t / (4.0 * math.pi * s)
+        return ((g * ((math.pi - theta) / (2.0 * math.pi))),
+                (q * v2).sum_to_size(v1.shape), (q * v1).sum_to_size(v2.shape))
+
+
 def _relu_t(nngp, v1, v2):
     """Arccos kernel T(K) = E[relu(u) relu(v)] for (u,v) ~ N(0, [[v1,K],[K,v2]])."""
-    s = torch.sqrt(torch.clamp(v1 * v2, min=_TINY))
-    c = torch.clamp(nngp / s, -1.0, 1.0)
-    theta = torch.acos(c)
-    return (s * torch.sin(theta) + (math.pi - theta) * nngp) / (2.0 * math.pi)
+    return _ReluT.apply(nngp, v1, v2)
 
 
 def Relu() -> Layer:

@@ -1,8 +1,11 @@
-"""Compute core: Cholesky-based linear algebra and the fused NNGP Gram."""
+"""Compute core: Cholesky-based linear algebra, the marginal likelihoods and
+the fused NNGP Gram."""
 
 from snngp_torch.ops.linalg import (
-    add_jitter, add_diag_reg, cholesky, chol_solve, chol_quad_form, gp_predict,
+    add_jitter, add_diag_reg, cholesky, chol_solve, chol_logdet, chol_quad_form,
+    gp_predict, mvn_logpdf,
 )
+from snngp_torch.ops.mvt import multivariate_t_logpdf
 
-__all__ = ["add_jitter", "add_diag_reg", "cholesky", "chol_solve",
-           "chol_quad_form", "gp_predict"]
+__all__ = ["add_jitter", "add_diag_reg", "cholesky", "chol_solve", "chol_logdet",
+           "chol_quad_form", "gp_predict", "mvn_logpdf", "multivariate_t_logpdf"]

@@ -12,9 +12,14 @@ behaves like the reference:
 - JAX returns a factor whose lower triangle is all NaN when the
   factorization fails (and the CLI then logs a NaN NLL); torch raises.
   :func:`cholesky` uses ``cholesky_ex`` and sets the factor's diagonal to
-  NaN where ``info > 0``, in place and without a host sync: every solve,
-  quadratic form and log-determinant taken from it is then NaN, as in JAX,
-  for O(N) work instead of a pass over the N x N factor.
+  NaN where ``info > 0``, without a host sync: every solve, quadratic form
+  and log-determinant taken from it is then NaN, as in JAX. Outside autograd
+  that is done in place, for O(N) work instead of a pass over the N x N
+  factor; under autograd, on a copy of the factor.
+
+The marginal likelihoods (:func:`mvn_logpdf`, and
+:func:`snngp_torch.ops.mvt.multivariate_t_logpdf`) are differentiable
+through all of these.
 
 ``gp_predict`` regularizes with ``diag_reg * mean(diag(K)) * I`` — the
 *relative* scaling of neural_tangents' ``gradient_descent_mse_ensemble``.
@@ -22,6 +27,7 @@ behaves like the reference:
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -31,8 +37,10 @@ __all__ = [
     "add_diag_reg",
     "cholesky",
     "chol_solve",
+    "chol_logdet",
     "chol_quad_form",
     "gp_predict",
+    "mvn_logpdf",
 ]
 
 
@@ -56,12 +64,23 @@ def add_diag_reg(mat: torch.Tensor, diag_reg) -> torch.Tensor:
 def cholesky(mat: torch.Tensor) -> torch.Tensor:
     """Lower factor of the symmetrized ``mat``; NaN on the diagonal where it
     is not PD, so everything solved with it is NaN (``jnp.linalg.cholesky``
-    semantics downstream)."""
+    semantics downstream).
+
+    When autograd records the factorization it has saved the factor for its
+    backward, so the marker goes onto a copy (one N x N pass); otherwise, as
+    under ``inference_mode`` where serving runs, onto the factor itself."""
     sym = (mat + mat.mT).mul_(0.5)      # == (A + A^T) / 2 bitwise
     chol, info = torch.linalg.cholesky_ex(sym)
+    if chol.requires_grad:
+        chol = chol.clone()
     nan_if_failed = torch.where(info > 0, float("nan"), 0.0).to(chol.dtype)
     chol.diagonal(dim1=-2, dim2=-1).add_(nan_if_failed[..., None])
     return chol
+
+
+def chol_logdet(chol: torch.Tensor) -> torch.Tensor:
+    """log det A = 2 sum log diag(L)."""
+    return 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
 
 
 def chol_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -98,3 +117,13 @@ def gp_predict(
     v = torch.linalg.solve_triangular(chol, k_td.T, upper=False)
     cov = k_tt - v.T @ v
     return mean, cov
+
+
+def mvn_logpdf(y: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
+    """Zero-mean multivariate normal log-density via one Cholesky: the
+    log-determinant from the factor's diagonal, the quadratic form from one
+    triangular solve."""
+    n = y.shape[-1]
+    chol = cholesky(cov)
+    quad = chol_quad_form(chol, y)
+    return -0.5 * (quad + chol_logdet(chol) + n * math.log(2.0 * math.pi))

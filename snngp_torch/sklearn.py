@@ -1,0 +1,175 @@
+"""scikit-learn-style estimator facade over the port's model layer
+(counterpart of ``SNNGPRegressor`` in ``snngp/sklearn.py``; the classifier
+comes with the classification slice).
+
+:class:`SNNGPRegressor` packages exact-inference NNGP regression (``SPR``)
+with ``method="gp"`` (Gaussian) or ``"tp"`` (Student-t scale mixture),
+optional ML-II hyperparameter training and repeated prediction through the
+fitted-state predictor, behind the fit/predict contract. ``__init__`` only
+stores hyperparameters, ``fit`` returns ``self``, learned attributes end in
+``_``, and ``get_params`` / ``set_params`` make it clone- and
+grid-search-compatible. sklearn itself is not required.
+
+``device`` (default ``"cuda"``) names where the data, the parameters and
+every Gram live; asking for CUDA on a machine without it is an error, not a
+quiet CPU run. ``extendable=True`` / ``add_data`` raise
+``NotImplementedError`` until ``FittedSPR.extend`` is ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from snngp_torch.models.predictor import fit_spr
+from snngp_torch.utils.optim import SGD, Adam
+from snngp_torch.utils.training import train_step
+
+__all__ = ["SNNGPRegressor"]
+
+
+class _EstimatorBase:
+    """Minimal sklearn estimator protocol (no sklearn dependency)."""
+
+    _param_names: tuple = ()
+
+    def get_params(self, deep: bool = True):
+        return {k: getattr(self, k) for k in self._param_names}
+
+    def set_params(self, **kwargs):
+        for k, v in kwargs.items():
+            if k not in self._param_names:
+                raise ValueError(f"Invalid parameter {k!r} for "
+                                 f"{type(self).__name__}")
+            setattr(self, k, v)
+        return self
+
+    def __repr__(self):
+        args = ", ".join(f"{k}={getattr(self, k)!r}" for k in self._param_names)
+        return f"{type(self).__name__}({args})"
+
+
+def _device(name) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={name!r}: CUDA is not available on this machine "
+                           "(pass device='cpu' to run on the CPU)")
+    return device
+
+
+class SNNGPRegressor(_EstimatorBase):
+    """Exact NNGP / Student-t process regression with fit/predict semantics.
+
+    Parameters mirror ``reg tr`` flags: ``method`` gp|tp, ``network``
+    mlp|resnet, depth / activation / scale hyperparameters, ``alpha`` /
+    ``beta`` for the Student-t scale mixture, jitter ``eps``.
+    ``max_steps > 0`` runs full-batch ML-II on the marginal likelihood
+    (Adam/SGD on the scale scalars, the likelihood parameters and eps —
+    exactly the CLI's training loss); ``max_steps=0`` keeps the constructor
+    hyperparameters. ``fit`` normalizes the targets (train mean / std) and
+    hoists the O(N^3) train-side solve into a fitted predictor, so
+    ``predict`` / ``score`` cost O(N x n) per call.
+
+    ``seed`` is accepted for grid-search compatibility but unused: fitting
+    is deterministic.
+    """
+
+    _param_names = ("method", "network", "num_hiddens", "activation",
+                    "w_std", "b_std", "last_w_std", "alpha", "beta", "eps",
+                    "optimizer", "lr", "max_steps", "normalize_y", "seed",
+                    "extendable", "device")
+
+    def __init__(self, method="tp", network="mlp", num_hiddens=4,
+                 activation="relu", w_std=1.0, b_std=1e-8, last_w_std=1.0,
+                 alpha=2.0, beta=2.0, eps=1e-6, optimizer="adam", lr=1e-2,
+                 max_steps=0, normalize_y=True, seed=10, extendable=False,
+                 device="cuda"):
+        self.method = method
+        self.network = network
+        self.num_hiddens = num_hiddens
+        self.activation = activation
+        self.w_std = w_std
+        self.b_std = b_std
+        self.last_w_std = last_w_std
+        self.alpha = alpha
+        self.beta = beta
+        self.eps = eps
+        self.optimizer = optimizer
+        self.lr = lr
+        self.max_steps = max_steps
+        self.normalize_y = normalize_y
+        self.seed = seed
+        self.extendable = extendable
+        self.device = device
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device_)
+
+    # -- sklearn protocol --------------------------------------------------
+
+    def fit(self, X, y, profiler=None):
+        """Build the model, run ``max_steps`` ML-II steps, fit the predictor.
+
+        ``losses_`` holds the loss of every step (before its update);
+        ``profiler`` (a :class:`~snngp_torch.utils.profiling.Profiler`)
+        splits each step into its synchronized phases."""
+        from snngp_torch.cli.regression import _build_model
+
+        if self.extendable:
+            raise NotImplementedError("extendable=True needs FittedSPR.extend, "
+                                      "which is not ported yet")
+        self.device_ = _device(self.device)
+        X = self._tensor(X)
+        y = np.asarray(y, np.float32).reshape(-1)
+        if self.normalize_y:
+            y_mean, y_std = float(y.mean()), float(y.std() or 1.0)
+        else:
+            y_mean, y_std = 0.0, 1.0
+        y_n = self._tensor((y - y_mean) / y_std)
+
+        cfg = dict(network=self.network, num_hiddens=self.num_hiddens,
+                   activation=self.activation, w_std=self.w_std,
+                   b_std=self.b_std, last_w_std=self.last_w_std,
+                   method=self.method, alpha=self.alpha, beta=self.beta,
+                   epsilon=self.eps)
+        model, _ = _build_model(cfg, X, y_n, y_mean, y_std)
+
+        if self.max_steps:
+            opt = Adam(model) if self.optimizer == "adam" else SGD(model)
+            losses = [train_step(model, opt, self.lr, profiler)
+                      for _ in range(self.max_steps)]
+            self.losses_ = torch.stack(losses).cpu().numpy()
+            self.final_loss_ = float(self.losses_[-1])
+
+        self.model_ = model
+        with torch.inference_mode():
+            self.fitted_ = fit_spr(model)
+        return self
+
+    def add_data(self, X, y):
+        raise NotImplementedError("add_data needs FittedSPR.extend, which is not "
+                                  "ported yet")
+
+    def predict(self, X, return_std: bool = False):
+        """De-normalized predictive mean (and optionally its std)."""
+        with torch.inference_mode():
+            mean, var = self.fitted_.predict(self._tensor(X))
+            if return_std:
+                return mean.cpu().numpy(), torch.sqrt(var).cpu().numpy()
+            return mean.cpu().numpy()
+
+    def score(self, X, y):
+        """R^2 of the predictive mean (sklearn regressor convention)."""
+        y = np.asarray(y, np.float64).reshape(-1)
+        pred = np.asarray(self.predict(X), np.float64)
+        ss_res = float(((y - pred) ** 2).sum())
+        ss_tot = float(((y - y.mean()) ** 2).sum())
+        return 1.0 - ss_res / ss_tot if ss_tot else 0.0
+
+    def neg_log_likelihood(self, X, y):
+        """Mean predictive NLL on raw-scale targets (the paper's metric)."""
+        s = self.fitted_.state
+        with torch.inference_mode():
+            y_n = (self._tensor(np.asarray(y, np.float32).reshape(-1))
+                   - s["y_mean"]) / s["y_std"]
+            return float(self.fitted_.test_nll(self._tensor(X), y_n))

@@ -1,7 +1,12 @@
-"""Checkpoints and logging."""
+"""Checkpoints, optimizers, training-loop helpers, logging and profiling."""
 
-from snngp_torch.utils.checkpoint import Checkpointer, load_named, save_params
-from snngp_torch.utils.training import Logger, get_context_summary
+from snngp_torch.utils.checkpoint import (Checkpointer, load_named, load_training_state,
+                                          save_params, save_training_state)
+from snngp_torch.utils.optim import SGD, Adam
+from snngp_torch.utils.profiling import Profiler
+from snngp_torch.utils.training import (Logger, ReduceLROnPlateau, get_context_summary,
+                                        train_step)
 
-__all__ = ["Checkpointer", "load_named", "save_params", "Logger",
-           "get_context_summary"]
+__all__ = ["Checkpointer", "load_named", "save_params", "save_training_state",
+           "load_training_state", "Adam", "SGD", "Profiler", "Logger",
+           "ReduceLROnPlateau", "get_context_summary", "train_step"]

@@ -3,8 +3,14 @@ of ``snngp/utils/checkpoint.py``).
 
 ``save_params`` writes ``{"names": [...], "0": leaf0, "1": leaf1, ...}`` with
 the raw (unconstrained) parameters, the layout the reference's test
-subcommands restore from by *name suffix*. Files written by either package
-load in the other.
+subcommands restore from by *name suffix*. :class:`Checkpointer` keeps the
+best-loss-gated save and the keep-last-k pruning of the reference.
+
+``save_training_state`` / ``load_training_state`` write and read
+``resume.state`` in the JAX package's layout: ``p{i}`` the parameters in
+sorted-name order, ``o{i}`` the optimizer's state leaves (Adam: ``step``,
+then ``mu``, then ``nu``, each in sorted-name order), ``meta_*`` the loop
+state. Files written by either package load in the other.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ import torch
 
 from snngp_torch.models.params import named_leaves
 
-__all__ = ["save_params", "load_named", "Checkpointer"]
+__all__ = ["save_params", "load_named", "Checkpointer", "save_training_state",
+           "load_training_state"]
 
 
 def _to_numpy(v) -> np.ndarray:
@@ -45,10 +52,17 @@ def load_named(path: str) -> Dict[str, np.ndarray]:
 
 
 class Checkpointer:
-    """Checkpoint file naming; the best-loss-gated save lands with training."""
+    """Best-loss-gated ``NNN.npz`` saves, keeping the last ``keep_ckpts``."""
 
     FILE_MATCH: str = "*.npz"
     FILE_FORMAT: str = "{:03d}.npz"
+
+    def __init__(self, logdir: str, keep_ckpts: int = 10, makedir: bool = True):
+        self.logdir = logdir
+        self.keep_ckpts = keep_ckpts
+        if makedir:
+            os.makedirs(logdir, exist_ok=True)
+        self.best_loss = float("inf")
 
     @classmethod
     def list_indices(cls, logdir: str):
@@ -63,3 +77,49 @@ class Checkpointer:
             if stem.isdigit():
                 out.append(int(stem))
         return sorted(out)
+
+    def save(self, idx: int, params) -> None:
+        save_params(os.path.join(self.logdir, self.FILE_FORMAT.format(idx)), params)
+        for old in self.list_indices(self.logdir)[:-self.keep_ckpts]:
+            os.remove(os.path.join(self.logdir, self.FILE_FORMAT.format(old)))
+
+    def step(self, idx: int, loss: float, params) -> bool:
+        if loss < self.best_loss:
+            self.best_loss = loss
+            self.save(idx, params)
+            return True
+        return False
+
+
+def save_training_state(path: str, model, optimizer, meta: Dict) -> None:
+    """Write the parameters, the optimizer state and the loop metadata to one
+    .npz (atomically: a temporary file, then a rename)."""
+    p_leaves = [v for _, v in named_leaves(model)]
+    o_leaves = optimizer.state_leaves()
+    payload: Dict[str, np.ndarray] = {"num_params": np.array(len(p_leaves)),
+                                      "num_opt": np.array(len(o_leaves))}
+    for i, leaf in enumerate(p_leaves):
+        payload[f"p{i}"] = _to_numpy(leaf)
+    for i, leaf in enumerate(o_leaves):
+        payload[f"o{i}"] = _to_numpy(leaf)
+    for k, v in meta.items():
+        payload[f"meta_{k}"] = np.asarray(v)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **payload)
+    os.replace(tmp, path)
+
+
+def load_training_state(path: str, model, optimizer) -> Dict[str, np.ndarray]:
+    """Load the parameters into ``model`` and the state into ``optimizer``;
+    return the loop metadata."""
+    with np.load(path) as data:
+        params = [p for _, p in named_leaves(model)]
+        n_p, n_o = int(data["num_params"]), int(data["num_opt"])
+        if n_p != len(params):
+            raise ValueError(f"{path} holds {n_p} parameters; the model has {len(params)}")
+        with torch.no_grad():
+            for i, p in enumerate(params):
+                p.copy_(torch.as_tensor(data[f"p{i}"], dtype=p.dtype))
+        optimizer.load_state_leaves([data[f"o{i}"] for i in range(n_o)])
+        return {k[5:]: data[k] for k in data.files if k.startswith("meta_")}

@@ -110,7 +110,7 @@ def test_arch_kernel_fn_matches_jax(mode):
 def test_plain_version_on_kernel_inputs_is_symmetric_and_counts_no_launch():
     (x,) = randn(5, (64, 3))
     xt = to_torch(x)
-    before = TG.LAUNCHES
+    before = dict(TG.LAUNCHES)
     k = TG.mlp_gram(xt, xt, depth=2, act="relu", **SCALES)
     assert TG.LAUNCHES == before  # CPU tensors never reach the kernel
     np.testing.assert_allclose(to_numpy(k), to_numpy(k.T), atol=1e-7)

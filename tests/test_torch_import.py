@@ -12,7 +12,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["snngp_torch", "snngp_torch.__main__", "snngp_torch.cli.regression",
            "snngp_torch.models.predictor", "snngp_torch.nn.arch",
            "snngp_torch.ops.gram", "snngp_torch.ops._build",
-           "snngp_torch.utils.checkpoint", "snngp_torch.data.regression"]
+           "snngp_torch.utils.checkpoint", "snngp_torch.data.regression",
+           "snngp_torch.sklearn", "snngp_torch.models.gp", "snngp_torch.ops.mvt",
+           "snngp_torch.utils.optim", "snngp_torch.utils.profiling",
+           "snngp_torch.utils.training"]
 
 
 def _run(code):
