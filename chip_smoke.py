@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of snngp_torch's exact-GP regression on one NVIDIA card:
-serving and ML-II training.
+"""GPU smoke run of snngp_torch on one NVIDIA card: exact-GP serving and
+ML-II training, and sparse variational classification of images.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,8 @@ script exits non-zero:
 
 0. setup: the card (``nvidia-smi`` name and power limit), torch / CUDA
    versions, and the build of the CUDA kernels from ``snngp_torch/csrc``
-   with ``nvcc``'s register / shared-memory / spill report;
+   (one ``nvcc`` per source, started together) with ``nvcc``'s register /
+   shared-memory / spill report;
 1. the fused Gram kernel (K1) against its plain PyTorch version on the same
    inputs, mlp / resnet x relu / erf at depth 4, at the headline shape
    (10,000 x 16 against itself), a ragged cross shape and a shape whose
@@ -34,16 +35,39 @@ script exits non-zero:
    profile of one step;
 6. the training CLI: ``reg tr`` on CUDA, ``reg ts`` on its checkpoint,
    ``reg tr -rs`` resuming it, and the same training on the CPU; the best
-   NLLs of CUDA and CPU agree.
+   NLLs of CUDA and CPU agree;
+7. the fused CNN Gram kernel (K3) against its plain version: the three
+   Gram blocks of an SVSP step at 32 x 32 x 3 (100 x 200, 200 x 200 and
+   100 x 100), relu / erf on distinct and on identical operands, 28 x 28 x
+   1, 8 x 8 x 1, depths 1 and 10; gate: relative error <= 1e-5 of max|K|,
+   and K(x, x) bitwise symmetric;
+8. its scalar-tangent backward (K4) against its plain version at phase 7's
+   cases on a random cotangent (gate: each sum within 1e-5 of sum |g dK|,
+   bitwise equal over two launches), and one scalar-only gradient through
+   ``get_cnn_kernel(trainable_inputs=False)`` against float64 autograd
+   through the plain layer tier;
+9. SVSP at full width: synthetic32 (32 x 32 x 3), 200 inducing images,
+   batches of 100, depth 4 relu; the ELBO's gradient on one batch against
+   float64 on the card for svgp and svtp (gate: within 2x the plain fp32
+   path's error), then 10 timed ELBO steps each of svgp, svtp and svtp
+   with frozen inducing inputs, split into gram / posterior /
+   sampling+likelihood / backward / optimizer, with the peak memory
+   (gate: finite losses, three K3 launches a step, three K4 a step when
+   frozen);
+10. the classification CLI: ``cls tr -m svtp -dn synthetic32 -e 1`` at
+   those sizes (and again with ``--freeze-inducing``), ``cls ts`` on its
+   checkpoint on CUDA and on the CPU (gate: within a Monte Carlo tolerance
+   derived from the card's draws), ``cls pr``, and one timed
+   ``FittedSVSP`` request of 100 images at 10,000 samples.
 
-Two main paths run with the kernels' launch counts set to 0 just before
-and read just after: serving (phases 2-3) and training (phases 5-6); each
-fails if a kernel of its path never launched. Launches made to compare a
-kernel with its plain version (phases 1 and 4) are not counted. The line
-before the last is one JSON object describing the kernels; the last line is
-``{"ok": true, "device": {...}}``. Exits non-zero without a result when CUDA
-is not available or the ``snngp_torch`` package is not beside this script.
-Imports nothing of JAX.
+Three main paths run with the kernels' launch counts set to 0 just before
+and read just after: serving (phases 2-3), training (phases 5-6) and
+classification (phases 9-10); each fails if a kernel of its path never
+launched. Launches made to compare a kernel with its plain version (phases
+1, 4, 7 and 8) are not counted. The line before the last is one JSON object
+describing the kernels; the last line is ``{"ok": true, "device": {...}}``.
+Exits non-zero without a result when CUDA is not available or the
+``snngp_torch`` package is not beside this script. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -55,6 +79,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -80,6 +105,12 @@ SERVE_EPS = 1e-3           # relative diag_reg of the main factorization
 SERVE_T_JITTER = 1e-4      # absolute jitter of the Student-t scale factorization
 TRAIN_EPS = 1e-2           # absolute eps of the ML-II loss (K + eps I)
 TRAIN_STEPS = 10
+SVSP_DEPTH = 4             # cls tr -nh's default
+SVSP_NI, SVSP_NB = 200, 100  # cls tr -ni, -nb defaults
+SVSP_SAMPLES = 100         # cls tr -ns default
+SVSP_STEPS = 10
+CLS_TEST_N = 300           # test images of the cls ts comparison
+K34_HEAD = "relu/200x200 32x32x3 sym"   # K(Z, Z) of one SVSP step
 CLI_RTOL = 5e-3            # CUDA vs CPU CLI NLL (tests/test_cli_smoke.py:47-51)
 # Student-t (a, b) of the CLI runs. syn-t's Gram is near rank-1 (1-D
 # inputs); at b/a = 1 the reference's hardcoded 1e-6 jitter on (b/a) K cannot
@@ -111,17 +142,26 @@ def _time_ms(fn, reps=5):
     return start.elapsed_time(stop) / reps
 
 
-def _reset_launches():
+def _counters():
+    from snngp_torch.ops import conv_gram as CG
     from snngp_torch.ops import gram as G
-    for name in G.LAUNCHES:
-        G.LAUNCHES[name] = 0
+    return (G.LAUNCHES, CG.LAUNCHES)
+
+
+def _launches():
+    return {name: n for counter in _counters() for name, n in counter.items()}
+
+
+def _reset_launches():
+    for counter in _counters():
+        for name in counter:
+            counter[name] = 0
 
 
 def _read_launches(path, kernels):
     """The counts since _reset_launches; fails if a kernel of the path never
     launched."""
-    from snngp_torch.ops import gram as G
-    counts = dict(G.LAUNCHES)
+    counts = _launches()
     print(f"[{path}] main-path launches {counts}")
     for name in kernels:
         if counts[name] <= 0:
@@ -140,18 +180,23 @@ def phase0_setup():
     print(card)
     print(f"[setup] torch {torch.__version__}  CUDA {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
-    built = _build.library_path("gram").exists()
+    # One nvcc per source, all started together.
+    sources = ("gram", "conv_gram")
+    built = {name: _build.library_path(name).exists() for name in sources}
     t0 = time.perf_counter()
-    _build.load("gram")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for _ in pool.map(_build.load, sources):
+            pass
     build_s = time.perf_counter() - t0
-    print(f"[setup] gram kernels {'loaded (cached build)' if built else 'built'} "
-          f"in {build_s:.2f} s")
-    log = _build.library_path("gram").with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if ("Function properties" in line or "registers" in line
-                    or "spill" in line):
-                print(f"[setup] ptxas: {line.strip()}")
+    for name in sources:
+        print(f"[setup] {name}.cu {'loaded (cached build)' if built[name] else 'built'}; "
+              f"all builds {build_s:.2f} s")
+        log = _build.library_path(name).with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if ("Function properties" in line or "registers" in line
+                        or "spill" in line or "Compiling entry" in line):
+                    print(f"[setup] ptxas {name}: {line.strip()}")
     return card
 
 
@@ -345,6 +390,209 @@ def _k2_repeat_and_depth(x_train, cot):
           f"rel err {rel:.3e}")
     if not rel <= K2_REL_TOL:
         raise AssertionError(f"K2 at depth {depth}: rel err {rel:.3e}")
+
+
+# -- K3 and K4 ------------------------------------------------------------------
+
+def k3_ops(n1, n2, hw, c, depth, act):
+    """fp32 operations of K3 on these shapes (see _dual_act_ops): per pixel
+    the input moment (C FMAs and a scale), per pixel and layer the stencil's
+    4 adds and divide, the Dense FMA and the dual activation, then the
+    readout's add; per pair the final scale."""
+    a = _dual_act_ops(act, False)
+    return n1 * n2 * (hw * (2 * c + 1) + depth * hw * (7 + a) + hw + 1)
+
+
+def k4_ops(n1, n2, hw, c, depth, act):
+    """(fp32, fp64) operations of K4 on these shapes: per pixel and layer
+    three stencils (12 adds, 3 divides), u / du_w / du_b (7), the partials
+    and the two tangent updates (10); three readout adds per pixel; the
+    contraction's three fp64 FMAs per pair."""
+    p = _dual_act_ops(act, True)
+    return (n1 * n2 * (hw * (2 * c + 1) + depth * hw * (32 + p) + 3 * hw + 3),
+            n1 * n2 * 6)
+
+
+def _conv_inputs(rng, n1, n2, h, w, c, same):
+    import torch
+    x1 = torch.as_tensor(rng.randn(n1, h, w, c).astype(np.float32), device="cuda")
+    x2 = x1 if same else torch.as_tensor(rng.randn(n2, h, w, c).astype(np.float32),
+                                         device="cuda")
+    return x1, x2
+
+
+def _conv_stacks(x1, x2, depth, act, tangents):
+    """The kernels' variance maps (and, for K4, their tangents) and scales."""
+    import torch
+    from snngp_torch.ops import conv_gram as CG
+
+    w, b, last = (torch.tensor(v, device="cuda") for v in (W_STD, B_STD, LAST_W_STD))
+    inv_c = torch.tensor(1.0 / x1.shape[-1], device="cuda")
+    if not tangents:
+        v1s = CG._flat_stack(x1, depth, act, w, b)
+        v2s = v1s if x2 is x1 else CG._flat_stack(x2, depth, act, w, b)
+        return [t.contiguous() for t in (x1, x2, v1s, v2s,
+                                         torch.stack([w * w, b * b, last * last, inv_c]))]
+    v1s, dv1s = CG._stack_with_tangents(x1, depth, act, w, b)
+    v2s, dv2s = ((v1s, dv1s) if x2 is x1
+                 else CG._stack_with_tangents(x2, depth, act, w, b))
+    scales = torch.stack([w * w, b * b, last * last, inv_c, w, b, last])
+    return [t.contiguous() for t in (x1, x2, v1s, v2s, dv1s, dv2s, scales)]
+
+
+def _conv_cases():
+    """(label, n1, n2, h, w, c, same, depth): the three Gram blocks of one
+    SVSP step at the CIFAR shape (K(x_b, Z), K(Z, Z), K(x_b, x_b)), both
+    acts on distinct and on identical operands, MNIST's 28 x 28 x 1, the
+    synthetic set's 8 x 8 x 1, and depths 1 and 10."""
+    return [("100x200 32x32x3", 100, 200, 32, 32, 3, False, SVSP_DEPTH),
+            ("200x200 32x32x3 sym", 200, 200, 32, 32, 3, True, SVSP_DEPTH),
+            ("100x100 32x32x3 sym", 100, 100, 32, 32, 3, True, SVSP_DEPTH),
+            ("100x100 32x32x3", 100, 100, 32, 32, 3, False, SVSP_DEPTH),
+            ("64x96 28x28x1", 64, 96, 28, 28, 1, False, SVSP_DEPTH),
+            ("300x300 8x8x1 sym", 300, 300, 8, 8, 1, True, SVSP_DEPTH),
+            ("40x50 32x32x3 depth 1", 40, 50, 32, 32, 3, False, 1),
+            ("40x50 32x32x3 depth 10", 40, 50, 32, 32, 3, False, 10)]
+
+
+def phase7_k3_vs_plain():
+    """K3 against its plain version on the same inputs; gate: max|K_kernel -
+    K_plain| / max|K_plain| <= 1e-5; identical operands give a bitwise
+    symmetric K."""
+    import torch
+    from snngp_torch.ops import conv_gram as CG
+
+    rng = np.random.RandomState(7)
+    rows, worst_abs = {}, 0.0
+    for label, n1, n2, h, w, c, same, depth in _conv_cases():
+        x1, x2 = _conv_inputs(rng, n1, n2, h, w, c, same)
+        for act in ("relu", "erf"):
+            args = _conv_stacks(x1, x2, depth, act, tangents=False)
+            kw = dict(depth=depth, act=act)
+            k_kernel = CG.conv_gram_cuda(*args, **kw)
+            k_plain = CG.conv_gram_plain(*args, **kw)
+            _sync()
+            abs_err = (k_kernel - k_plain).abs().max().item()
+            rel_err = abs_err / k_plain.abs().max().item()
+            finite = bool(torch.isfinite(k_kernel).all())
+            sym = (k_kernel - k_kernel.T).abs().max().item() if same else float("nan")
+            ms = _time_ms(lambda: CG.conv_gram_cuda(*args, **kw))
+            plain_ms = _time_ms(lambda: CG.conv_gram_plain(*args, **kw), reps=2)
+            nbytes = sum(t.numel() * 4 for t in {id(t): t for t in args}.values()) + n1 * n2 * 4
+            bound, by = bound_ms(nbytes, k3_ops(n1, n2, h * w, c, depth, act))
+            print(f"[K3] {act:4s} {label:24s} rel_err {rel_err:.3e} abs_err {abs_err:.3e}  "
+                  f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({by})"
+                  f"  max|K-K^T| {sym:.3e}")
+            if not finite or not rel_err <= KERNEL_REL_TOL:
+                raise AssertionError(f"K3 {act} at {label}: rel_err {rel_err:.3e} "
+                                     f"(tol {KERNEL_REL_TOL}), finite={finite}")
+            if same and sym != 0.0:
+                raise AssertionError(f"K3 {act} at {label}: K(x, x) not symmetric ({sym})")
+            worst_abs = max(worst_abs, abs_err)
+            rows[f"{act}/{label}"] = dict(ms=ms, plain_ms=plain_ms, rel_err=rel_err,
+                                          abs_err=abs_err, bound_ms=bound, bound_by=by)
+            del k_kernel, k_plain, args
+    torch.cuda.empty_cache()
+    return rows, worst_abs
+
+
+def phase8_k4_vs_plain():
+    """K4 against its plain version at phase 7's cases on a random
+    cotangent; gate: for each of the three sums, |s_kernel - s_plain| /
+    sum |g dK| <= 1e-5; two launches give the same bits. Then one
+    scalar-only gradient through get_cnn_kernel(trainable_inputs=False)
+    against float64 autograd through the plain layer tier."""
+    import torch
+    from snngp_torch.ops import conv_gram as CG
+
+    with torch.inference_mode():
+        rows = _k4_cases()
+    torch.cuda.empty_cache()
+    _k4_scalar_gradient()
+    return rows
+
+
+def _k4_cases():
+    import torch
+    from snngp_torch.ops import conv_gram as CG
+
+    rng = np.random.RandomState(8)
+    rows = {}
+    for label, n1, n2, h, w, c, same, depth in _conv_cases():
+        x1, x2 = _conv_inputs(rng, n1, n2, h, w, c, same)
+        g = torch.as_tensor(rng.randn(n1, n2).astype(np.float32), device="cuda")
+        for act in ("relu", "erf"):
+            args = _conv_stacks(x1, x2, depth, act, tangents=True)
+            kw = dict(depth=depth, act=act)
+            s_kernel = CG.conv_gram_grads_cuda(*args, g, **kw)
+            again = CG.conv_gram_grads_cuda(*args, g, **kw)
+            s_plain = CG.conv_gram_grads_plain(*args, g, **kw)
+            _, dkw, dkb, dkl = CG.conv_gram_tangents_plain(*args, **kw)
+            g64 = g.double().abs()
+            scale = torch.stack([torch.sum(g64 * t.double().abs()) for t in (dkw, dkb, dkl)])
+            del dkw, dkb, dkl, g64
+            abs_err = (s_kernel - s_plain).abs()
+            rel = (abs_err / scale).max().item()
+            finite = bool(torch.isfinite(s_kernel).all())
+            repeat = torch.equal(s_kernel, again)
+            ms = _time_ms(lambda: CG.conv_gram_grads_cuda(*args, g, **kw))
+            plain_ms = _time_ms(lambda: CG.conv_gram_grads_plain(*args, g, **kw), reps=2)
+            blocks = CG.tile_shape(h * w, n1, n2, CG._K4_ELEMS)
+            nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in args}.values())
+                      + g.numel() * 4
+                      + 3 * 8 * (-(-n1 // blocks[0])) * (-(-n2 // blocks[1])))
+            bound, by = bound_ms(nbytes, *k4_ops(n1, n2, h * w, c, depth, act))
+            print(f"[K4] {act:4s} {label:24s} rel_err {rel:.3e} abs_err "
+                  f"{abs_err.max().item():.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+                  f"bound {bound:.3f} ms ({by})  repeat {repeat}  sums "
+                  + " ".join(f"{v:.6e}" for v in s_kernel.tolist()))
+            if not finite or not rel <= K2_REL_TOL or not repeat:
+                raise AssertionError(f"K4 {act} at {label}: rel_err {rel:.3e} (tol "
+                                     f"{K2_REL_TOL}), finite={finite}, repeat={repeat}")
+            rows[f"{act}/{label}"] = dict(ms=ms, plain_ms=plain_ms, rel_err=rel,
+                                          abs_err=abs_err.max().item(), bound_ms=bound,
+                                          bound_by=by)
+            del args
+    return rows
+
+
+def _k4_scalar_gradient():
+    """d sum(g K) / d(w, b, last) through get_cnn_kernel(trainable_inputs=
+    False) (K3 forward, K4 backward) against float64 and fp32 autograd
+    through the plain layer tier; gate: within 2x the fp32 tier's error."""
+    import torch
+    from snngp_torch.nn import arch, layers
+    from snngp_torch.ops import conv_gram as CG
+
+    rng = np.random.RandomState(9)
+    x1 = rng.randn(60, 32, 32, 3).astype(np.float32)
+    x2 = rng.randn(80, 32, 32, 3).astype(np.float32)
+    g = rng.randn(60, 80)
+    grads = {}
+    for name, dtype in (("kernel", torch.float32), ("plain fp32", torch.float32),
+                        ("plain fp64", torch.float64)):
+        like = dict(device="cuda", dtype=dtype)
+        w, b, last = (torch.tensor(v, requires_grad=True, **like)
+                      for v in (W_STD, B_STD, LAST_W_STD))
+        if name == "kernel":
+            kfn = arch.get_cnn_kernel(SVSP_DEPTH, 1, "relu", w, b, last,
+                                      trainable_inputs=False)
+        else:
+            kfn = layers.kernel_fn_of(arch.get_cnn_layer(SVSP_DEPTH, 1, "relu", w, b, last))
+        before = CG.LAUNCHES["conv_gram_grads"]
+        k = kfn(torch.as_tensor(x1, **like), torch.as_tensor(x2, **like))
+        grads[name] = torch.stack(torch.autograd.grad(
+            torch.sum(torch.as_tensor(g, **like) * k), (w, b, last))).double()
+        if name == "kernel" and CG.LAUNCHES["conv_gram_grads"] != before + 1:
+            raise AssertionError("the scalar-only CNN gradient did not launch K4")
+    g64 = grads["plain fp64"]
+    errs = {n: ((grads[n] - g64).norm() / g64.norm()).item() for n in ("kernel", "plain fp32")}
+    print(f"[K4] get_cnn_kernel(trainable_inputs=False) 60x80 32x32x3: d/d(w, b, last) "
+          + " ".join(f"{v:.8e}" for v in grads["kernel"].tolist())
+          + f"; rel err vs fp64: kernel {errs['kernel']:.3e}, plain fp32 {errs['plain fp32']:.3e}")
+    if not errs["kernel"] <= 2.0 * max(errs["plain fp32"], 1e-6):
+        raise AssertionError(f"K4 scalar gradient error {errs['kernel']:.3e} above 2x the "
+                             f"plain fp32 error {errs['plain fp32']:.3e}")
 
 
 # -- serving --------------------------------------------------------------------
@@ -690,19 +938,27 @@ def _warm_steps(model, n=5):
 
 
 def _profile_step(model, top=12):
-    """One warm ML-II step under torch.profiler: device time by kernel (self
-    time), and the step's device time against its wall time (the profiler
-    adds host overhead, so the idle share it implies is an upper bound)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """One warm ML-II step under torch.profiler (see _profile)."""
     from snngp_torch.utils import Adam, train_step
 
     opt = Adam(model)
-    train_step(model, opt, 0.0)          # lr 0: the parameters stay as fitted
+    # lr 0: the parameters stay as fitted.
+    _profile(lambda: train_step(model, opt, 0.0), "one ML-II step", top)
+
+
+def _profile(step, label, top=12):
+    """One warm call of ``step`` under torch.profiler: device time by kernel
+    (self time), and the step's device time against its wall time (the
+    profiler adds host overhead, so the idle share it implies is an upper
+    bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
     _sync()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_step(model, opt, 0.0)
+        step()
         _sync()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -714,7 +970,7 @@ def _profile_step(model, top=12):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
     total_ms = sum(device_us(e) for e in events) / 1e3
-    print(f"[profile] one ML-II step: kernels {total_ms:.3f} ms of {wall_ms:.3f} ms wall "
+    print(f"[profile] {label}: kernels {total_ms:.3f} ms of {wall_ms:.3f} ms wall "
           f"(profiled); top {top} kernels by device time:")
     for e in sorted(events, key=device_us, reverse=True)[:top]:
         print(f"[profile]   {device_us(e) / 1e3:9.3f} ms  {100 * device_us(e) / 1e3 / total_ms:5.1f}%"
@@ -759,6 +1015,281 @@ def phase6_train_cli():
     np.testing.assert_allclose(nll_cuda, nll_cpu, rtol=CLI_RTOL)
 
 
+# -- classification -----------------------------------------------------------------
+
+def _svsp_data():
+    """synthetic32 (CIFAR's 32 x 32 x 3, 10 classes) as ``cls tr`` loads it,
+    and its class-proportional 200 inducing images."""
+    from snngp_torch.cli.classification import _inducing_init
+    from snngp_torch.data.classification import get_train_dataset
+
+    (x, y), _, (num_class, _, _) = get_train_dataset("synthetic32", seed=10)
+    z, _ = _inducing_init(x, y, num_class, SVSP_NI)
+    return x, y, z, num_class
+
+
+def _svsp_model(method, z, num_class, *, plain=False, dtype=None, eps=1e-6,
+                trainable_inputs=True):
+    """The CLI's model (``cls tr`` defaults: depth 4 relu CNN, w_std 1,
+    b_std 1e-8, a = b = 2), on the kernels or on the plain layer tier."""
+    import torch
+    from snngp_torch.cli.classification import _make_model
+    from snngp_torch.nn import arch, layers
+
+    get_kernel_fn = None
+    if plain:
+        def get_kernel_fn(w, b, last):
+            return layers.kernel_fn_of(arch.get_cnn_layer(SVSP_DEPTH, num_class, "relu", w,
+                                                          b, last))
+    model = _make_model(method, "cnn", SVSP_DEPTH, "relu", 1.0, 1e-8, 1.0, 2.0, 2.0,
+                        num_class, z, eps, get_kernel_fn=get_kernel_fn,
+                        trainable_inputs=trainable_inputs)
+    return model.to(device="cuda", dtype=dtype or torch.float32)
+
+
+def _svsp_draws(method, num_class):
+    """One set of standard variates for the correlated ELBO draws, in float64
+    (cast per model): normals, and for svtp gamma(a = 2) variates."""
+    import torch
+    from snngp_torch.ops.mvt import draw_t
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    shape = (SVSP_SAMPLES, num_class, SVSP_NB)
+    like = dict(dtype=torch.float64, device="cuda")
+    if method == "svgp":
+        return torch.randn(shape, generator=gen, **like)
+    return draw_t(torch.tensor(4.0, **like), shape, gen, **like)
+
+
+def _cast_draws(draws, dtype):
+    from snngp_torch.ops.mvt import TDraws
+    if isinstance(draws, TDraws):
+        return TDraws(*(t.to(dtype) for t in draws))
+    return draws.to(dtype)
+
+
+def _svsp_gradient_check(method, x, y, z, num_class):
+    """The ELBO's gradients on one batch through the kernels (fp32) and
+    through the plain layer tier (fp32 and float64), on the same draws;
+    gate: the kernel path's error against float64 within 2x the plain fp32
+    path's (floor 1e-6). eps = 1e-2 keeps the inducing Gram's inverse well
+    conditioned, so the comparison reads the Gram paths, not the float64
+    pseudo-inverse floor."""
+    import torch
+
+    draws = _svsp_draws(method, num_class)
+    grads, losses = {}, {}
+    for name, plain, dtype in (("kernel", False, torch.float32),
+                               ("plain fp32", True, torch.float32),
+                               ("plain fp64", True, torch.float64)):
+        torch.cuda.reset_peak_memory_stats()
+        model = _svsp_model(method, z, num_class, plain=plain, dtype=dtype, eps=1e-2)
+        xb = torch.as_tensor(x[:SVSP_NB], device="cuda", dtype=dtype)
+        yb = torch.as_tensor(y[:SVSP_NB], device="cuda")
+        loss = model.loss(xb, yb, x.shape[0], SVSP_SAMPLES, draws=_cast_draws(draws, dtype))
+        loss.backward()
+        params = sorted(model.named_parameters())
+        grads[name] = {n: p.grad.double().flatten() for n, p in params}
+        losses[name] = loss.item()
+        print(f"[svsp] {method} {name:10s} loss {loss.item():.8f}  peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model, loss
+        torch.cuda.empty_cache()
+    g64 = torch.cat(list(grads["plain fp64"].values()))
+    errs = {}
+    for name in ("kernel", "plain fp32"):
+        g = torch.cat(list(grads[name].values()))
+        errs[name] = ((g - g64).norm() / g64.norm()).item()
+        per = {n: ((grads[name][n] - grads["plain fp64"][n]).norm()
+                   / grads["plain fp64"][n].norm()).item() for n in grads[name]}
+        print(f"[svsp] {method} {name:10s} gradient rel err vs fp64 {errs[name]:.3e}; "
+              + " ".join(f"{n} {v:.1e}" for n, v in per.items()))
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{method}: non-finite ELBO {losses}")
+    if not errs["kernel"] <= 2.0 * max(errs["plain fp32"], 1e-6):
+        raise AssertionError(f"{method}: kernel-path gradient error {errs['kernel']:.3e} "
+                             f"above 2x the plain fp32 error {errs['plain fp32']:.3e}")
+    return errs
+
+
+def _svsp_stepper(method, x, y, z, num_class, trainable_inputs):
+    """A fresh model and a function taking one ELBO step as ``cls tr`` takes
+    it (its batches, masks and Adam; svtp trains with last_w_std frozen)."""
+    import argparse
+    import torch
+    from snngp_torch.cli.classification import _optimizers
+    from snngp_torch.utils import DataLoader, svsp_train_step
+
+    model = _svsp_model(method, z, num_class, trainable_inputs=trainable_inputs)
+    opts = _optimizers(model, argparse.Namespace(optimizer="adam", lr2=None, method=method,
+                                                 freeze_inducing=not trainable_inputs))
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    batches = iter(DataLoader(x, y, batch_size=SVSP_NB, shuffle=True, seed=10))
+
+    def step(prof=None):
+        xb, yb = next(batches)
+        return svsp_train_step(model, opts, [1e-2],
+                               torch.as_tensor(xb.astype(np.float32), device="cuda"),
+                               torch.as_tensor(yb, device="cuda"), x.shape[0],
+                               SVSP_SAMPLES, gen, prof)
+
+    return step
+
+
+def _svsp_steps(label, method, x, y, z, num_class, trainable_inputs=True):
+    """SVSP_STEPS timed ELBO steps after one untimed one; returns the
+    per-step phase times (ms)."""
+    import torch
+    from snngp_torch.utils import Profiler
+
+    step = _svsp_stepper(method, x, y, z, num_class, trainable_inputs)
+    step()
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    before = _launches()
+    prof = Profiler()
+    t0 = time.perf_counter()
+    losses = [step(prof) for _ in range(SVSP_STEPS)]
+    _sync()
+    wall = (time.perf_counter() - t0) / SVSP_STEPS * 1e3
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    losses = torch.stack(losses).tolist()
+    per_step = {k: 1e3 * v / SVSP_STEPS for k, v in prof.totals.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[svsp] {label}: {SVSP_STEPS} steps, losses "
+          + " ".join(f"{v:.4f}" for v in losses))
+    print(f"[svsp] {label}: step {wall:.2f} ms (synchronized phases): "
+          + "  ".join(f"{k} {v:.2f} ms" for k, v in per_step.items())
+          + f"; peak {peak:.2f} GiB; launches {launched}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: non-finite losses {losses}")
+    want_k4 = 0 if trainable_inputs else 3 * SVSP_STEPS
+    if launched["conv_gram"] != 3 * SVSP_STEPS or launched["conv_gram_grads"] != want_k4:
+        raise AssertionError(f"{label}: launched {launched}; expected 3 K3 a step and "
+                             f"{want_k4 // SVSP_STEPS} K4")
+    return dict(step_ms=wall, phases_ms=per_step, peak_gib=peak, losses=losses)
+
+
+def phase9_svsp():
+    """SVSP at full width on the card: synthetic32 (32 x 32 x 3), 200
+    inducing images, batches of 100, depth 4 relu (``cls tr`` defaults):
+    the gradient against float64 for svgp and svtp, then SVSP_STEPS timed
+    ELBO steps each of svgp, svtp and svtp with frozen inducing inputs (the
+    scalar-only backward, K4)."""
+    x, y, z, num_class = _svsp_data()
+    errs = {m: _svsp_gradient_check(m, x, y, z, num_class) for m in ("svgp", "svtp")}
+    configs = (("svgp", "svgp", True), ("svtp", "svtp", True), ("svtp frozen", "svtp", False))
+    steps = {label: _svsp_steps(label, method, x, y, z, num_class, trainable)
+             for label, method, trainable in configs}
+    # Profiled after all the timed steps, so that no timing carries profiler overhead.
+    for label, method, trainable in configs:
+        _profile(_svsp_stepper(method, x, y, z, num_class, trainable),
+                 f"one {label} ELBO step", top=10)
+    return errs, steps
+
+
+def _cls_nll(log_dir):
+    (name,) = [p for p in Path(log_dir).iterdir() if p.suffix == ".log"]
+    return _nll(name)
+
+
+def _mc_tolerance(ckpt, num_data, num_samples):
+    """5 standard errors of the difference of two independent MC test NLLs
+    of this checkpoint: per image, log mean_s p_s has standard error
+    sd_s(p_s) / (sqrt(S) mean_s(p_s)) (delta method), estimated here from
+    the card's own draws; plus 1e-4 for the fp32 paths of two devices."""
+    import argparse
+    import torch
+    from snngp_torch.cli.classification import _resize_to_inducing, _restore_svsp
+    from snngp_torch.data.classification import get_test_dataset
+    from snngp_torch.models import fit_svsp
+
+    (x, y), (num_class, _) = get_test_dataset("synthetic32", num_data=num_data)
+    ns = argparse.Namespace(ckpt_dir=str(ckpt), ckpt_index=None, device=torch.device("cuda"))
+    model, _ = _restore_svsp(ns, num_class)
+    x = _resize_to_inducing(x, model)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    var_sum = 0.0
+    with torch.no_grad():
+        fitted = fit_svsp(model)
+        for lo in range(0, x.shape[0], SVSP_NB):
+            xb = torch.as_tensor(x[lo:lo + SVSP_NB].astype(np.float32), device="cuda")
+            yb = torch.as_tensor(y[lo:lo + SVSP_NB], device="cuda")
+            f = fitted._sample(xb, num_samples, gen, None)             # [C, B, S]
+            p = torch.softmax(f.double(), dim=0).gather(
+                0, yb[None, :, None].expand(1, -1, num_samples))[0]   # [B, S]
+            se = p.std(dim=1) / (math.sqrt(num_samples) * p.mean(dim=1))
+            var_sum += float((se * se).sum())
+    return 5.0 * math.sqrt(2.0 * var_sum) / x.shape[0] + 1e-4
+
+
+def phase10_cls_cli():
+    """``cls tr -m svtp -dn synthetic32 -e 1`` at -ni 200 -nb 100 -nh 4 on the
+    card (and once more with --freeze-inducing, the K4 path), then ``cls ts``
+    on the card and on the CPU and ``cls pr`` on its checkpoint, and one
+    timed FittedSVSP request of 100 images at 10,000 samples."""
+    import argparse
+    import torch
+    from snngp_torch.cli.classification import _resize_to_inducing, _restore_svsp
+    from snngp_torch.data.classification import get_test_dataset
+    from snngp_torch.models import fit_svsp
+
+    work = REPO / "build" / "chip_smoke" / "cls"
+    shutil.rmtree(work, ignore_errors=True)
+    train = ["cls", "tr", "-m", "svtp", "-dn", "synthetic32", "-e", "1", "-ni", str(SVSP_NI),
+             "-nb", str(SVSP_NB), "-nh", str(SVSP_DEPTH), "-cr", str(work), "-q"]
+    times = {}
+    for name, extra in (("cuda", []), ("frozen", ["--freeze-inducing"])):
+        t0 = time.perf_counter()
+        _run_cli(["--device", "cuda", *train, "-cn", name, *extra])
+        times[name] = time.perf_counter() - t0
+        text = (work / name / "train.log").read_text()
+        if "Traceback" in text:
+            raise AssertionError(text)
+        lines = [ln for ln in text.splitlines() if ln.startswith("[") and "NLL:" in ln]
+        print(f"[cls] cls tr {name}: {times[name]:.2f} s; " + " | ".join(lines[-3:]))
+    ckpt = work / "cuda"
+    test = ["-dn", "synthetic32", "-cd", str(ckpt), "-nd", str(CLS_TEST_N), "-q"]
+    nll = {}
+    for device in ("cuda", "cpu"):
+        shutil.rmtree(ckpt / "test", ignore_errors=True)
+        t0 = time.perf_counter()
+        _run_cli(["--device", device, "cls", "ts", *test])
+        nll[device] = _cls_nll(ckpt / "test")
+        times[f"ts {device}"] = time.perf_counter() - t0
+    _run_cli(["--device", "cuda", "cls", "pr", *test])
+    nll["pr"] = _nll(ckpt / "predict" / "predict.log")
+    tol = _mc_tolerance(ckpt, CLS_TEST_N, 10_000)
+    print(f"[cls] cls ts NLL cuda {nll['cuda']:.5f} ({times['ts cuda']:.2f} s) cpu "
+          f"{nll['cpu']:.5f} ({times['ts cpu']:.2f} s), |diff| {abs(nll['cuda'] - nll['cpu']):.2e}"
+          f" (MC tolerance {tol:.2e}); cls pr NLL {nll['pr']:.5f}")
+    if not all(math.isfinite(v) for v in nll.values()):
+        raise AssertionError(f"non-finite NLL {nll}")
+    if not abs(nll["cuda"] - nll["cpu"]) <= tol:
+        raise AssertionError(f"cls ts: CUDA and CPU NLLs differ beyond MC error ({tol:.2e})")
+    np.testing.assert_allclose(nll["pr"], nll["cuda"], rtol=1e-4)
+
+    (x, _), (num_class, _) = get_test_dataset("synthetic32", num_data=SVSP_NB)
+    ns = argparse.Namespace(ckpt_dir=str(ckpt), ckpt_index=None, device=torch.device("cuda"))
+    model, _ = _restore_svsp(ns, num_class)
+    xb = torch.as_tensor(_resize_to_inducing(x, model), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        fitted = fit_svsp(model)
+        lat = []
+        for _ in range(4):
+            _sync()
+            t0 = time.perf_counter()
+            proba = fitted.predict_proba(xb, 10_000, generator=gen)
+            _sync()
+            lat.append((time.perf_counter() - t0) * 1e3)
+    print(f"[cls] FittedSVSP request ({SVSP_NB} images, 10,000 samples): "
+          + " ".join(f"{v:.2f} ms" for v in lat) + " (first one warms up)")
+    if proba.shape != (SVSP_NB, num_class) or not bool(torch.isfinite(proba).all()):
+        raise AssertionError(f"predict_proba: shape {tuple(proba.shape)} / not finite")
+    return dict(nll=nll, tol=tol, times=times, request_ms=lat)
+
+
 def _kernel_entry(name, source, replaces, launches, rows, head, worst_abs):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": worst_abs,
@@ -800,6 +1331,15 @@ def main() -> int:
     phase5_training(data)
     phase6_train_cli()
     training = _read_launches("train", ["gram", "gram_grads"])  # training path ends here
+
+    with torch.inference_mode():
+        k3_rows, k3_abs = phase7_k3_vs_plain()
+    k4_rows = phase8_k4_vs_plain()
+    torch.cuda.empty_cache()
+    _reset_launches()                     # classification path starts here
+    phase9_svsp()
+    phase10_cls_cli()
+    classify = _read_launches("classify", ["conv_gram", "conv_gram_grads"])  # ends here
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -812,7 +1352,14 @@ def main() -> int:
                        "snngp_torch/csrc/gram.cu", "snngp/ops/pallas/gram.py:249",
                        training["gram_grads"], k2_rows, f"mlp/relu/{HEAD_SHAPE}/random",
                        max(r["abs_err"] for r in k2_rows.values()))
-    print(json.dumps({"kernels": [k1, k2]}))
+    k3 = _kernel_entry("conv_gram (K3, fused CNN NNGP Gram)", "snngp_torch/csrc/conv_gram.cu",
+                       "snngp/ops/pallas/conv_gram.py:64", classify["conv_gram"], k3_rows,
+                       K34_HEAD, k3_abs)
+    k4 = _kernel_entry("conv_gram_grads (K4, scalar-tangent CNN Gram backward, fused "
+                       "contraction)", "snngp_torch/csrc/conv_gram.cu",
+                       "snngp/ops/pallas/conv_gram.py:180", classify["conv_gram_grads"],
+                       k4_rows, K34_HEAD, max(r["abs_err"] for r in k4_rows.values()))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,31 +3,34 @@ PyTorch and CUDA (NVIDIA Hopper).
 
 A port of the JAX package ``snngp`` (the reference it is tested against),
 module for module: each ``snngp_torch.<path>`` is the counterpart of
-``snngp.<path>``. This covers exact-GP regression, serving and ML-II
-training:
+``snngp.<path>``. This covers exact-GP regression (serving and ML-II
+training) and sparse variational classification of images:
 
-- ``snngp_torch.nn``      dense NNGP kernel tier (Dense / ReLU / Erf /
-                          residual combinators) and the MLP / dense-ResNet
-                          builders, which route every 2-D Gram block to the
-                          fused Gram of ``snngp_torch.ops.gram``.
-- ``snngp_torch.ops``     Cholesky-based linear algebra, the marginal
-                          likelihoods, and the fused NNGP Gram with its
-                          scalar-tangent backward (hand-written CUDA kernels,
-                          ``csrc/gram.cu``, with plain PyTorch twins for CPU
-                          tensors).
+- ``snngp_torch.nn``      the NNGP kernel tier (Dense / Conv / ReLU / Erf /
+                          Flatten / residual combinators) and the MLP,
+                          dense-ResNet and CNN builders, which route Gram
+                          blocks to the fused Grams of ``snngp_torch.ops``.
+- ``snngp_torch.ops``     Cholesky / eigh linear algebra, the marginal
+                          likelihoods, the Student-t sampler, the softmax
+                          estimators, and the fused NNGP and CNN Grams with
+                          their scalar-tangent backwards (hand-written CUDA
+                          kernels, ``csrc/gram.cu`` and ``csrc/conv_gram.cu``,
+                          with plain PyTorch twins for CPU tensors).
 - ``snngp_torch.models``  softplus-constrained parameters, ``NNGPKernel``,
-                          Gaussian / Student-t likelihoods, ``SPR`` (the
-                          ML-II loss and the predictive NLL) and the fitted
-                          predictor ``fit_spr`` / ``FittedSPR``.
+                          likelihoods and priors, ``SPR`` and ``SVSP``, and
+                          the fitted predictors (``fit_spr`` / ``FittedSPR``,
+                          ``fit_svsp`` / ``FittedSVSP``).
 - ``snngp_torch.utils``   objax-exact Adam / SGD, the plateau schedule, the
-                          ML-II step, ``.npz`` checkpoints and
-                          ``resume.state`` (the JAX package's layouts), the
-                          line logger and the phase profiler.
-- ``snngp_torch.data``    the regression datasets (a numpy copy of
-                          ``snngp.data``; importing ``snngp`` pulls in JAX).
-- ``snngp_torch.cli``     ``reg tr`` / ``reg ts`` / ``reg pr``
+                          training steps, the data loader, ``.npz``
+                          checkpoints and ``resume.state`` (the JAX
+                          package's layouts), the logger and the profiler.
+- ``snngp_torch.data``    the regression and classification datasets and
+                          the host resize (numpy copies of ``snngp.data``;
+                          importing ``snngp`` pulls in JAX).
+- ``snngp_torch.cli``     ``reg`` and ``cls`` x ``tr`` / ``ts`` / ``pr``
                           (``python -m snngp_torch``).
-- ``snngp_torch.sklearn`` ``SNNGPRegressor`` (imported on demand).
+- ``snngp_torch.sklearn`` ``SNNGPRegressor``, ``SNNGPClassifier`` (imported
+                          on demand).
 
 Importing this package never imports JAX.
 """

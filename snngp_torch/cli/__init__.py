@@ -1,11 +1,12 @@
-"""argparse command tree: ``regression|reg`` x ``train|tr``, ``test|ts``,
-``predict|pr``."""
+"""argparse command tree: ``regression|reg`` and ``classification|cls``, each
+x ``train|tr``, ``test|ts``, ``predict|pr``."""
 
-from snngp_torch.cli import regression
+from snngp_torch.cli import classification, regression
 
 
 def add_subparser(subparsers):
     regression.add_subparser(subparsers)
+    classification.add_subparser(subparsers)
 
 
-__all__ = ["add_subparser", "regression"]
+__all__ = ["add_subparser", "classification", "regression"]

@@ -38,7 +38,8 @@ from snngp_torch.models.params import assign_by_suffix, get_by_suffix
 from snngp_torch.nn.arch import get_dense_resnet_kernel, get_mlp_kernel
 from snngp_torch.utils import (SGD, Adam, Checkpointer, Logger, Profiler,
                                ReduceLROnPlateau, get_context_summary, load_named,
-                               load_training_state, save_training_state, train_step)
+                               load_training_state, progress, save_training_state,
+                               train_step)
 
 
 def add_subparser(subparsers):
@@ -154,15 +155,6 @@ def _add_train_parser(subparsers):
     parser.add_argument("-c",   "--comment",        type=str, default="")
 
 
-def _progress(steps, quite):
-    """``steps`` under a tqdm bar where tqdm is installed."""
-    try:
-        from tqdm import tqdm
-    except ImportError:
-        return steps
-    return tqdm(steps, desc="Train", ncols=0, disable=quite)
-
-
 @torch.no_grad()
 def _params_str(model, nll, method):
     ws, bs, ls = (float(v) for v in model.kernel.get_params())
@@ -240,7 +232,8 @@ def train_main(args):
         print_str = ""
         checkpointer.step(0, valid_nll, model)
 
-        for i in _progress(range(start_step + chunk, args.max_steps + 1, chunk), args.quite):
+        for i in progress(range(start_step + chunk, args.max_steps + 1, chunk), args.quite,
+                          desc="Train"):
             if prof is not None:
                 with prof.phase("train"):
                     for _ in range(chunk):

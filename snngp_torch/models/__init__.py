@@ -1,5 +1,6 @@
 """Probabilistic layer: bijectors, parameter helpers, the NNGP kernel,
-likelihoods, the SPR regression model and its fitted predictor."""
+likelihoods and priors, the SPR regression and SVSP classification models
+and their fitted predictors."""
 
 from snngp_torch.models import bijectors
 from snngp_torch.models import params
@@ -7,11 +8,12 @@ from snngp_torch.models.bijectors import positive, Softplus
 from snngp_torch.models.kernels import NNGPKernel
 from snngp_torch.models.likelihoods import (Likelihood, GaussianLikelihood,
                                             StudentTLikelihood)
-from snngp_torch.models.gp import SPR
-from snngp_torch.models.predictor import fit_spr, FittedSPR
+from snngp_torch.models.priors import GaussianPrior, InverseGammaPrior
+from snngp_torch.models.gp import SPR, SVSP
+from snngp_torch.models.predictor import fit_spr, FittedSPR, fit_svsp, FittedSVSP
 
 __all__ = [
     "bijectors", "params", "positive", "Softplus", "NNGPKernel",
-    "Likelihood", "GaussianLikelihood", "StudentTLikelihood", "SPR",
-    "fit_spr", "FittedSPR",
+    "Likelihood", "GaussianLikelihood", "StudentTLikelihood", "GaussianPrior",
+    "InverseGammaPrior", "SPR", "SVSP", "fit_spr", "FittedSPR", "fit_svsp", "FittedSVSP",
 ]

@@ -1,25 +1,123 @@
-"""Exact-inference stochastic process regression (counterpart of
-``SPR`` in ``snngp/models/gp.py``, single device).
+"""Scale-mixture process models (counterpart of ``snngp/models/gp.py``,
+single device; rebuilds ``spax/models.py``).
 
-``SPR`` is an ``nn.Module`` whose parameters carry the JAX package's dotted
-names: ``eps``, ``kernel.{b_std,last_w_std,w_std}`` and, for a Student-t
-likelihood, ``likelihood.{a,b}``. The training data and the target
-normalization are non-persistent buffers, so ``.to(device)`` moves them
-with the parameters and ``state_dict()`` holds the parameters only.
-``loss`` is the ML-II objective (differentiable in every parameter);
-``test_nll`` the predictive NLL.
+- :class:`SVSP` — sparse variational stochastic process: inducing-point
+  variational classification; a Gaussian prior gives SVGP, an inverse-gamma
+  prior SVTP. Its parameters carry the JAX package's dotted names:
+  ``eps``, ``inducing_variable``, ``kernel.{b_std,last_w_std,w_std}``,
+  ``prior.{a,b}`` (SVTP), ``q_mu``, ``q_sqrt``.
+- :class:`SPR` — exact-inference stochastic process regression: ``eps``,
+  ``kernel.{b_std,last_w_std,w_std}`` and, for a Student-t likelihood,
+  ``likelihood.{a,b}``. The training data and the target normalization are
+  non-persistent buffers, so ``.to(device)`` moves them with the parameters
+  and ``state_dict()`` holds the parameters only. ``loss`` is the ML-II
+  objective (differentiable in every parameter); ``test_nll`` the
+  predictive NLL.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
 
 from snngp_torch.models import params as P
 from snngp_torch.models.bijectors import positive
-from snngp_torch.ops.linalg import add_jitter
+from snngp_torch.ops.linalg import (add_diag_reg, add_jitter, inv_psd, pinv_psd_eigh,
+                                    psd_safety_lift)
+from snngp_torch.ops.softmax import get_correct_count, log_likelihood, test_log_likelihood
 
-__all__ = ["SPR"]
+__all__ = ["SVSP", "SPR"]
+
+
+def _no_phase(name):
+    return contextlib.nullcontext()
+
+
+class SVSP(nn.Module):
+    """Sparse variational stochastic process classifier
+    (spax/models.py:15-78).
+
+    The random draws of ``loss`` / ``test_acc_nll`` come from ``generator``
+    (a ``torch.Generator`` on the parameters' device) or are injected as
+    ``draws`` (see :mod:`snngp_torch.models.priors`). ``mesh`` / ``chol_fn``
+    (the distributed factorization) are not ported yet."""
+
+    def __init__(self, prior, kernel, inducing_variable, *, num_latent_gps: int = 1,
+                 eps: float = 1e-6, chol_fn=None, mesh=None):
+        super().__init__()
+        if chol_fn is not None or mesh is not None:
+            raise NotImplementedError("chol_fn / mesh: the multi-device path is not "
+                                      "ported yet")
+        self.bij = positive()
+        self.num_latent_gps = num_latent_gps
+        self.prior = prior
+        self.kernel = kernel
+        z = torch.as_tensor(inducing_variable, dtype=torch.float32)
+        self.inducing_variable = nn.Parameter(z.clone())
+        self.q_mu = nn.Parameter(torch.zeros((num_latent_gps, z.shape[0])))
+        self.q_sqrt = P.constrained_init(torch.ones((num_latent_gps, z.shape[0])), self.bij)
+        self.eps = P.constrained_init(eps, self.bij)
+
+    @property
+    def num_inducing(self) -> int:
+        return self.inducing_variable.shape[0]
+
+    def _posterior_pieces(self, x_batch, phase=_no_phase):
+        """The Gram blocks and solves shared by the loss and test paths:
+        (A_B [B, I], B_B [B, B], k_rel_inv, k_bi, k_ii, k_ii_inv, q_mu,
+        q_sqrt) with A_B = k_bi (k_ii + eps I)^-1 (absolute-eps jitter,
+        spax/models.py:40) and B_B = k_bb - k_bi (k_ii + r I)^-1 k_ib with
+        the trace-relative r (spax/models.py:43 via kernel.predict), the
+        latter through the eigh pseudo-inverse (see
+        :func:`~snngp_torch.ops.linalg.pinv_psd_eigh`)."""
+        z = self.inducing_variable
+        eps = P.constrained_read(self.eps, self.bij)
+        q_sqrt = P.constrained_read(self.q_sqrt, self.bij)
+        with phase("gram"):
+            kernel_fn = self.kernel.get_kernel_fn()
+            k_bi = self.kernel.K(kernel_fn, x_batch, z)          # [B, I]
+            k_ii = self.kernel.K(kernel_fn, z)                   # [I, I]
+            k_bb = self.kernel.K(kernel_fn, x_batch)             # [B, B]
+        with phase("posterior"):
+            # The lift is a no-op while (k_ii + eps I) is numerically PD.
+            k_ii_inv = inv_psd(psd_safety_lift(add_jitter(k_ii, eps)))
+            a_b = k_bi @ k_ii_inv
+            k_rel_inv = pinv_psd_eigh(add_diag_reg(k_ii, eps))
+            b_b = k_bb - k_bi @ k_rel_inv @ k_bi.T
+        return a_b, b_b, k_rel_inv, k_bi, k_ii, k_ii_inv, self.q_mu, q_sqrt
+
+    def loss(self, x_batch, y_batch, num_train, num_samples, generator=None, draws=None,
+             aux=False, phase=_no_phase):
+        """Negative ELBO per data point (spax/models.py:30-56). ``phase``
+        (a profiler's ``phase``) names the gram / posterior /
+        sampling+likelihood intervals."""
+        a_b, b_b, _, _, k_ii, k_ii_inv, q_mu, q_sqrt = self._posterior_pieces(x_batch, phase)
+        with phase("posterior"):
+            mean = q_mu @ a_b.T                                  # [C, B]
+            cov = torch.einsum("ij,cj,kj->cik", a_b, q_sqrt, a_b) + b_b[None, :, :]
+            # A no-op unless fp32 round-off makes the sampling covariance
+            # indefinite; detached, so the pathwise gradients are untouched.
+            cov = psd_safety_lift(cov, mult=cov.shape[-1])
+        with phase("sampling+likelihood"):
+            sampled_f = self.prior.sample_f(mean, cov, num_samples, generator, draws)
+            ll = log_likelihood(sampled_f, y_batch)
+            kl = self.prior.kl_divergence(k_ii, k_ii_inv, q_mu, q_sqrt, self.num_inducing,
+                                          self.num_latent_gps)
+            n_elbo = -ll + kl / num_train
+        if aux:
+            return n_elbo, (-ll, kl / num_train)
+        return n_elbo
+
+    def test_acc_nll(self, x_batch, y_batch, num_samples, generator=None, draws=None):
+        """MC predictive NLL and correct count (spax/models.py:58-78)."""
+        a_b, b_b, k_rel_inv, k_bi, _, _, q_mu, q_sqrt = self._posterior_pieces(x_batch)
+        mean = (k_bi @ (k_rel_inv @ q_mu.T)).T                   # [C, B]
+        test_cov = torch.einsum("ij,cj,kj->cik", a_b, q_sqrt, a_b) + b_b[None, :, :]
+        sampled_f = self.prior.sample_f_iid(mean, test_cov, num_samples, generator, draws)
+        nll = -test_log_likelihood(sampled_f, y_batch)
+        return nll, get_correct_count(sampled_f, y_batch)
 
 
 class SPR(nn.Module):

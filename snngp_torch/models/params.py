@@ -82,7 +82,8 @@ def assign_by_suffix(module: nn.Module, key: str, value) -> bool:
 
 
 def from_jax_named(named: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX package's raw (unconstrained) parameters, by dotted name, as a
-    state dict for the port's modules (``model.load_state_dict(...)``)."""
-    return {name: torch.as_tensor(np.asarray(v), dtype=torch.float32)
-            for name, v in named.items()}
+    """The JAX package's raw (unconstrained) parameters — a JAX parameter
+    dict (nested, as ``SVSP.init_params`` returns it) or its dotted names —
+    as a state dict for the port's modules (``model.load_state_dict(...)``)."""
+    return {name: torch.as_tensor(np.array(v), dtype=torch.float32)
+            for name, v in named_leaves(named)}

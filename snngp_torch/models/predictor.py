@@ -1,11 +1,15 @@
-"""Fitted-state predictor: factorize once, predict many times (counterpart
-of ``fit_spr`` / ``FittedSPR`` in ``snngp/models/predictor.py``).
+"""Fitted-state predictors: factorize once, predict many times (counterpart
+of ``fit_spr`` / ``FittedSPR`` and ``fit_svsp`` / ``FittedSVSP`` in
+``snngp/models/predictor.py``).
 
 :func:`fit_spr` runs the train-side work once — the train Gram, its
 regularized Cholesky factor, the target solve and, for a Student-t
 likelihood, the conditional-t degrees of freedom and data scale ``d`` — and
 returns a :class:`FittedSPR` whose ``predict`` / ``test_nll`` cost only the
 cross-Gram, the test Gram of each chunk and triangular solves.
+:func:`fit_svsp` hoists an ``SVSP``'s inducing-side inverses and the
+``q_mu`` solve; a :class:`FittedSVSP` request costs the [B, I] and [B, B]
+Grams and two products.
 
 The fitted state is a flat dict of tensors. ``save`` / ``load`` use the JAX
 package's ``.npz`` layout (state arrays plus ``param:<dotted name>``), so a
@@ -18,6 +22,7 @@ in-place blocked factorization for Grams past one chip's memory),
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -26,9 +31,10 @@ import torch
 from snngp_torch.models import params as P
 from snngp_torch.models.likelihoods import normal_logpdf, student_t_logpdf
 from snngp_torch.ops.linalg import (add_diag_reg, add_jitter, chol_quad_form,
-                                    chol_solve, cholesky)
+                                    chol_solve, cholesky, inv_psd, pinv_psd_eigh)
+from snngp_torch.ops.softmax import get_correct_count, test_log_likelihood
 
-__all__ = ["fit_spr", "FittedSPR"]
+__all__ = ["fit_spr", "FittedSPR", "fit_svsp", "FittedSVSP"]
 
 
 def fit_spr(model, memory_lean: bool = False, extendable: bool = False,
@@ -170,4 +176,93 @@ class FittedSPR:
             saved = {k[len("param:"):]: data[k]
                      for k in data.files if k.startswith("param:")}
         model.load_state_dict(P.from_jax_named(saved))
+        return cls(model, state)
+
+
+def fit_svsp(model) -> "FittedSVSP":
+    """One-time inducing-side solve for an :class:`snngp_torch.models.gp.SVSP`
+    with the parameters it holds: the inducing Gram's jittered inverse, its
+    relative-reg eigh pseudo-inverse (as ``SVSP._posterior_pieces``
+    computes them) and the ``q_mu`` solve."""
+    z = model.inducing_variable.detach()
+    eps = P.constrained_read(model.eps, model.bij)
+    kernel_fn = model.kernel.get_kernel_fn()
+    k_ii = model.kernel.K(kernel_fn, z)
+    k_rel_inv = pinv_psd_eigh(add_diag_reg(k_ii, eps))
+    state = {
+        "z": z,
+        "k_ii_inv": inv_psd(add_jitter(k_ii, eps)),
+        "k_rel_inv": k_rel_inv,
+        "w": k_rel_inv @ model.q_mu.T,                           # [I, C]
+        "q_sqrt": P.constrained_read(model.q_sqrt, model.bij),
+    }
+    return FittedSVSP(model, {k: v.detach() for k, v in state.items()})
+
+
+class FittedSVSP:
+    """Cheap repeated classification from a one-time :func:`fit_svsp`
+    solve. The samplers take a ``generator`` or injected ``draws``, as
+    ``SVSP.test_acc_nll`` does."""
+
+    def __init__(self, model, state: Dict[str, torch.Tensor]):
+        self.model = model
+        self.state = state
+        self._kernel_fn = model.kernel.get_kernel_fn()
+
+    def predict_f(self, x):
+        """Latent posterior at ``x``: mean [C, B] and covariance [C, B, B]
+        (the matrices of ``SVSP.test_acc_nll``)."""
+        model, s = self.model, self.state
+        k_bi = model.kernel.K(self._kernel_fn, x, s["z"])        # [B, I]
+        k_bb = model.kernel.K(self._kernel_fn, x)                # [B, B]
+        a_b = k_bi @ s["k_ii_inv"]                               # [B, I]
+        mean = (k_bi @ s["w"]).T                                 # [C, B]
+        b_b = k_bb - k_bi @ s["k_rel_inv"] @ k_bi.T
+        cov = torch.einsum("ij,cj,kj->cik", a_b, s["q_sqrt"], a_b) + b_b[None]
+        return mean, cov
+
+    def _sample(self, x, num_samples, generator, draws):
+        mean, cov = self.predict_f(x)
+        return self.model.prior.sample_f_iid(mean, cov, num_samples, generator, draws)
+
+    def predict_proba(self, x, num_samples=1000, generator=None, draws=None):
+        """Mean MC predictive class probabilities [B, C] (rows sum to 1)."""
+        f = self._sample(x, num_samples, generator, draws)        # [C, B, S]
+        log_pbar = torch.logsumexp(torch.log_softmax(f, dim=0), dim=2) - math.log(num_samples)
+        return torch.exp(log_pbar).T
+
+    def test_acc_nll(self, x, y, num_samples=1000, generator=None, draws=None):
+        """MC predictive NLL and correct count; equals ``SVSP.test_acc_nll``
+        on the same draws."""
+        f = self._sample(x, num_samples, generator, draws)
+        return -test_log_likelihood(f, y), get_correct_count(f, y)
+
+    def save(self, path):
+        """Write the fitted state to ``path`` (.npz); parameters travel too
+        (``param:<dotted name>``, the JAX package's layout)."""
+        flat = dict(self.state)
+        for name, leaf in P.named_leaves(self.model):
+            flat["param:" + name] = leaf
+        np.savez(path, **{k: torch.as_tensor(v).detach().cpu().numpy()
+                          for k, v in flat.items()})
+
+    @classmethod
+    def load(cls, path, model):
+        """Rebuild from :meth:`save` output (either package's): the saved
+        parameters go into ``model``, the state to its device. A state saved
+        before the eigh pseudo-inverse (a Cholesky factor ``chol_rel``) is
+        turned into the explicit inverse and the ``q_mu`` solve."""
+        like = model.inducing_variable
+        with np.load(path) as data:
+            state = {k: torch.as_tensor(data[k], device=like.device)
+                     for k in data.files if not k.startswith("param:")}
+            saved = {k[len("param:"):]: data[k]
+                     for k in data.files if k.startswith("param:")}
+        model.load_state_dict(P.from_jax_named(saved))
+        if "k_rel_inv" not in state and "chol_rel" in state:
+            chol_rel = state.pop("chol_rel")
+            eye = torch.eye(chol_rel.shape[0], dtype=chol_rel.dtype, device=chol_rel.device)
+            v = torch.linalg.solve_triangular(chol_rel, eye, upper=False)
+            state["k_rel_inv"] = v.T @ v
+            state["w"] = state["k_rel_inv"] @ model.q_mu.detach().T
         return cls(model, state)

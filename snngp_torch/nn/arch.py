@@ -1,25 +1,30 @@
-"""Architecture builders (counterpart of ``snngp/nn/arch.py``: the MLP and
-dense-ResNet networks).
+"""Architecture builders (counterpart of ``snngp/nn/arch.py``: the MLP,
+dense-ResNet and CNN networks).
 
 ``get_*_layer`` compose the layer tier; ``get_*_kernel`` return a
 ``kernel_fn(x1, x2=None, get="nngp")`` that sends every 2-D NNGP block to
-the fused Gram (:mod:`snngp_torch.ops.gram`), which launches the CUDA kernel
-for CUDA tensors and runs its plain version for CPU tensors. There is no
-size threshold: the JAX package's ``SNNGP_PALLAS_MIN_N`` amortized TPU
+the fused Gram (:mod:`snngp_torch.ops.gram`) and every CNN block of images
+with at most 1,024 pixels to the fused conv Gram
+(:mod:`snngp_torch.ops.conv_gram`). Each launches its CUDA kernel for CUDA
+tensors and runs its plain version for CPU tensors. There is no size
+threshold on N: the JAX package's ``SNNGP_PALLAS_MIN_N`` amortized TPU
 compile latency, which a prebuilt CUDA kernel does not have.
 """
 
 from __future__ import annotations
 
 from snngp_torch.nn import layers as L
+from snngp_torch.ops import conv_gram as CG
 from snngp_torch.ops import gram as G
 
 __all__ = [
     "get_act",
     "get_mlp_kernel",
     "get_dense_resnet_kernel",
+    "get_cnn_kernel",
     "get_mlp_layer",
     "get_dense_resnet_layer",
+    "get_cnn_layer",
     "KERNELS",
 ]
 
@@ -39,6 +44,18 @@ def get_mlp_layer(num_hiddens, num_class=1, act="relu", w_std=1.0, b_std=0.0,
     for _ in range(num_hiddens):
         stack.append(L.Dense(width, w_std=w_std, b_std=b_std))
         stack.append(get_act(act))
+    stack.append(L.Dense(num_class, w_std=last_w_std))
+    return L.serial(*stack)
+
+
+def get_cnn_layer(num_hiddens, num_class=1, act="relu", w_std=1.0, b_std=0.0,
+                  last_w_std=1.0, channels=1) -> L.Layer:
+    """N x [Conv3x3 SAME + act] + Flatten + Dense  (nt_kernels.py:34-45)."""
+    stack = []
+    for _ in range(num_hiddens):
+        stack.append(L.Conv(channels, (3, 3), (1, 1), "SAME", w_std=w_std, b_std=b_std))
+        stack.append(get_act(act))
+    stack.append(L.Flatten())
     stack.append(L.Dense(num_class, w_std=last_w_std))
     return L.serial(*stack)
 
@@ -100,7 +117,30 @@ def get_dense_resnet_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0,
                             trainable_inputs)
 
 
+def get_cnn_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0, b_std=0.0,
+                   last_w_std=1.0, channels=1, trainable_inputs=True):
+    """CNN kernel_fn: NNGP blocks of [N, H, W, C] images with H W <= 1,024
+    (CIFAR's 32 x 32 included) go to the fused conv Gram; larger images and
+    2-D inputs go to the layer tier, as in the JAX package.
+
+    ``trainable_inputs=False``: scalar-only gradients through K4, the fused
+    tangent kernel (see :func:`get_mlp_kernel`); keep True for SVSP
+    classification, which trains its inducing inputs."""
+    ref_fn = L.kernel_fn_of(get_cnn_layer(num_hiddens, num_class, act, w_std, b_std,
+                                          last_w_std, channels=channels))
+
+    def kernel_fn(x1, x2=None, get="nngp"):
+        if get == "nngp" and x1.ndim == 4 and x1.shape[1] * x1.shape[2] <= CG.MAX_HW:
+            return CG.cnn_gram(x1, x1 if x2 is None else x2, depth=num_hiddens, act=act,
+                               w_std=w_std, b_std=b_std, last_w_std=last_w_std,
+                               trainable_inputs=trainable_inputs)
+        return ref_fn(x1, x2, get=get)
+
+    return kernel_fn
+
+
 KERNELS = {
     "mlp": get_mlp_kernel,
+    "cnn": get_cnn_kernel,
     "resnet-dense": get_dense_resnet_kernel,
 }

@@ -1,22 +1,26 @@
-"""Compositional NNGP layers, dense kernel tier (counterpart of
+"""Compositional NNGP layers, the kernel tier (counterpart of
 ``snngp/nn/layers.py``).
 
 Each layer is a :class:`Layer` whose ``kfn`` maps a
 :class:`~snngp_torch.nn.state.KernelState` to the next one, forward only:
 
 - Dense(w, b):   K' = w^2 K + b^2
+- Conv 3x3:      K' = w^2 patch_mean(K) + b^2 (matched-pixel tier: i.i.d.
+                 filter offsets couple only equal offsets across the inputs)
 - Relu:          arccos kernel  K' = (s sin t + (pi - t) K) / (2 pi),
                  s = sqrt(v1 v2), t = arccos(K / s)
 - Erf:           arcsin kernel  K' = (2/pi) asin(2K / sqrt((1+2v1)(1+2v2)))
+- Flatten:       spatial mean (exact for a Flatten + Dense readout)
 - FanOut/parallel/FanInSum/Identity: residual-branch bookkeeping.
 
-This tier materializes every layer's [N1, N2] state; the architectures'
-kernel functions (:mod:`snngp_torch.nn.arch`) route 2-D Gram blocks to the
-fused Gram instead, and keep this tier as the independent reference and as
-the backward of the fused Gram's ``trainable_inputs=True`` contract. The
-arccos kernel carries the JAX package's analytic backward, finite on the
-Gram's diagonal. The finite-width ``init``/``apply``, the conv/pooling
-layers and the NTK land in later slices.
+This tier materializes every layer's [N1, N2] or [N1, N2, H, W] state; the
+architectures' kernel functions (:mod:`snngp_torch.nn.arch`) route Gram
+blocks to the fused Grams instead, and keep this tier as the independent
+reference and as the backward of the fused Grams' ``trainable_inputs=True``
+contract. The arccos kernel carries the JAX package's analytic backward,
+finite on the Gram's diagonal. The finite-width ``init``/``apply``, the
+pooling layers (full spatial-covariance tier) and the NTK land in later
+slices.
 """
 
 from __future__ import annotations
@@ -26,14 +30,17 @@ import math
 from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
 
 from snngp_torch.nn.state import KernelState, input_state
 
 __all__ = [
     "Layer",
     "Dense",
+    "Conv",
     "Relu",
     "Erf",
+    "Flatten",
     "Identity",
     "FanOut",
     "FanInSum",
@@ -61,6 +68,54 @@ def Dense(out_dim: int, w_std, b_std=0.0) -> Layer:
                            var2=w2 * k.var2 + b2)
 
     return Layer(kfn)
+
+
+def _same_pads(n: int, k: int, s: int):
+    """(low, high) zero padding of ``lax.conv``'s SAME alignment on one axis:
+    ceil(n / s) outputs, the odd padding pixel at the high end."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _patch_mean(img: torch.Tensor, filter_shape, strides) -> torch.Tensor:
+    """SAME-padded stencil mean over the filter offsets, [..., H, W] ->
+    [..., H', W'] (zeros off the edge): the JAX package's depthwise all-ones
+    conv / filter count, with ``lax.conv``'s SAME alignment (stride 2 pads
+    an even extent at the high end only)."""
+    batch_shape = img.shape[:-2]
+    h, w = img.shape[-2:]
+    (fh, fw), (sh, sw) = filter_shape, strides
+    top, bottom = _same_pads(h, fh, sh)
+    left, right = _same_pads(w, fw, sw)
+    x = F.pad(img.reshape(-1, 1, h, w), (left, right, top, bottom))
+    out = F.avg_pool2d(x, (fh, fw), (sh, sw))
+    return out.reshape(batch_shape + out.shape[-2:])
+
+
+def Conv(out_chan: int, filter_shape=(3, 3), strides=(1, 1), padding: str = "SAME",
+         w_std=1.0, b_std=0.0) -> Layer:
+    """2-D convolution, NTK parameterization (stax.Conv analogue), on the
+    matched-pixel state: ``K'[i, j, p] = w^2 mean_d K[i, j, s p + d] + b^2``
+    (zeros off the edge). ``out_chan`` only matters to the finite-width
+    tier."""
+    if padding != "SAME":
+        raise NotImplementedError("only SAME padding (all reference archs use SAME)")
+
+    def kfn(k: KernelState) -> KernelState:
+        if not k.spatial:
+            raise ValueError("Conv requires spatial kernel state ([N,H,W,C] inputs)")
+        w2 = w_std * w_std
+        b2 = b_std * b_std
+        return KernelState(nngp=w2 * _patch_mean(k.nngp, filter_shape, strides) + b2,
+                           var1=w2 * _patch_mean(k.var1, filter_shape, strides) + b2,
+                           var2=w2 * _patch_mean(k.var2, filter_shape, strides) + b2)
+
+    return Layer(kfn)
+
+
+def _outer(k: KernelState):
+    """var1 [N1, ...] and var2 [N2, ...] broadcast against nngp [N1, N2, ...]."""
+    return k.var1[:, None], k.var2[None, :]
 
 
 class _ReluT(torch.autograd.Function):
@@ -96,7 +151,7 @@ def _relu_t(nngp, v1, v2):
 
 def Relu() -> Layer:
     def kfn(k: KernelState) -> KernelState:
-        nngp = _relu_t(k.nngp, k.var1[:, None], k.var2[None, :])
+        nngp = _relu_t(k.nngp, *_outer(k))
         return KernelState(nngp=nngp, var1=k.var1 / 2.0, var2=k.var2 / 2.0)
 
     return Layer(kfn)
@@ -110,9 +165,23 @@ def _erf_t(nngp, v1, v2):
 
 def Erf() -> Layer:
     def kfn(k: KernelState) -> KernelState:
-        nngp = _erf_t(k.nngp, k.var1[:, None], k.var2[None, :])
+        nngp = _erf_t(k.nngp, *_outer(k))
         return KernelState(nngp=nngp, var1=_erf_t(k.var1, k.var1, k.var1),
                            var2=_erf_t(k.var2, k.var2, k.var2))
+
+    return Layer(kfn)
+
+
+def Flatten() -> Layer:
+    """Spatial mean readout (exact for Flatten -> Dense; stax.Flatten
+    analogue); a no-op on a flat state."""
+
+    def kfn(k: KernelState) -> KernelState:
+        if not k.spatial:
+            return k
+        return KernelState(nngp=torch.mean(k.nngp, dim=(-2, -1)),
+                           var1=torch.mean(k.var1, dim=(-2, -1)),
+                           var2=torch.mean(k.var2, dim=(-2, -1)))
 
     return Layer(kfn)
 

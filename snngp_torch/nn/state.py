@@ -1,9 +1,14 @@
 """Kernel state flowing through the NNGP layer recursion (counterpart of
-``snngp/nn/state.py``, dense inputs only).
+``snngp/nn/state.py``).
 
-For dense inputs ``[N, D]`` the state is the ``[N1, N2]`` covariance plus
-the two ``[N]`` diagonals. The image (matched-pixel) tier and the NTK field
-land with the convolutional slice; ``ntk`` is carried as ``None``.
+- dense inputs  ``[N, D]``:        ``nngp`` ``[N1, N2]``,       ``var`` ``[N]``;
+- image inputs  ``[N, H, W, C]``:  ``nngp`` ``[N1, N2, H, W]``, ``var`` ``[N, H, W]``.
+
+``nngp[i, j, h, w]`` is the covariance of the pre-activations of inputs i
+and j at the same pixel (the matched-pixel, "diagonal spatial" tier): convs
+with i.i.d. weights couple only equal filter offsets across the two inputs,
+so the recursion closes on this diagonal, and a Flatten + Dense readout is
+exact on it. The NTK field is not ported; ``ntk`` is carried as ``None``.
 """
 
 from __future__ import annotations
@@ -18,25 +23,34 @@ __all__ = ["KernelState", "input_state"]
 
 @dataclasses.dataclass(frozen=True)
 class KernelState:
-    """nngp: [N1, N2] covariance; var1: [N1] and var2: [N2] diagonals;
-    ntk: always None in this tier."""
+    """nngp: [N1, N2] or [N1, N2, H, W]; var1: [N1] or [N1, H, W]; var2:
+    [N2] or [N2, H, W]; ntk: always None in this tier."""
 
     nngp: torch.Tensor
     var1: torch.Tensor
     var2: torch.Tensor
     ntk: Optional[torch.Tensor] = None
 
+    @property
+    def spatial(self) -> bool:
+        return self.nngp.ndim == 4
+
 
 def input_state(x1: torch.Tensor, x2: Optional[torch.Tensor]) -> KernelState:
-    """Layer-0 state: the per-feature second moment ``x1 . x2 / D`` (the NTK
-    parameterization of ``stax.Dense``)."""
+    """Layer-0 state: the per-feature second moment ``x1 . x2 / D`` (for
+    images, the channel mean at each matched pixel), the NTK
+    parameterization of ``stax.Dense`` / ``stax.Conv``."""
     if x2 is None:
         x2 = x1
-    if x1.ndim != 2:
-        raise ValueError(f"inputs must be [N, D] (the image tier is not "
-                         f"ported yet); got {tuple(x1.shape)}")
-    d = x1.shape[-1]
-    nngp = (x1 @ x2.T) / d
-    var1 = torch.sum(x1 * x1, dim=-1) / d
-    var2 = torch.sum(x2 * x2, dim=-1) / d
+    if x1.ndim == 2:
+        d = x1.shape[-1]
+        nngp = (x1 @ x2.T) / d
+        var1 = torch.sum(x1 * x1, dim=-1) / d
+        var2 = torch.sum(x2 * x2, dim=-1) / d
+    elif x1.ndim == 4:
+        nngp = torch.einsum("ihwc,jhwc->ijhw", x1, x2) / x1.shape[-1]
+        var1 = torch.mean(x1 * x1, dim=-1)
+        var2 = torch.mean(x2 * x2, dim=-1)
+    else:
+        raise ValueError(f"inputs must be [N, D] or [N, H, W, C]; got {tuple(x1.shape)}")
     return KernelState(nngp=nngp, var1=var1, var2=var2)

@@ -21,6 +21,13 @@ The marginal likelihoods (:func:`mvn_logpdf`, and
 :func:`snngp_torch.ops.mvt.multivariate_t_logpdf`) are differentiable
 through all of these.
 
+The sparse variational model's guards (:func:`inv_psd`,
+:func:`psd_safety_lift`, :func:`pinv_psd_eigh`) keep the JAX package's
+reads: ``jnp.linalg.eigh`` / ``eigvalsh`` symmetrize their input (as
+``cholesky`` does), ``torch.linalg.eigh`` reads one triangle, so the port
+symmetrizes first; ``cho_factor(lower=True)`` reads the lower triangle, as
+``torch.linalg.cholesky`` does.
+
 ``gp_predict`` regularizes with ``diag_reg * mean(diag(K)) * I`` — the
 *relative* scaling of neural_tangents' ``gradient_descent_mse_ensemble``.
 """
@@ -41,6 +48,9 @@ __all__ = [
     "chol_quad_form",
     "gp_predict",
     "mvn_logpdf",
+    "inv_psd",
+    "psd_safety_lift",
+    "pinv_psd_eigh",
 ]
 
 
@@ -70,7 +80,12 @@ def cholesky(mat: torch.Tensor) -> torch.Tensor:
     backward, so the marker goes onto a copy (one N x N pass); otherwise, as
     under ``inference_mode`` where serving runs, onto the factor itself."""
     sym = (mat + mat.mT).mul_(0.5)      # == (A + A^T) / 2 bitwise
-    chol, info = torch.linalg.cholesky_ex(sym)
+    return _nan_where_failed(*torch.linalg.cholesky_ex(sym))
+
+
+def _nan_where_failed(chol: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
+    """The factor with NaN on its diagonal where ``cholesky_ex`` failed
+    (``info > 0``); on a copy when autograd saved the factor."""
     if chol.requires_grad:
         chol = chol.clone()
     nan_if_failed = torch.where(info > 0, float("nan"), 0.0).to(chol.dtype)
@@ -127,3 +142,60 @@ def mvn_logpdf(y: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
     chol = cholesky(cov)
     quad = chol_quad_form(chol, y)
     return -0.5 * (quad + chol_logdet(chol) + n * math.log(2.0 * math.pi))
+
+
+def _sym(mat: torch.Tensor) -> torch.Tensor:
+    return (mat + mat.mT) * 0.5
+
+
+def inv_psd(mat: torch.Tensor) -> torch.Tensor:
+    """Explicit PSD inverse through the lower Cholesky factor of ``mat``
+    (its lower triangle, as ``cho_factor(lower=True)`` reads it), for sites
+    where the reference materializes ``jnp.linalg.inv`` (spax/models.py:40).
+    NaN where ``mat`` is not PD, as in JAX."""
+    chol = _nan_where_failed(*torch.linalg.cholesky_ex(mat))
+    return torch.cholesky_inverse(chol, upper=False)
+
+
+def psd_safety_lift(mat: torch.Tensor, mult: float = 1.0) -> torch.Tensor:
+    """Diagonal lift that makes a symmetric matrix safely factorizable: its
+    smallest eigenvalue is raised to ``mult * eps_dtype * max_eig`` when it
+    is below that floor; an exact no-op otherwise (boost 0). The eigenvalues
+    are detached: gradients flow through ``mat`` as without the guard."""
+    ev = torch.linalg.eigvalsh(_sym(mat.detach()))
+    lo, hi = ev[..., 0], ev[..., -1]
+    floor = mult * torch.finfo(mat.dtype).eps * hi
+    boost = torch.clamp(floor - lo, min=0.0)
+    return _add_to_diagonal(mat, boost[..., None])
+
+
+class _PinvPsdEigh(torch.autograd.Function):
+    """Eigh pseudo-inverse whose derivative is the matrix-inverse rule
+    d(A^-1) = -A^-1 dA A^-1, not the eigendecomposition's (whose
+    1 / (lambda_i - lambda_j) terms explode on clustered spectra); the
+    backward is its transpose, G -> -A^-T G A^-T."""
+
+    @staticmethod
+    def forward(ctx, mat):
+        evals, evecs = torch.linalg.eigh(_sym(mat))
+        floor = evals[..., -1:] * torch.finfo(mat.dtype).eps
+        evals = torch.maximum(evals, floor)
+        inv = (evecs / evals[..., None, :]) @ evecs.mT
+        ctx.save_for_backward(inv)
+        return inv
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        inv_t = inv.mT
+        return -(inv_t @ g @ inv_t)
+
+
+def pinv_psd_eigh(mat: torch.Tensor) -> torch.Tensor:
+    """Indefinite-safe explicit PSD (pseudo-)inverse via eigh
+    (``snngp/ops/linalg.py:179``): eigenvalues floored at
+    ``max_eig * eps_dtype`` (a no-op on well-conditioned input, a bounded
+    pseudo-inverse on numerically indefinite input; the floor is not
+    positive when max_eig <= 0, as in the reference), differentiated by the
+    matrix-inverse rule."""
+    return _PinvPsdEigh.apply(mat)

@@ -1,13 +1,17 @@
 """scikit-learn-style estimator facade over the port's model layer
-(counterpart of ``SNNGPRegressor`` in ``snngp/sklearn.py``; the classifier
-comes with the classification slice).
+(counterpart of ``snngp/sklearn.py``).
 
-:class:`SNNGPRegressor` packages exact-inference NNGP regression (``SPR``)
-with ``method="gp"`` (Gaussian) or ``"tp"`` (Student-t scale mixture),
-optional ML-II hyperparameter training and repeated prediction through the
-fitted-state predictor, behind the fit/predict contract. ``__init__`` only
-stores hyperparameters, ``fit`` returns ``self``, learned attributes end in
-``_``, and ``get_params`` / ``set_params`` make it clone- and
+- :class:`SNNGPRegressor` packages exact-inference NNGP regression (``SPR``)
+  with ``method="gp"`` (Gaussian) or ``"tp"`` (Student-t scale mixture),
+  optional ML-II hyperparameter training and repeated prediction through
+  the fitted-state predictor.
+- :class:`SNNGPClassifier` packages sparse variational classification
+  (``SVSP``) of images with ``method="svgp"`` / ``"svtp"`` on the CNN NNGP,
+  minibatch ELBO training and MC ``predict_proba``.
+
+Both follow the fit/predict contract: ``__init__`` only stores
+hyperparameters, ``fit`` returns ``self``, learned attributes end in ``_``,
+and ``get_params`` / ``set_params`` make them clone- and
 grid-search-compatible. sklearn itself is not required.
 
 ``device`` (default ``"cuda"``) names where the data, the parameters and
@@ -25,7 +29,7 @@ from snngp_torch.models.predictor import fit_spr
 from snngp_torch.utils.optim import SGD, Adam
 from snngp_torch.utils.training import train_step
 
-__all__ = ["SNNGPRegressor"]
+__all__ = ["SNNGPRegressor", "SNNGPClassifier"]
 
 
 class _EstimatorBase:
@@ -173,3 +177,109 @@ class SNNGPRegressor(_EstimatorBase):
             y_n = (self._tensor(np.asarray(y, np.float32).reshape(-1))
                    - s["y_mean"]) / s["y_std"]
             return float(self.fitted_.test_nll(self._tensor(X), y_n))
+
+
+class SNNGPClassifier(_EstimatorBase):
+    """Sparse variational NNGP / Student-t process classification of
+    [N, H, W, C] images.
+
+    Parameters mirror ``cls tr`` flags: ``method`` svgp|svtp, the CNN
+    kernel's depth / activation / scales (``network="cnn"``; resnet, myrtle
+    and mlp are not ported and raise), ``alpha`` / ``beta`` of the svtp
+    prior, jitter ``eps``, the inducing-point count, the ELBO's MC sample
+    count and the minibatch schedule. ``fit`` initializes the inducing
+    points class-proportionally (the first images of each class, as the CLI
+    does), trains the ELBO with Adam / SGD, and hoists the inducing-side
+    solves into a fitted predictor for ``predict_proba``.
+
+    The minibatch order and the MC draws come from ``torch.Generator``s
+    seeded with ``seed`` (fit) and ``seed + 1`` (every ``predict_proba``
+    call), so repeated calls agree; they are not the JAX package's draws.
+    """
+
+    _param_names = ("method", "network", "num_hiddens", "activation",
+                    "w_std", "b_std", "last_w_std", "alpha", "beta", "eps",
+                    "num_inducing", "num_samples", "batch_size", "epochs",
+                    "optimizer", "lr", "seed", "device")
+
+    def __init__(self, method="svtp", network="cnn", num_hiddens=4,
+                 activation="relu", w_std=1.0, b_std=0.0, last_w_std=1.0,
+                 alpha=2.0, beta=2.0, eps=1e-6, num_inducing=100,
+                 num_samples=100, batch_size=64, epochs=10,
+                 optimizer="adam", lr=1e-2, seed=10, device="cuda"):
+        self.method = method
+        self.network = network
+        self.num_hiddens = num_hiddens
+        self.activation = activation
+        self.w_std = w_std
+        self.b_std = b_std
+        self.last_w_std = last_w_std
+        self.alpha = alpha
+        self.beta = beta
+        self.eps = eps
+        self.num_inducing = num_inducing
+        self.num_samples = num_samples
+        self.batch_size = batch_size
+        self.epochs = epochs
+        self.optimizer = optimizer
+        self.lr = lr
+        self.seed = seed
+        self.device = device
+
+    def fit(self, X, y, profiler=None):
+        """Build the model, train ``epochs`` epochs of minibatch ELBO steps,
+        fit the predictor. ``losses_`` holds every step's loss (before its
+        update); ``profiler`` splits each step into its synchronized
+        phases (see :func:`~snngp_torch.utils.training.svsp_train_step`)."""
+        from snngp_torch.cli.classification import _make_model
+        from snngp_torch.models.predictor import fit_svsp
+        from snngp_torch.utils.training import svsp_train_step
+
+        if self.network != "cnn":
+            raise NotImplementedError(f"network={self.network!r}: only 'cnn' is ported")
+        self.device_ = _device(self.device)
+        X = np.asarray(X, np.float32)
+        y = np.asarray(y).reshape(-1)
+        self.classes_ = np.unique(y)
+        num_class = len(self.classes_)
+        y_idx = np.searchsorted(self.classes_, y)
+
+        counts = np.bincount(y_idx, minlength=num_class)
+        per_class = np.round(self.num_inducing * counts / counts.sum()).astype(int)
+        z = np.concatenate([X[y_idx == c][:max(per_class[c], 1)] for c in range(num_class)])
+        model = _make_model(self.method, self.network, self.num_hiddens, self.activation,
+                            self.w_std, self.b_std, self.last_w_std, self.alpha, self.beta,
+                            num_class, z, self.eps).to(self.device_)
+        opt = (Adam if self.optimizer == "adam" else SGD)(model)
+        xt = torch.as_tensor(X, device=self.device_)
+        yt = torch.as_tensor(y_idx, device=self.device_)
+        gen = torch.Generator(device=self.device_).manual_seed(self.seed)
+        num_train = X.shape[0]
+        losses = []
+        for _ in range(self.epochs):
+            order = torch.randperm(num_train, generator=gen, device=self.device_)
+            for lo in range(0, num_train, self.batch_size):
+                idx = order[lo:lo + self.batch_size]
+                losses.append(svsp_train_step(model, [opt], [self.lr], xt[idx], yt[idx],
+                                              num_train, self.num_samples, gen, profiler))
+        self.losses_ = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
+        self.final_loss_ = float(self.losses_[-1]) if losses else float("nan")
+        self.model_ = model
+        with torch.no_grad():
+            self.fitted_ = fit_svsp(model)
+        return self
+
+    def predict_proba(self, X, num_samples: int = 1000):
+        """Mean MC predictive class probabilities [n, n_classes]."""
+        gen = torch.Generator(device=self.device_).manual_seed(self.seed + 1)
+        with torch.no_grad():
+            x = torch.as_tensor(np.asarray(X, np.float32), device=self.device_)
+            return self.fitted_.predict_proba(x, num_samples, generator=gen).cpu().numpy()
+
+    def predict(self, X):
+        return self.classes_[np.argmax(self.predict_proba(X), axis=1)]
+
+    def score(self, X, y):
+        """Accuracy (sklearn classifier convention)."""
+        y = np.asarray(y).reshape(-1)
+        return float((self.predict(X) == y).mean())

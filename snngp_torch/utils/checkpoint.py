@@ -8,8 +8,9 @@ best-loss-gated save and the keep-last-k pruning of the reference.
 
 ``save_training_state`` / ``load_training_state`` write and read
 ``resume.state`` in the JAX package's layout: ``p{i}`` the parameters in
-sorted-name order, ``o{i}`` the optimizer's state leaves (Adam: ``step``,
-then ``mu``, then ``nu``, each in sorted-name order), ``meta_*`` the loop
+sorted-name order, ``o{i}`` the optimizers' state leaves, one optimizer
+after the other (Adam: ``step``, then ``mu``, then ``nu``, each in
+sorted-name order; ``cls tr -lr2`` trains with two), ``meta_*`` the loop
 state. Files written by either package load in the other.
 """
 
@@ -91,11 +92,16 @@ class Checkpointer:
         return False
 
 
+def _optimizers(optimizer):
+    return list(optimizer) if isinstance(optimizer, (list, tuple)) else [optimizer]
+
+
 def save_training_state(path: str, model, optimizer, meta: Dict) -> None:
-    """Write the parameters, the optimizer state and the loop metadata to one
-    .npz (atomically: a temporary file, then a rename)."""
+    """Write the parameters, the state of the optimizer (or of a list of
+    them) and the loop metadata to one .npz (atomically: a temporary file,
+    then a rename)."""
     p_leaves = [v for _, v in named_leaves(model)]
-    o_leaves = optimizer.state_leaves()
+    o_leaves = [leaf for opt in _optimizers(optimizer) for leaf in opt.state_leaves()]
     payload: Dict[str, np.ndarray] = {"num_params": np.array(len(p_leaves)),
                                       "num_opt": np.array(len(o_leaves))}
     for i, leaf in enumerate(p_leaves):
@@ -111,8 +117,9 @@ def save_training_state(path: str, model, optimizer, meta: Dict) -> None:
 
 
 def load_training_state(path: str, model, optimizer) -> Dict[str, np.ndarray]:
-    """Load the parameters into ``model`` and the state into ``optimizer``;
-    return the loop metadata."""
+    """Load the parameters into ``model`` and the state into ``optimizer``
+    (or a list of them, in the order they were saved); return the loop
+    metadata."""
     with np.load(path) as data:
         params = [p for _, p in named_leaves(model)]
         n_p, n_o = int(data["num_params"]), int(data["num_opt"])
@@ -121,5 +128,14 @@ def load_training_state(path: str, model, optimizer) -> Dict[str, np.ndarray]:
         with torch.no_grad():
             for i, p in enumerate(params):
                 p.copy_(torch.as_tensor(data[f"p{i}"], dtype=p.dtype))
-        optimizer.load_state_leaves([data[f"o{i}"] for i in range(n_o)])
+        leaves = [data[f"o{i}"] for i in range(n_o)]
+        opts = _optimizers(optimizer)
+        sizes = [len(opt.state_leaves()) for opt in opts]
+        if sum(sizes) != n_o:
+            raise ValueError(f"{path} holds {n_o} optimizer leaves; the optimizers "
+                             f"take {sum(sizes)}")
+        start = 0
+        for opt, size in zip(opts, sizes):
+            opt.load_state_leaves(leaves[start:start + size])
+            start += size
         return {k[5:]: data[k] for k in data.files if k.startswith("meta_")}

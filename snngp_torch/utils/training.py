@@ -1,20 +1,29 @@
 """Training-loop utilities (counterpart of ``snngp/utils/training.py``):
 
 - :func:`train_step`: one ML-II step (loss, its gradient, one update);
+- :func:`svsp_train_step`: one ELBO step of a sparse variational model;
+- :class:`DataLoader`: in-memory numpy batcher with the reference's seeded
+  per-epoch reshuffle (a copy of the JAX package's: the same seed gives the
+  same batches);
 - :class:`ReduceLROnPlateau`: plateau decay with the reference's exact
   is-better thresholds;
 - :class:`Logger`: line-oriented file + stdout logger;
+- :func:`progress`: a tqdm progress bar where tqdm is installed;
 - ``get_context_summary``: the args dump.
-
-The numpy ``DataLoader`` comes with the classification slice.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import os
+import random as _pyrandom
+from typing import Optional
 
-__all__ = ["train_step", "ReduceLROnPlateau", "Logger", "get_context_summary"]
+import numpy as np
+
+__all__ = ["train_step", "svsp_train_step", "DataLoader", "ReduceLROnPlateau",
+           "Logger", "progress", "get_context_summary"]
 
 
 def train_step(model, optimizer, lr, prof=None):
@@ -37,6 +46,83 @@ def train_step(model, optimizer, lr, prof=None):
     with phase("optimizer"):
         optimizer.update(lr)
     return loss.detach()
+
+
+def svsp_train_step(model, optimizers, lrs, x_batch, y_batch, num_train, num_samples,
+                    generator=None, prof=None):
+    """One ELBO step on ``model`` (an ``SVSP``): the negative ELBO per data
+    point, its gradient, one update of each optimizer at its learning rate
+    (``-lr2`` trains with two: every parameter but the prior's at ``lrs[0]``,
+    the prior's at ``lrs[1]``). Returns the loss, detached and left on its
+    device.
+
+    With a :class:`~snngp_torch.utils.profiling.Profiler` the step runs in
+    five synchronized phases: ``gram`` (the three Gram blocks, K3 on the
+    card), ``posterior`` (the inducing inverses, the eigh pseudo-inverse and
+    the safety lifts), ``sampling+likelihood`` (the posterior draws, the
+    softmax likelihood and the KL), ``backward`` and ``optimizer``."""
+    phase = prof.phase if prof is not None else (lambda name: contextlib.nullcontext())
+    for opt in optimizers:
+        opt.zero_grad()
+    loss = model.loss(x_batch, y_batch, num_train, num_samples, generator=generator,
+                      phase=phase)
+    with phase("backward"):
+        loss.backward()
+    with phase("optimizer"):
+        for opt, lr in zip(optimizers, lrs):
+            opt.update(lr)
+    return loss.detach()
+
+
+class DataLoader:
+    """Batches of (x, y) numpy arrays; with ``shuffle`` each epoch's order is
+    ``random.Random(seed + epoch).shuffle`` (the seed is incremented at each
+    iteration, as the reference does); ``batch_size=None`` without shuffle
+    yields the whole set once."""
+
+    def __init__(self, x, y, batch_size: Optional[int] = None, *,
+                 shuffle: bool = False, seed: int = 0):
+        self.shuffle = shuffle
+        self.seed = seed
+        self.x = np.array(x)
+        self.y = np.array(y)
+        self.indices = list(range(self.x.shape[0]))
+        self.batch_size = self.x.shape[0] if batch_size is None else batch_size
+        self.not_use_indices = (batch_size is None and not shuffle)
+        self._batch_indices = None
+        self._batch_idx = None
+
+    def __iter__(self):
+        if self.shuffle:
+            self.seed += 1
+            indices = self.indices.copy()
+            _pyrandom.Random(self.seed).shuffle(indices)
+        else:
+            indices = self.indices
+        self._batch_idx = 0
+        if not self.not_use_indices:
+            self._batch_indices = [indices[i: i + self.batch_size]
+                                   for i in range(0, len(indices), self.batch_size)]
+        return self
+
+    def __next__(self):
+        if self.not_use_indices:
+            if self._batch_idx > 0:
+                raise StopIteration
+            self._batch_idx += 1
+            return self.x, self.y
+        if self._batch_idx >= len(self._batch_indices):
+            raise StopIteration
+        idx = self._batch_indices[self._batch_idx]
+        self._batch_idx += 1
+        return self.x[idx], self.y[idx]
+
+    def __len__(self):
+        return math.ceil(len(self.indices) / self.batch_size)
+
+    @property
+    def num_data(self):
+        return self.x.shape[0]
 
 
 class ReduceLROnPlateau:
@@ -116,6 +202,15 @@ class Logger:
 
     def close(self):
         self.logfile.close()
+
+
+def progress(it, quite, **kw):
+    """``it`` under a tqdm bar (``kw`` its options) where tqdm is installed."""
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return it
+    return tqdm(it, ncols=0, disable=quite, **kw)
 
 
 def get_context_summary(args, values_dict, indent=2):

@@ -1,0 +1,294 @@
+"""Port parity of the CNN NNGP: the conv layer tier (snngp_torch/nn/layers.py:
+``_patch_mean``, ``Conv``, ``Flatten``), the ``cnn`` builders
+(snngp_torch/nn/arch.py) and the fused conv Gram with its two backward
+contracts (snngp_torch/ops/conv_gram.py: K3's and K4's plain versions),
+each against the JAX package on the same numpy inputs.
+
+The JAX Pallas kernels run in interpreter mode on the CPU
+(``conv_gram.INTERPRET``, set and restored per test, as
+tests/test_pallas.py does). Tolerances:
+- the stencil mean and the variance maps: atol 2e-7 (one fp32 conv of
+  values ~1 each side, reassociated);
+- Grams of the layer tier, the fused Gram and its four tangent Grams:
+  atol 1e-6 on Grams of magnitude <= 1 (max 2e-6 for the 32 x 32 x 3 case),
+  the fp32 bar of the JAX package's own conv-kernel tests
+  (tests/test_pallas.py:92-129); acos / asin and the input moment differ in
+  the last bits only;
+- gradients (x cotangents and the three scalar sums): rtol 1e-5 with an
+  atol of 1e-6 of the largest entry, the bar of tests/test_torch_grad.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import snngp.ops.pallas.conv_gram as JCG
+from snngp.nn import arch as jarch
+from snngp.nn import layers as JL
+from snngp.nn.state import KernelState as JS
+from snngp.nn.state import input_state as j_input_state
+
+from snngp_torch.nn import arch as tarch
+from snngp_torch.nn import layers as TL
+from snngp_torch.nn.state import KernelState as TS
+from snngp_torch.nn.state import input_state as t_input_state
+from snngp_torch.ops import conv_gram as TCG
+
+from _torch_parity import cuda_device, randn, to_numpy, to_torch  # noqa: F401
+
+SCALES = dict(w_std=1.3, b_std=0.2, last_w_std=0.9)
+# (name, [N1, H, W, C] of x1, N2): the synthetic set's 8 x 8 x 1, a ragged
+# 6 x 5 x 2, and the CIFAR shape at N <= 4.
+SHAPES = {"8x8x1": ((5, 8, 8, 1), 3), "6x5x2": ((4, 6, 5, 2), 3),
+          "32x32x3": ((3, 32, 32, 3), 4)}
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode():
+    JCG.INTERPRET = True
+    yield
+    JCG.INTERPRET = False
+
+
+def _images(seed, name, same=False):
+    (n1, h, w, c), n2 = SHAPES[name]
+    x1, x2 = randn(seed, (n1, h, w, c), (n2, h, w, c))
+    return (x1, x1) if same else (x1, x2)
+
+
+def _atol(name):
+    return 2e-6 if name == "32x32x3" else 1e-6
+
+
+# -- the conv layer tier ---------------------------------------------------------
+
+@pytest.mark.parametrize("strides", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("hw", [(8, 8), (7, 7), (6, 5), (8, 7), (1, 1)])
+def test_patch_mean_matches_lax_same_alignment(hw, strides):
+    # Stride 2 pads an even extent at the high end only (lax SAME).
+    (img,) = randn(1, (3,) + hw)
+    want = np.asarray(JL._patch_mean(jnp.asarray(img), (3, 3), strides))
+    got = to_numpy(TL._patch_mean(to_torch(img), (3, 3), strides))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=2e-7)
+
+
+@pytest.mark.parametrize("strides", [(1, 1), (2, 2)])
+def test_conv_layer_matches(strides):
+    x1, x2 = _images(2, "6x5x2")
+    want = JL.Conv(1, (3, 3), strides, w_std=1.2, b_std=0.3).kfn(j_input_state(x1, x2))
+    got = TL.Conv(1, (3, 3), strides, w_std=1.2, b_std=0.3).kfn(
+        t_input_state(*to_torch(x1, x2)))
+    assert got.spatial and got.nngp.shape == want.nngp.shape
+    for field in ("nngp", "var1", "var2"):
+        np.testing.assert_allclose(to_numpy(getattr(got, field)),
+                                   np.asarray(getattr(want, field)), atol=1e-6)
+
+
+def test_conv_requires_a_spatial_state_and_flatten_passes_a_flat_one():
+    v = np.ones(3, np.float32)
+    flat = TS(nngp=to_torch(np.eye(3, dtype=np.float32)), var1=to_torch(v), var2=to_torch(v))
+    with pytest.raises(ValueError, match="spatial"):
+        TL.Conv(1).kfn(flat)
+    assert TL.Flatten().kfn(flat) is flat
+    want = JL.Flatten().kfn(JS(nngp=np.eye(3, dtype=np.float32), var1=v, var2=v))
+    assert want.nngp.shape == (3, 3)
+
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("name", ["8x8x1", "6x5x2"])
+def test_cnn_layer_tier_matches(name, act):
+    x1, x2 = _images(3, name)
+    want = JL.kernel_fn_of(jarch.get_cnn_layer(2, 1, act, **SCALES))(x1, x2, get="nngp")
+    got = TL.kernel_fn_of(tarch.get_cnn_layer(2, 1, act, **SCALES))(*to_torch(x1, x2))
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=1e-6)
+
+
+# -- the fused conv Gram (K3's plain version) -------------------------------------
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+def test_conv_var_stack_and_tangents_match(act):
+    (x,) = randn(4, (4, 6, 5, 2))
+    w, b = jnp.float32(1.3), jnp.float32(0.2)
+    want_v, want_dv = JCG._conv_var_stack_with_tangents(jnp.asarray(x), 3, act, w, b)
+    got_v, got_dv = TCG._stack_with_tangents(to_torch(x), 3, act, torch.tensor(1.3),
+                                             torch.tensor(0.2))
+    np.testing.assert_allclose(to_numpy(got_v), np.asarray(want_v).reshape(4, 4, 30),
+                               atol=2e-7)
+    np.testing.assert_allclose(to_numpy(got_dv), np.asarray(want_dv).reshape(2, 4, 4, 30),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("same", [False, True], ids=["x1,x2", "x,x"])
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_cnn_gram_matches_jax_interpret(name, act, same):
+    x1, x2 = _images(5, name, same)
+    want = np.asarray(JCG.cnn_gram(x1, x1 if same else x2, depth=2, act=act, **SCALES))
+    a, b = to_torch(x1, x2)
+    got = to_numpy(TCG.cnn_gram(a, a if same else b, depth=2, act=act, **SCALES))
+    np.testing.assert_allclose(got, want, atol=_atol(name))
+    if same:  # K(x, x) of the plain version is symmetric to round-off
+        np.testing.assert_allclose(got, got.T, atol=1e-7)
+
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+def test_get_cnn_kernel_matches_jax(act):
+    # JAX's kernel_fn takes its layer tier on the CPU; the port's goes to
+    # the fused Gram's plain version. x2=None means K(x, x).
+    (x,) = randn(6, (6, 8, 8, 1))
+    want = np.asarray(jarch.get_cnn_kernel(3, 1, act, **SCALES)(x, None, get="nngp"))
+    got = to_numpy(tarch.get_cnn_kernel(3, 1, act, **SCALES)(to_torch(x), None))
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+def test_get_cnn_kernel_routes_by_image_size(monkeypatch):
+    # h w <= 1024 goes to cnn_gram; larger images take the layer tier.
+    calls = []
+    real = TCG.cnn_gram
+    monkeypatch.setattr(TCG, "cnn_gram", lambda *a, **k: calls.append(1) or real(*a, **k))
+    kfn = tarch.get_cnn_kernel(1, 1, "relu", **SCALES)
+    small, big = randn(7, (2, 32, 32, 1), (2, 33, 32, 1))
+    kfn(to_torch(small))
+    assert len(calls) == 1
+    got = kfn(to_torch(big))
+    assert len(calls) == 1
+    want = JL.kernel_fn_of(jarch.get_cnn_layer(1, 1, "relu", **SCALES))(big, None, get="nngp")
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=1e-6)
+
+
+def test_tile_shape_follows_the_image_size():
+    assert TCG.tile_shape(1024, 100, 200, TCG._K3_ELEMS) == (2, 2)
+    assert TCG.tile_shape(64, 300, 300, TCG._K3_ELEMS) == (8, 8)
+    assert TCG.tile_shape(1024, 100, 200, TCG._K4_ELEMS) == (1, 2)
+    assert TCG.tile_shape(1, 3, 500, TCG._K3_ELEMS) == (3, 64)   # cut to n1
+    for hw in (1, 30, 64, 784, 1024):
+        ti, tj = TCG.tile_shape(hw, 10_000, 10_000, TCG._K4_ELEMS)
+        assert TCG._smem_bytes(hw, ti, tj, 6, 3) <= TCG._SMEM_LIMIT
+
+
+def test_cuda_wrappers_reject_cpu_tensors_and_count_no_launch():
+    x1, x2 = _images(8, "8x8x1")
+    a, b = to_torch(x1, x2)
+    before = dict(TCG.LAUNCHES)
+    TCG.cnn_gram(a, b, depth=2, act="relu", **SCALES)
+    assert TCG.LAUNCHES == before              # CPU tensors never reach a kernel
+    v1 = TCG._flat_stack(a, 2, "relu", torch.tensor(1.3), torch.tensor(0.2))
+    with pytest.raises(ValueError, match="CUDA"):
+        TCG.conv_gram_cuda(a, a, v1, v1, torch.ones(4), depth=2, act="relu")
+    with pytest.raises(KeyError):
+        TCG.cnn_gram(a, b, depth=2, act="tanh", **SCALES)
+
+
+# -- the two backward contracts -------------------------------------------------
+
+@pytest.mark.parametrize("same", [False, True], ids=["x1,x2", "x,x"])
+@pytest.mark.parametrize("act", ["relu", "erf"])
+def test_trainable_inputs_backward_matches_jax_vjp(act, same):
+    # x1, x2 and scale cotangents through the layer tier (SVSP's contract).
+    x1, x2 = _images(9, "6x5x2", same)
+    (g,) = randn(10, (x1.shape[0], x2.shape[0]))
+
+    def f(a, bb, w, bs, last):
+        return JCG.cnn_gram(a, a if same else bb, depth=2, act=act, w_std=w, b_std=bs,
+                            last_w_std=last)
+
+    _, vjp = jax.vjp(f, x1, x2, 1.3, 0.2, 0.9)
+    want = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    leaves = [torch.tensor(v, requires_grad=True) for v in (x1, x2, 1.3, 0.2, 0.9)]
+    a, bb, w, bs, last = leaves
+    k = TCG.cnn_gram(a, a if same else bb, depth=2, act=act, w_std=w, b_std=bs,
+                     last_w_std=last)
+    wanted = [a, w, bs, last] if same else leaves
+    got = torch.autograd.grad(k, wanted, to_torch(g))
+    for gt, wt in zip(got, [want[0]] + want[2:] if same else want):
+        np.testing.assert_allclose(to_numpy(gt), wt, rtol=1e-5,
+                                   atol=1e-6 * np.abs(wt).max())
+
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("name", ["8x8x1", "6x5x2"])
+def test_tangent_grams_match_jax_cnn_gram_grads(name, act):
+    # K4's plain version returns the four Grams the TPU kernel writes.
+    x1, x2 = _images(11, name)
+    want = JCG._cnn_gram_grads(2, act, JCG._auto_tile(x1.shape[1] * x1.shape[2], 2, 3),
+                               x1, x2, 1.3, 0.2, 0.9)
+    a, b = to_torch(x1, x2)
+    w, bs, last = (torch.tensor(v) for v in (1.3, 0.2, 0.9))
+    v1, dv1 = TCG._stack_with_tangents(a, 2, act, w, bs)
+    v2, dv2 = TCG._stack_with_tangents(b, 2, act, w, bs)
+    scales = torch.stack([w * w, bs * bs, last * last, torch.tensor(1.0 / x1.shape[-1]),
+                          w, bs, last])
+    got = TCG.conv_gram_tangents_plain(a, b, v1, v2, dv1, dv2, scales, depth=2, act=act)
+    for gt, wt in zip(got, want):
+        np.testing.assert_allclose(to_numpy(gt), np.asarray(wt), atol=2e-6)
+
+
+@pytest.mark.parametrize("same", [False, True], ids=["x1,x2", "x,x"])
+@pytest.mark.parametrize("act", ["relu", "erf"])
+def test_scalar_backward_matches_jax(act, same):
+    # trainable_inputs=False: the three sums g . dK/d(w, b, last) against
+    # jax.grad through the JAX package's scalar-tangent kernel
+    # (_cnn_gram_grads in interpret mode); x cotangents are zero.
+    x1, x2 = _images(12, "8x8x1", same)
+    (g,) = randn(13, (x1.shape[0], x2.shape[0]))
+
+    def f(w, bs, last):
+        k = JCG.cnn_gram(x1, x1 if same else x2, depth=2, act=act, w_std=w, b_std=bs,
+                         last_w_std=last, trainable_inputs=False)
+        return jnp.sum(jnp.asarray(g) * k)
+
+    want = np.asarray(jax.grad(f, argnums=(0, 1, 2))(1.3, 0.2, 0.9))
+    a, b = to_torch(x1, x2)
+    a.requires_grad_(True)
+    w, bs, last = (torch.tensor(v, requires_grad=True) for v in (1.3, 0.2, 0.9))
+    k = TCG.cnn_gram(a, a if same else b, depth=2, act=act, w_std=w, b_std=bs,
+                     last_w_std=last, trainable_inputs=False)
+    *got, gx = torch.autograd.grad(k, (w, bs, last, a), to_torch(g))
+    np.testing.assert_allclose(np.array([t.item() for t in got]), want, rtol=1e-5,
+                               atol=1e-6 * np.abs(want).max())
+    assert not gx.any()
+
+
+def test_scalar_sums_plain_is_the_float64_contraction():
+    x1, x2 = _images(14, "6x5x2")
+    (g,) = randn(15, (x1.shape[0], x2.shape[0]))
+    a, b, gt = to_torch(x1, x2, g)
+    w, bs, last = (torch.tensor(v) for v in (1.3, 0.2, 0.9))
+    v1, dv1 = TCG._stack_with_tangents(a, 2, "relu", w, bs)
+    v2, dv2 = TCG._stack_with_tangents(b, 2, "relu", w, bs)
+    scales = torch.stack([w * w, bs * bs, last * last, torch.tensor(0.5), w, bs, last])
+    args = (a, b, v1, v2, dv1, dv2, scales)
+    sums = TCG.conv_gram_grads_plain(*args, gt, depth=2, act="relu")
+    assert sums.dtype == torch.float64
+    _, dkw, dkb, dkl = TCG.conv_gram_tangents_plain(*args, depth=2, act="relu")
+    for s, t in zip(sums, (dkw, dkb, dkl)):
+        np.testing.assert_allclose(s.item(), float(np.sum(g.astype(np.float64)
+                                                          * to_numpy(t))), rtol=1e-12)
+
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+def test_cuda_kernels_match_plain_versions(cuda_device, act):
+    # K3 within 1e-5 of max|K| and K4's sums within 1e-5 of sum |g dK| of
+    # their plain versions, the bench.py bar. Runs only on a CUDA card.
+    x1, x2 = randn(16, (37, 9, 7, 2), (21, 9, 7, 2))
+    (g,) = randn(17, (37, 21))
+    with torch.inference_mode():
+        a, b, gt = (t.to(cuda_device) for t in to_torch(x1, x2, g))
+        w, bs, last = (torch.tensor(v, device=cuda_device) for v in (1.3, 0.2, 0.9))
+        v1, dv1 = TCG._stack_with_tangents(a, 3, act, w, bs)
+        v2, dv2 = TCG._stack_with_tangents(b, 3, act, w, bs)
+        inv_c = torch.tensor(0.5, device=cuda_device)
+        s4 = torch.stack([w * w, bs * bs, last * last, inv_c])
+        k = TCG.conv_gram_cuda(a, b, v1, v2, s4, depth=3, act=act)
+        k_plain = TCG.conv_gram_plain(a, b, v1, v2, s4, depth=3, act=act)
+        assert (k - k_plain).abs().max() <= 1e-5 * k_plain.abs().max()
+        s7 = torch.stack([w * w, bs * bs, last * last, inv_c, w, bs, last])
+        args = (a, b, v1, v2, dv1.contiguous(), dv2.contiguous(), s7, gt)
+        sums = TCG.conv_gram_grads_cuda(*args, depth=3, act=act)
+        want = TCG.conv_gram_grads_plain(*args, depth=3, act=act)
+        _, *tangents = TCG.conv_gram_tangents_plain(*args[:-1], depth=3, act=act)
+        scale = torch.stack([(gt.double().abs() * t.double().abs()).sum() for t in tangents])
+        assert bool(((sums - want).abs() <= 1e-5 * scale).all())

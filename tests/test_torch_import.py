@@ -15,7 +15,10 @@ MODULES = ["snngp_torch", "snngp_torch.__main__", "snngp_torch.cli.regression",
            "snngp_torch.utils.checkpoint", "snngp_torch.data.regression",
            "snngp_torch.sklearn", "snngp_torch.models.gp", "snngp_torch.ops.mvt",
            "snngp_torch.utils.optim", "snngp_torch.utils.profiling",
-           "snngp_torch.utils.training"]
+           "snngp_torch.utils.training", "snngp_torch.cli.classification",
+           "snngp_torch.ops.conv_gram", "snngp_torch.ops.softmax",
+           "snngp_torch.models.priors", "snngp_torch.data.classification",
+           "snngp_torch.data.resize"]
 
 
 def _run(code):
@@ -40,3 +43,12 @@ def test_precision_policy_and_no_pandas_for_synthetic_data():
                 "torch.backends.cudnn.allow_tf32, 'pandas' in sys.modules)")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["False", "False", "False"]
+
+
+def test_classification_data_needs_no_scipy_or_tfds_for_synthetic_sets():
+    proc = _run("import sys, snngp_torch\n"
+                "from snngp_torch.data.classification import get_train_dataset\n"
+                "get_train_dataset('synthetic', num_data=50)\n"
+                "print('scipy.io' in sys.modules, 'jax' in sys.modules)")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "False"]

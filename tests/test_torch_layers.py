@@ -82,5 +82,5 @@ def test_kernel_fn_rejects_unported_requests():
     kfn = TL.kernel_fn_of(tarch.get_mlp_layer(1))
     with pytest.raises(NotImplementedError):
         kfn(to_torch(x), get="ntk")
-    with pytest.raises(ValueError):
-        kfn(torch.zeros(2, 4, 4, 1))
+    with pytest.raises(ValueError):     # neither [N, D] nor [N, H, W, C]
+        kfn(torch.zeros(2, 4, 4))
