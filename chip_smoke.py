@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of snngp_torch on one NVIDIA card: exact-GP serving and
-ML-II training, and sparse variational classification of images.
+ML-II training, and sparse variational classification of images with the
+CNN and the WideResNet NNGP.
 
     python3 chip_smoke.py
 
@@ -58,13 +59,29 @@ script exits non-zero:
    those sizes (and again with ``--freeze-inducing``), ``cls ts`` on its
    checkpoint on CUDA and on the CPU (gate: within a Monte Carlo tolerance
    derived from the card's draws), ``cls pr``, and one timed
-   ``FittedSVSP`` request of 100 images at 10,000 samples.
+   ``FittedSVSP`` request of 100 images at 10,000 samples;
+11. the WideResNet kernels against their plain versions: the residual tail
+   (K5) on the three Gram blocks of an SVSP step at 32 x 32 x 3 (four blocks,
+   the first with a conv shortcut), three blocks at 16 x 16, 8 x 8 and
+   4 x 4, erf, a ragged 7 x 7; the stride-2 block (K6) at 32 -> 16,
+   16 -> 8, 8 -> 4, 7 x 7 and 6 x 10; gate: relative error <= 1e-5 of
+   max|K|, and K(x, x) bitwise symmetric;
+12. WideResNet SVSP at full width (the CIFAR shape of phase 9, ``-n
+   resnet``): the svgp ELBO's gradient on one batch against float64 on the
+   card through the plain layer tier (gate: within 2x the plain fp32
+   path's error), then 10 timed svgp ELBO steps and 10 with frozen inducing
+   inputs, split by phase, with the peak memory (gate: finite losses, 12 K5
+   and 9 K6 launches a step), then one profiled step of each;
+13. the WideResNet classification CLI: ``cls tr -n resnet -m svtp -dn
+   synthetic32 -e 1`` at the defaults on the card, ``cls ts`` on the card
+   and on the CPU (gate: within the Monte Carlo tolerance), ``cls pr``.
 
-Three main paths run with the kernels' launch counts set to 0 just before
-and read just after: serving (phases 2-3), training (phases 5-6) and
-classification (phases 9-10); each fails if a kernel of its path never
-launched. Launches made to compare a kernel with its plain version (phases
-1, 4, 7 and 8) are not counted. The line before the last is one JSON object
+Four main paths run with the kernels' launch counts set to 0 just before
+and read just after: serving (phases 2-3), training (phases 5-6), CNN
+classification (phases 9-10) and WideResNet classification (phases 12-13);
+each fails if a kernel of its path never launched. Launches made to compare
+a kernel with its plain version (phases 1, 4, 7, 8 and 11) are not
+counted. The line before the last is one JSON object
 describing the kernels; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when CUDA is not available or the
 ``snngp_torch`` package is not beside this script. Imports nothing of JAX.
@@ -111,6 +128,9 @@ SVSP_SAMPLES = 100         # cls tr -ns default
 SVSP_STEPS = 10
 CLS_TEST_N = 300           # test images of the cls ts comparison
 K34_HEAD = "relu/200x200 32x32x3 sym"   # K(Z, Z) of one SVSP step
+K5_HEAD = "relu/200x200 32x32 4 blocks+sc sym"   # group 1 of K(Z, Z)
+K6_HEAD = "relu/200x200 32->16 sym"              # group 2's stride-2 block of K(Z, Z)
+RESNET_TEST_N = 100        # test images of the resnet cls ts comparison
 CLI_RTOL = 5e-3            # CUDA vs CPU CLI NLL (tests/test_cli_smoke.py:47-51)
 # Student-t (a, b) of the CLI runs. syn-t's Gram is near rank-1 (1-D
 # inputs); at b/a = 1 the reference's hardcoded 1e-6 jitter on (b/a) K cannot
@@ -145,7 +165,8 @@ def _time_ms(fn, reps=5):
 def _counters():
     from snngp_torch.ops import conv_gram as CG
     from snngp_torch.ops import gram as G
-    return (G.LAUNCHES, CG.LAUNCHES)
+    from snngp_torch.ops import resnet_conv_gram as RG
+    return (G.LAUNCHES, CG.LAUNCHES, RG.LAUNCHES)
 
 
 def _launches():
@@ -181,7 +202,7 @@ def phase0_setup():
     print(f"[setup] torch {torch.__version__}  CUDA {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
     # One nvcc per source, all started together.
-    sources = ("gram", "conv_gram")
+    sources = ("gram", "conv_gram", "resnet_conv_gram")
     built = {name: _build.library_path(name).exists() for name in sources}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -1028,20 +1049,22 @@ def _svsp_data():
     return x, y, z, num_class
 
 
-def _svsp_model(method, z, num_class, *, plain=False, dtype=None, eps=1e-6,
+def _svsp_model(method, z, num_class, *, network="cnn", plain=False, dtype=None, eps=1e-6,
                 trainable_inputs=True):
-    """The CLI's model (``cls tr`` defaults: depth 4 relu CNN, w_std 1,
-    b_std 1e-8, a = b = 2), on the kernels or on the plain layer tier."""
+    """The CLI's model (``cls tr`` defaults: depth 4 relu CNN or WideResNet,
+    w_std 1, b_std 1e-8, a = b = 2), on the kernels or on the plain layer
+    tier."""
     import torch
     from snngp_torch.cli.classification import _make_model
     from snngp_torch.nn import arch, layers
 
     get_kernel_fn = None
     if plain:
+        builder = arch.get_cnn_layer if network == "cnn" else arch.get_conv_resnet_layer
+
         def get_kernel_fn(w, b, last):
-            return layers.kernel_fn_of(arch.get_cnn_layer(SVSP_DEPTH, num_class, "relu", w,
-                                                          b, last))
-    model = _make_model(method, "cnn", SVSP_DEPTH, "relu", 1.0, 1e-8, 1.0, 2.0, 2.0,
+            return layers.kernel_fn_of(builder(SVSP_DEPTH, num_class, "relu", w, b, last))
+    model = _make_model(method, network, SVSP_DEPTH, "relu", 1.0, 1e-8, 1.0, 2.0, 2.0,
                         num_class, z, eps, get_kernel_fn=get_kernel_fn,
                         trainable_inputs=trainable_inputs)
     return model.to(device="cuda", dtype=dtype or torch.float32)
@@ -1068,7 +1091,7 @@ def _cast_draws(draws, dtype):
     return draws.to(dtype)
 
 
-def _svsp_gradient_check(method, x, y, z, num_class):
+def _svsp_gradient_check(method, x, y, z, num_class, network="cnn"):
     """The ELBO's gradients on one batch through the kernels (fp32) and
     through the plain layer tier (fp32 and float64), on the same draws;
     gate: the kernel path's error against float64 within 2x the plain fp32
@@ -1083,7 +1106,8 @@ def _svsp_gradient_check(method, x, y, z, num_class):
                                ("plain fp32", True, torch.float32),
                                ("plain fp64", True, torch.float64)):
         torch.cuda.reset_peak_memory_stats()
-        model = _svsp_model(method, z, num_class, plain=plain, dtype=dtype, eps=1e-2)
+        model = _svsp_model(method, z, num_class, network=network, plain=plain, dtype=dtype,
+                            eps=1e-2)
         xb = torch.as_tensor(x[:SVSP_NB], device="cuda", dtype=dtype)
         yb = torch.as_tensor(y[:SVSP_NB], device="cuda")
         loss = model.loss(xb, yb, x.shape[0], SVSP_SAMPLES, draws=_cast_draws(draws, dtype))
@@ -1091,7 +1115,7 @@ def _svsp_gradient_check(method, x, y, z, num_class):
         params = sorted(model.named_parameters())
         grads[name] = {n: p.grad.double().flatten() for n, p in params}
         losses[name] = loss.item()
-        print(f"[svsp] {method} {name:10s} loss {loss.item():.8f}  peak "
+        print(f"[svsp] {network} {method} {name:10s} loss {loss.item():.8f}  peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del model, loss
         torch.cuda.empty_cache()
@@ -1102,7 +1126,7 @@ def _svsp_gradient_check(method, x, y, z, num_class):
         errs[name] = ((g - g64).norm() / g64.norm()).item()
         per = {n: ((grads[name][n] - grads["plain fp64"][n]).norm()
                    / grads["plain fp64"][n].norm()).item() for n in grads[name]}
-        print(f"[svsp] {method} {name:10s} gradient rel err vs fp64 {errs[name]:.3e}; "
+        print(f"[svsp] {network} {method} {name:10s} gradient rel err vs fp64 {errs[name]:.3e}; "
               + " ".join(f"{n} {v:.1e}" for n, v in per.items()))
     if not all(math.isfinite(v) for v in losses.values()):
         raise AssertionError(f"{method}: non-finite ELBO {losses}")
@@ -1112,7 +1136,7 @@ def _svsp_gradient_check(method, x, y, z, num_class):
     return errs
 
 
-def _svsp_stepper(method, x, y, z, num_class, trainable_inputs):
+def _svsp_stepper(method, x, y, z, num_class, trainable_inputs, network="cnn"):
     """A fresh model and a function taking one ELBO step as ``cls tr`` takes
     it (its batches, masks and Adam; svtp trains with last_w_std frozen)."""
     import argparse
@@ -1120,7 +1144,8 @@ def _svsp_stepper(method, x, y, z, num_class, trainable_inputs):
     from snngp_torch.cli.classification import _optimizers
     from snngp_torch.utils import DataLoader, svsp_train_step
 
-    model = _svsp_model(method, z, num_class, trainable_inputs=trainable_inputs)
+    model = _svsp_model(method, z, num_class, network=network,
+                        trainable_inputs=trainable_inputs)
     opts = _optimizers(model, argparse.Namespace(optimizer="adam", lr2=None, method=method,
                                                  freeze_inducing=not trainable_inputs))
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -1136,13 +1161,15 @@ def _svsp_stepper(method, x, y, z, num_class, trainable_inputs):
     return step
 
 
-def _svsp_steps(label, method, x, y, z, num_class, trainable_inputs=True):
-    """SVSP_STEPS timed ELBO steps after one untimed one; returns the
+def _svsp_steps(label, method, x, y, z, num_class, want, trainable_inputs=True,
+                network="cnn"):
+    """SVSP_STEPS timed ELBO steps after one untimed one; ``want`` maps each
+    kernel to its launches a step (every other kernel: none). Returns the
     per-step phase times (ms)."""
     import torch
     from snngp_torch.utils import Profiler
 
-    step = _svsp_stepper(method, x, y, z, num_class, trainable_inputs)
+    step = _svsp_stepper(method, x, y, z, num_class, trainable_inputs, network)
     step()
     _sync()
     torch.cuda.reset_peak_memory_stats()
@@ -1163,10 +1190,9 @@ def _svsp_steps(label, method, x, y, z, num_class, trainable_inputs=True):
           + f"; peak {peak:.2f} GiB; launches {launched}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: non-finite losses {losses}")
-    want_k4 = 0 if trainable_inputs else 3 * SVSP_STEPS
-    if launched["conv_gram"] != 3 * SVSP_STEPS or launched["conv_gram_grads"] != want_k4:
-        raise AssertionError(f"{label}: launched {launched}; expected 3 K3 a step and "
-                             f"{want_k4 // SVSP_STEPS} K4")
+    expected = {k: want.get(k, 0) * SVSP_STEPS for k in launched}
+    if launched != expected:
+        raise AssertionError(f"{label}: launched {launched}; expected {want} a step")
     return dict(step_ms=wall, phases_ms=per_step, peak_gib=peak, losses=losses)
 
 
@@ -1179,7 +1205,9 @@ def phase9_svsp():
     x, y, z, num_class = _svsp_data()
     errs = {m: _svsp_gradient_check(m, x, y, z, num_class) for m in ("svgp", "svtp")}
     configs = (("svgp", "svgp", True), ("svtp", "svtp", True), ("svtp frozen", "svtp", False))
-    steps = {label: _svsp_steps(label, method, x, y, z, num_class, trainable)
+    steps = {label: _svsp_steps(label, method, x, y, z, num_class,
+                                {"conv_gram": 3, "conv_gram_grads": 0 if trainable else 3},
+                                trainable)
              for label, method, trainable in configs}
     # Profiled after all the timed steps, so that no timing carries profiler overhead.
     for label, method, trainable in configs:
@@ -1290,6 +1318,196 @@ def phase10_cls_cli():
     return dict(nll=nll, tol=tol, times=times, request_ms=lat)
 
 
+# -- K5 and K6 (WideResNet) -------------------------------------------------------------
+
+def k5_ops(n1, n2, hw, nblocks, act, mismatch):
+    """fp32 operations of K5 on these shapes (see _dual_act_ops): per pixel
+    and block two dual activations, two stencils (4 adds and a divide
+    each), the FMA of c1 and the residual update (an FMA and an add); a
+    conv shortcut adds a third stencil, its FMA and an add."""
+    a = _dual_act_ops(act, False)
+    return n1 * n2 * hw * (nblocks * (2 * a + 15) + (7 if mismatch else 0))
+
+
+def k6_ops(n1, n2, h, w, act):
+    """fp32 operations of K6 on these shapes: t1 at every full-resolution
+    pixel; the column sums of t1 and of k at the lattice columns (2 adds
+    each); at each reduced pixel the two lattice row sums with their
+    divides (3 each) and FMAs, t2, the reduced stencil (5), its FMA and the
+    final add."""
+    a = _dual_act_ops(act, False)
+    hr, wr = -(-h // 2), -(-w // 2)
+    return n1 * n2 * (h * w * a + 4 * h * wr + hr * wr * (a + 18))
+
+
+def _resnet_cases():
+    """The K5 and K6 comparisons: (kernel, label, n1, n2, h, w, same,
+    nblocks, mismatch, act). K5 on the three Gram blocks of an SVSP step at
+    32 x 32 (group 1: four blocks, the first with a conv shortcut), three
+    blocks at 16 x 16, 8 x 8 and 4 x 4 (groups 2-4), erf, and a ragged
+    7 x 7; K6 at each group boundary (32 -> 16, 16 -> 8, 8 -> 4), erf and
+    the odd and rectangular 7 x 7 and 6 x 10."""
+    k5 = [("100x200 32x32 4 blocks+sc", 100, 200, 32, 32, False, 4, True, "relu"),
+          ("200x200 32x32 4 blocks+sc sym", 200, 200, 32, 32, True, 4, True, "relu"),
+          ("100x100 32x32 4 blocks+sc sym", 100, 100, 32, 32, True, 4, True, "relu"),
+          ("200x200 32x32 4 blocks+sc sym", 200, 200, 32, 32, True, 4, True, "erf"),
+          ("200x200 16x16 3 blocks sym", 200, 200, 16, 16, True, 3, False, "relu"),
+          ("100x200 16x16 3 blocks", 100, 200, 16, 16, False, 3, False, "erf"),
+          ("200x200 8x8 3 blocks sym", 200, 200, 8, 8, True, 3, False, "relu"),
+          ("200x200 4x4 3 blocks sym", 200, 200, 4, 4, True, 3, False, "relu"),
+          ("64x96 7x7 2 blocks+sc", 64, 96, 7, 7, False, 2, True, "relu")]
+    k6 = [("200x200 32->16 sym", 200, 200, 32, 32, True, "relu"),
+          ("100x200 32->16", 100, 200, 32, 32, False, "relu"),
+          ("200x200 32->16 sym", 200, 200, 32, 32, True, "erf"),
+          ("200x200 16->8 sym", 200, 200, 16, 16, True, "relu"),
+          ("200x200 8->4 sym", 200, 200, 8, 8, True, "relu"),
+          ("64x96 7x7->4x4", 64, 96, 7, 7, False, "relu"),
+          ("64x96 6x10->3x5", 64, 96, 6, 10, False, "erf")]
+    return ([("K5", *c) for c in k5]
+            + [("K6", label, n1, n2, h, w, same, 1, True, act)
+               for label, n1, n2, h, w, same, act in k6])
+
+
+def _resnet_inputs(rng, n1, n2, h, w, same):
+    """A matched-pixel state and its variance maps as the glue makes them:
+    the input moment and the initial conv of random 3-channel images."""
+    import torch
+    from snngp_torch.ops import resnet_conv_gram as RG
+
+    x1, x2 = _conv_inputs(rng, n1, n2, h, w, 3, same)
+    w2, b2 = (torch.tensor(v * v, device="cuda") for v in (W_STD, B_STD))
+    k, v1, v2 = RG._front(x1, x2, w2, b2, same)
+    return k.reshape(n1, n2, h * w).contiguous(), v1, v2
+
+
+def _resnet_kernel_args(kernel, k, v1, v2, same, nblocks, mismatch, act):
+    """The kernel's variance rows and scales; returns (args, kwargs)."""
+    import torch
+    from snngp_torch.ops import resnet_conv_gram as RG
+
+    w, b = (torch.tensor(v, device="cuda") for v in (W_STD, B_STD))
+    h, wd = v1.shape[1:]
+    scales = torch.stack([w * w, b * b])
+    if kernel == "K5":
+        s1, _ = RG.tail_var_stack(v1, nblocks, act, w, b, mismatch)
+        s2 = s1 if same else RG.tail_var_stack(v2, nblocks, act, w, b, mismatch)[0]
+        return ((k, RG._flat(s1), RG._flat(s2), scales),
+                dict(nblocks=nblocks, act=act, h=h, w=wd, mismatch=mismatch))
+    m1, _ = RG.strided_var_pieces(v1, act, w, b)
+    m2 = m1 if same else RG.strided_var_pieces(v2, act, w, b)[0]
+    return ((k, (RG._flat(v1), RG._flat(m1)), (RG._flat(v2), RG._flat(m2)), scales),
+            dict(act=act, h=h, w=wd))
+
+
+def phase11_k5_k6_vs_plain():
+    """K5 and K6 against their plain versions on the same inputs; gate:
+    max|K_kernel - K_plain| / max|K_plain| <= 1e-5; identical operands
+    give a bitwise symmetric K."""
+    import torch
+    from snngp_torch.ops import resnet_conv_gram as RG
+
+    rng = np.random.RandomState(11)
+    rows = {"K5": {}, "K6": {}}
+    worst = {"K5": 0.0, "K6": 0.0}
+    for kernel, label, n1, n2, h, w, same, nblocks, mismatch, act in _resnet_cases():
+        k, v1, v2 = _resnet_inputs(rng, n1, n2, h, w, same)
+        args, kw = _resnet_kernel_args(kernel, k, v1, v2, same, nblocks, mismatch, act)
+        cuda_fn, plain_fn = ((RG.resnet_tail_cuda, RG.resnet_tail_plain) if kernel == "K5"
+                             else (RG.strided_cuda, RG.strided_block_plain))
+        k_kernel = cuda_fn(*args, **kw)
+        k_plain = plain_fn(*args, **kw)
+        _sync()
+        abs_err = (k_kernel - k_plain).abs().max().item()
+        rel_err = abs_err / k_plain.abs().max().item()
+        finite = bool(torch.isfinite(k_kernel).all())
+        sym = ((k_kernel - k_kernel.transpose(0, 1)).abs().max().item() if same
+               else float("nan"))
+        ms = _time_ms(lambda: cuda_fn(*args, **kw))
+        plain_ms = _time_ms(lambda: plain_fn(*args, **kw), reps=2)
+        tensors = [args[0], *args[1:3]] if kernel == "K5" else [args[0], *args[1], *args[2]]
+        nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in tensors}.values())
+                  + k_kernel.numel() * 4 + 8)
+        ops = (k5_ops(n1, n2, h * w, nblocks, act, mismatch) if kernel == "K5"
+               else k6_ops(n1, n2, h, w, act))
+        bound, by = bound_ms(nbytes, ops)
+        print(f"[{kernel}] {act:4s} {label:30s} rel_err {rel_err:.3e} abs_err {abs_err:.3e}  "
+              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({by})"
+              f"  max|K-K^T| {sym:.3e}")
+        if not finite or not rel_err <= KERNEL_REL_TOL:
+            raise AssertionError(f"{kernel} {act} at {label}: rel_err {rel_err:.3e} "
+                                 f"(tol {KERNEL_REL_TOL}), finite={finite}")
+        if same and sym != 0.0:
+            raise AssertionError(f"{kernel} {act} at {label}: K(x, x) not symmetric ({sym})")
+        worst[kernel] = max(worst[kernel], abs_err)
+        rows[kernel][f"{act}/{label}"] = dict(ms=ms, plain_ms=plain_ms, rel_err=rel_err,
+                                              abs_err=abs_err, bound_ms=bound, bound_by=by)
+        del k_kernel, k_plain, args, k, v1, v2
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
+def phase12_resnet_svsp():
+    """WideResNet SVSP at full width on the card (phase 9's shape, ``-n
+    resnet``): the svgp gradient against float64, then SVSP_STEPS timed
+    svgp ELBO steps with trainable and with frozen inducing inputs (the
+    same layer-tier recompute, for the three scales only), then one
+    profiled step of each."""
+    x, y, z, num_class = _svsp_data()
+    errs = _svsp_gradient_check("svgp", x, y, z, num_class, network="resnet")
+    # A Gram block: one K5 for group 1, and for each of groups 2-4 one K6
+    # and (depth > 1) one K5; three blocks a step.
+    want = {"resnet_tail": 3 * (1 + 3 * (SVSP_DEPTH > 1)), "resnet_strided": 9}
+    configs = (("resnet svgp", "svgp", True), ("resnet svgp frozen", "svgp", False))
+    steps = {label: _svsp_steps(label, method, x, y, z, num_class, want, trainable,
+                                network="resnet")
+             for label, method, trainable in configs}
+    for label, method, trainable in configs:
+        _profile(_svsp_stepper(method, x, y, z, num_class, trainable, network="resnet"),
+                 f"one {label} ELBO step", top=10)
+    return errs, steps
+
+
+def phase13_resnet_cli():
+    """``cls tr -n resnet -m svtp -dn synthetic32 -e 1`` at -ni 200 -nb 100
+    -nh 4 on the card, then ``cls ts`` on the card and on the CPU and ``cls
+    pr`` on its checkpoint."""
+    work = REPO / "build" / "chip_smoke" / "cls_resnet"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    _run_cli(["--device", "cuda", "cls", "tr", "-m", "svtp", "-n", "resnet", "-dn",
+              "synthetic32", "-e", "1", "-ni", str(SVSP_NI), "-nb", str(SVSP_NB), "-nh",
+              str(SVSP_DEPTH), "-cr", str(work), "-cn", "cuda", "-q"])
+    times = {"tr": time.perf_counter() - t0}
+    ckpt = work / "cuda"
+    text = (ckpt / "train.log").read_text()
+    if "Traceback" in text:
+        raise AssertionError(text)
+    lines = [ln for ln in text.splitlines() if ln.startswith("[") and "NLL:" in ln]
+    print(f"[cls-resnet] cls tr: {times['tr']:.2f} s; " + " | ".join(lines[-3:]))
+    test = ["-dn", "synthetic32", "-cd", str(ckpt), "-nd", str(RESNET_TEST_N), "-q"]
+    nll = {}
+    for device in ("cuda", "cpu"):
+        shutil.rmtree(ckpt / "test", ignore_errors=True)
+        t0 = time.perf_counter()
+        _run_cli(["--device", device, "cls", "ts", *test])
+        nll[device] = _cls_nll(ckpt / "test")
+        times[f"ts {device}"] = time.perf_counter() - t0
+    _run_cli(["--device", "cuda", "cls", "pr", *test])
+    nll["pr"] = _nll(ckpt / "predict" / "predict.log")
+    tol = _mc_tolerance(ckpt, RESNET_TEST_N, 10_000)
+    print(f"[cls-resnet] cls ts NLL cuda {nll['cuda']:.5f} ({times['ts cuda']:.2f} s) cpu "
+          f"{nll['cpu']:.5f} ({times['ts cpu']:.2f} s), |diff| "
+          f"{abs(nll['cuda'] - nll['cpu']):.2e} (MC tolerance {tol:.2e}); cls pr NLL "
+          f"{nll['pr']:.5f}")
+    if not all(math.isfinite(v) for v in nll.values()):
+        raise AssertionError(f"non-finite NLL {nll}")
+    if not abs(nll["cuda"] - nll["cpu"]) <= tol:
+        raise AssertionError(f"resnet cls ts: CUDA and CPU NLLs differ beyond MC error "
+                             f"({tol:.2e})")
+    np.testing.assert_allclose(nll["pr"], nll["cuda"], rtol=1e-4)
+    return dict(nll=nll, tol=tol, times=times)
+
+
 def _kernel_entry(name, source, replaces, launches, rows, head, worst_abs):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": worst_abs,
@@ -1340,6 +1558,13 @@ def main() -> int:
     phase9_svsp()
     phase10_cls_cli()
     classify = _read_launches("classify", ["conv_gram", "conv_gram_grads"])  # ends here
+
+    with torch.inference_mode():
+        k56_rows, k56_abs = phase11_k5_k6_vs_plain()
+    _reset_launches()                     # WideResNet classification path starts here
+    phase12_resnet_svsp()
+    phase13_resnet_cli()
+    resnet = _read_launches("classify-resnet", ["resnet_tail", "resnet_strided"])  # ends here
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -1359,7 +1584,15 @@ def main() -> int:
                        "contraction)", "snngp_torch/csrc/conv_gram.cu",
                        "snngp/ops/pallas/conv_gram.py:180", classify["conv_gram_grads"],
                        k4_rows, K34_HEAD, max(r["abs_err"] for r in k4_rows.values()))
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    k5 = _kernel_entry("resnet_tail (K5, fused WideResNet stride-1 residual blocks)",
+                       "snngp_torch/csrc/resnet_conv_gram.cu",
+                       "snngp/ops/pallas/resnet_conv_gram.py:130", resnet["resnet_tail"],
+                       k56_rows["K5"], K5_HEAD, k56_abs["K5"])
+    k6 = _kernel_entry("resnet_strided (K6, fused WideResNet stride-2 group-boundary block, "
+                       "at the reduced resolution)", "snngp_torch/csrc/resnet_conv_gram.cu",
+                       "snngp/ops/pallas/resnet_conv_gram.py:54", resnet["resnet_strided"],
+                       k56_rows["K6"], K6_HEAD, k56_abs["K6"])
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,14 +8,17 @@ training) and sparse variational classification of images:
 
 - ``snngp_torch.nn``      the NNGP kernel tier (Dense / Conv / ReLU / Erf /
                           Flatten / residual combinators) and the MLP,
-                          dense-ResNet and CNN builders, which route Gram
-                          blocks to the fused Grams of ``snngp_torch.ops``.
+                          dense-ResNet, CNN and conv-WideResNet builders,
+                          which route Gram blocks to the fused Grams of
+                          ``snngp_torch.ops``.
 - ``snngp_torch.ops``     Cholesky / eigh linear algebra, the marginal
                           likelihoods, the Student-t sampler, the softmax
-                          estimators, and the fused NNGP and CNN Grams with
-                          their scalar-tangent backwards (hand-written CUDA
-                          kernels, ``csrc/gram.cu`` and ``csrc/conv_gram.cu``,
-                          with plain PyTorch twins for CPU tensors).
+                          estimators, the fused NNGP and CNN Grams with
+                          their scalar-tangent backwards and the fused
+                          WideResNet Gram (hand-written CUDA kernels,
+                          ``csrc/gram.cu``, ``csrc/conv_gram.cu`` and
+                          ``csrc/resnet_conv_gram.cu``, with plain PyTorch
+                          twins for CPU tensors).
 - ``snngp_torch.models``  softplus-constrained parameters, ``NNGPKernel``,
                           likelihoods and priors, ``SPR`` and ``SVSP``, and
                           the fitted predictors (``fit_spr`` / ``FittedSPR``,

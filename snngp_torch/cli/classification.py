@@ -9,7 +9,8 @@ split, ``--freeze-inducing``, ``-rs`` resume, per-epoch valid NLL / ACC,
 plateau LR and best-NLL checkpoints (``NNN.npz``, ``meta.npy`` and
 ``resume.state`` in the JAX package's layouts, readable by either
 package). Every tensor lives on the device named by
-``python -m snngp_torch --device``; the Gram blocks go through K3 there.
+``python -m snngp_torch --device``; the Gram blocks go through K3 there
+(``-n cnn``), or through K5 and K6 (``-n resnet``).
 
 Kept reference quirks: the ``-lr2`` split does not apply the svtp
 ``last_w_std`` freeze (classification/train.py:228-229), and ``cls ts``
@@ -26,12 +27,14 @@ Divergences from the JAX package:
 - ``-sck`` (one ``lax.scan`` per epoch there, to amortize dispatch) runs
   the epoch's batches in the same Python loop: the same math and draws;
 - ``--freeze-inducing`` also switches the Gram blocks to scalar-only
-  gradients (``trainable_inputs=False``: K4 on the card), as the JAX
-  package's Myrtle path does for its frozen inducing inputs; the inducing
-  inputs' gradient, and so their Adam moments, are then zero (the JAX
-  package computes and masks them); every parameter takes the same values;
-- ``-n resnet`` and ``-n myrtle`` raise ``NotImplementedError`` (their
-  kernels are later slices of the port), as does ``SNNGP_MESH_DEVICES`` > 1;
+  gradients (``trainable_inputs=False``: K4 on the card for ``-n cnn``,
+  the layer-tier recompute for the three scales only for ``-n resnet``),
+  as the JAX package's Myrtle path does for its frozen inducing inputs;
+  the inducing inputs' gradient, and so their Adam moments, are then zero
+  (the JAX package computes and masks them); every parameter takes the
+  same values;
+- ``-n myrtle`` raises ``NotImplementedError`` (its kernel is a later
+  slice of the port), as does ``SNNGP_MESH_DEVICES`` > 1;
 - the progress bars need ``tqdm`` only if it can be imported.
 """
 
@@ -48,7 +51,7 @@ from snngp_torch.data.resize import bilinear_resize
 from snngp_torch.models import (SVSP, GaussianPrior, InverseGammaPrior, NNGPKernel,
                                 fit_svsp)
 from snngp_torch.models.params import get_by_suffix
-from snngp_torch.nn.arch import get_cnn_kernel
+from snngp_torch.nn.arch import get_cnn_kernel, get_conv_resnet_kernel
 from snngp_torch.utils import (SGD, Adam, Checkpointer, DataLoader, Logger,
                                ReduceLROnPlateau, get_context_summary, load_named,
                                load_training_state, progress, save_training_state,
@@ -69,7 +72,7 @@ def _add_train_parser(subparsers):
 
     parser.add_argument("-m",   "--method",           choices=["svgp", "svtp"], required=True)
     parser.add_argument("-n",   "--network",          choices=["cnn", "resnet", "myrtle"],
-                        default="cnn", help="kernel architecture; only cnn is ported")
+                        default="cnn", help="kernel architecture; cnn and resnet are ported")
     parser.add_argument("-dr",  "--data-root",        type=str, default="./data")
     parser.add_argument("-dn",  "--data-name",        required=True)
     parser.add_argument("-cr",  "--ckpt-root",        type=str, default="./_ckpt/cls")
@@ -117,10 +120,12 @@ def _add_train_parser(subparsers):
 def _base_kernel(network):
     if network is None or network == "cnn":
         return "cnn", get_cnn_kernel
-    if network in ("resnet", "myrtle"):
+    if network == "resnet":
+        return "resnet", get_conv_resnet_kernel
+    if network == "myrtle":
         raise NotImplementedError(
-            f"-n {network}: its Gram kernels are not ported yet (resnet: slice 4, "
-            "K5 and K6; myrtle: slice 5, K7); use -n cnn")
+            "-n myrtle: its Gram kernel is not ported yet (slice 5, K7); use -n cnn "
+            "or -n resnet")
     raise ValueError(f"Unsupported network '{network}'")
 
 
@@ -128,8 +133,9 @@ def _make_model(method, network, num_hiddens, activation, w_std, b_std, last_w_s
                 alpha, beta, num_class, inducing_points, epsilon, get_kernel_fn=None,
                 trainable_inputs=True):
     """``trainable_inputs=False`` (``--freeze-inducing``): the Gram blocks
-    take scalar-only gradients (K4 on the card) instead of recomputing
-    through the layer tier for the inducing inputs' cotangents."""
+    take scalar-only gradients (``-n cnn``: K4 on the card instead of the
+    layer-tier recompute; ``-n resnet``: the same recompute, for the three
+    scales only) and the inducing inputs zero cotangents."""
     if get_kernel_fn is None:
         _, base_kernel_fn = _base_kernel(network)
 

@@ -1,12 +1,14 @@
 """Architecture builders (counterpart of ``snngp/nn/arch.py``: the MLP,
-dense-ResNet and CNN networks).
+dense-ResNet, CNN and conv-WideResNet networks).
 
 ``get_*_layer`` compose the layer tier; ``get_*_kernel`` return a
 ``kernel_fn(x1, x2=None, get="nngp")`` that sends every 2-D NNGP block to
-the fused Gram (:mod:`snngp_torch.ops.gram`) and every CNN block of images
+the fused Gram (:mod:`snngp_torch.ops.gram`), every CNN block of images
 with at most 1,024 pixels to the fused conv Gram
-(:mod:`snngp_torch.ops.conv_gram`). Each launches its CUDA kernel for CUDA
-tensors and runs its plain version for CPU tensors. There is no size
+(:mod:`snngp_torch.ops.conv_gram`) and every such WideResNet block to the
+fused WideResNet Gram (:mod:`snngp_torch.ops.resnet_conv_gram`). Each
+launches its CUDA kernels for CUDA tensors and runs their plain versions
+for CPU tensors. There is no size
 threshold on N: the JAX package's ``SNNGP_PALLAS_MIN_N`` amortized TPU
 compile latency, which a prebuilt CUDA kernel does not have.
 """
@@ -16,15 +18,18 @@ from __future__ import annotations
 from snngp_torch.nn import layers as L
 from snngp_torch.ops import conv_gram as CG
 from snngp_torch.ops import gram as G
+from snngp_torch.ops import resnet_conv_gram as RG
 
 __all__ = [
     "get_act",
     "get_mlp_kernel",
     "get_dense_resnet_kernel",
     "get_cnn_kernel",
+    "get_conv_resnet_kernel",
     "get_mlp_layer",
     "get_dense_resnet_layer",
     "get_cnn_layer",
+    "get_conv_resnet_layer",
     "KERNELS",
 ]
 
@@ -58,6 +63,39 @@ def get_cnn_layer(num_hiddens, num_class=1, act="relu", w_std=1.0, b_std=0.0,
     stack.append(L.Flatten())
     stack.append(L.Dense(num_class, w_std=last_w_std))
     return L.serial(*stack)
+
+
+def get_conv_resnet_layer(num_hiddens, num_class, act="relu", w_std=1.0,
+                          b_std=0.0, last_w_std=1.0, k=1) -> L.Layer:
+    """WideResNet NNGP: FanOut/parallel/FanInSum residual blocks, 4 groups with
+    stride-2 downsampling (nt_kernels.py:48-80). Channel counts only affect the
+    finite-width path (the kernel recursion is width-independent)."""
+    act_layer = lambda: get_act(act)  # noqa: E731
+
+    def block(channels, strides=(1, 1), channel_mismatch=False):
+        main = L.serial(
+            act_layer(), L.Conv(channels, (3, 3), strides, "SAME", w_std=w_std, b_std=b_std),
+            act_layer(), L.Conv(channels, (3, 3), (1, 1), "SAME", w_std=w_std, b_std=b_std),
+        )
+        shortcut = (L.Identity() if not channel_mismatch
+                    else L.Conv(channels, (3, 3), strides, "SAME", w_std=w_std, b_std=b_std))
+        return L.serial(L.FanOut(2), L.parallel(main, shortcut), L.FanInSum())
+
+    def group(n, channels, strides=(1, 1)):
+        blocks = [block(channels, strides, channel_mismatch=True)]
+        for _ in range(n - 1):
+            blocks.append(block(channels, (1, 1)))
+        return L.serial(*blocks)
+
+    return L.serial(
+        L.Conv(16, (3, 3), (1, 1), "SAME", w_std=w_std, b_std=b_std),
+        group(num_hiddens, int(8 * k)),
+        group(num_hiddens, int(16 * k), (2, 2)),
+        group(num_hiddens, int(32 * k), (2, 2)),
+        group(num_hiddens, int(64 * k), (2, 2)),
+        L.Flatten(),
+        L.Dense(num_class, w_std=last_w_std),
+    )
 
 
 def get_dense_resnet_layer(num_hiddens, num_class=1, act="relu", w_std=1.0,
@@ -139,8 +177,32 @@ def get_cnn_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0, b_std=0.0,
     return kernel_fn
 
 
+def get_conv_resnet_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0, b_std=0.0,
+                           last_w_std=1.0, k=1, trainable_inputs=True):
+    """Conv-WideResNet kernel_fn: NNGP blocks of [N, H, W, C] images with
+    H W <= 1,024 go to the fused WideResNet Gram (K5 and K6); larger images
+    and 2-D inputs go to the layer tier, as in the JAX package.
+
+    ``trainable_inputs=False``: the backward differentiates the three scales
+    only and gives x zero cotangents (the same layer-tier recompute; there
+    is no scalar-tangent kernel for this network)."""
+    ref_fn = L.kernel_fn_of(get_conv_resnet_layer(num_hiddens, num_class, act, w_std,
+                                                  b_std, last_w_std, k=k))
+
+    def kernel_fn(x1, x2=None, get="nngp"):
+        if get == "nngp" and x1.ndim == 4 and x1.shape[1] * x1.shape[2] <= RG.MAX_HW:
+            return RG.conv_resnet_gram(x1, x1 if x2 is None else x2, depth=num_hiddens,
+                                       num_class=num_class, act=act, w_std=w_std,
+                                       b_std=b_std, last_w_std=last_w_std,
+                                       trainable_inputs=trainable_inputs)
+        return ref_fn(x1, x2, get=get)
+
+    return kernel_fn
+
+
 KERNELS = {
     "mlp": get_mlp_kernel,
     "cnn": get_cnn_kernel,
+    "resnet-conv": get_conv_resnet_kernel,
     "resnet-dense": get_dense_resnet_kernel,
 }

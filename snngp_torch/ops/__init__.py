@@ -1,6 +1,6 @@
 """Compute core: Cholesky / eigh linear algebra, the marginal likelihoods, the
-samplers and estimators, and the fused NNGP and CNN Grams (``ops.gram``,
-``ops.conv_gram``)."""
+samplers and estimators, and the fused NNGP, CNN and conv-WideResNet Grams
+(``ops.gram``, ``ops.conv_gram``, ``ops.resnet_conv_gram``)."""
 
 from snngp_torch.ops.linalg import (
     add_jitter, add_diag_reg, cholesky, chol_solve, chol_logdet, chol_quad_form,

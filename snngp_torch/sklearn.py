@@ -183,11 +183,11 @@ class SNNGPClassifier(_EstimatorBase):
     """Sparse variational NNGP / Student-t process classification of
     [N, H, W, C] images.
 
-    Parameters mirror ``cls tr`` flags: ``method`` svgp|svtp, the CNN
-    kernel's depth / activation / scales (``network="cnn"``; resnet, myrtle
-    and mlp are not ported and raise), ``alpha`` / ``beta`` of the svtp
-    prior, jitter ``eps``, the inducing-point count, the ELBO's MC sample
-    count and the minibatch schedule. ``fit`` initializes the inducing
+    Parameters mirror ``cls tr`` flags: ``method`` svgp|svtp, the kernel's
+    network (``"cnn"`` or ``"resnet"``, the conv WideResNet; myrtle and
+    mlp are not ported and raise), depth / activation / scales, ``alpha`` /
+    ``beta`` of the svtp prior, jitter ``eps``, the inducing-point count,
+    the ELBO's MC sample count and the minibatch schedule. ``fit`` initializes the inducing
     points class-proportionally (the first images of each class, as the CLI
     does), trains the ELBO with Adam / SGD, and hoists the inducing-side
     solves into a fitted predictor for ``predict_proba``.
@@ -235,8 +235,9 @@ class SNNGPClassifier(_EstimatorBase):
         from snngp_torch.models.predictor import fit_svsp
         from snngp_torch.utils.training import svsp_train_step
 
-        if self.network != "cnn":
-            raise NotImplementedError(f"network={self.network!r}: only 'cnn' is ported")
+        if self.network not in ("cnn", "resnet"):
+            raise NotImplementedError(f"network={self.network!r}: only 'cnn' and 'resnet' "
+                                      "are ported")
         self.device_ = _device(self.device)
         X = np.asarray(X, np.float32)
         y = np.asarray(y).reshape(-1)

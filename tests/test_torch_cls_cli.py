@@ -178,7 +178,7 @@ def test_freeze_inducing_keeps_the_inducing_inputs(tmp_path):
     assert "--freeze-inducing" in open(tmp_path / "f" / "train.log").read()
 
 
-@pytest.mark.parametrize("network", ["resnet", "myrtle"])
+@pytest.mark.parametrize("network", ["myrtle"])
 def test_unported_networks_raise_and_log(network, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         _port([*TRAIN, "-n", network, "-cr", str(tmp_path), "-cn", "x"])

@@ -18,7 +18,7 @@ MODULES = ["snngp_torch", "snngp_torch.__main__", "snngp_torch.cli.regression",
            "snngp_torch.utils.training", "snngp_torch.cli.classification",
            "snngp_torch.ops.conv_gram", "snngp_torch.ops.softmax",
            "snngp_torch.models.priors", "snngp_torch.data.classification",
-           "snngp_torch.data.resize"]
+           "snngp_torch.data.resize", "snngp_torch.ops.resnet_conv_gram"]
 
 
 def _run(code):

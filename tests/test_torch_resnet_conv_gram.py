@@ -1,0 +1,380 @@
+"""Port parity of the conv-WideResNet NNGP: the layer-tier builder
+(snngp_torch/nn/arch.py ``get_conv_resnet_layer`` / ``get_conv_resnet_kernel``)
+and the fused WideResNet Gram (snngp_torch/ops/resnet_conv_gram.py: the
+variance maps, K5's and K6's plain versions, ``conv_resnet_gram`` with its
+backward), each against the JAX package on the same numpy inputs.
+
+The JAX Pallas kernels run in interpreter mode on the CPU
+(``resnet_conv_gram.INTERPRET``, set and restored per test, as
+tests/test_pallas.py does), under ``jax.jit`` to keep the file fast.
+Tolerances:
+- the stencils and the variance maps: atol 1e-6 on values of order 1 (one
+  fp32 conv each side, reassociated; the port's closed-form post-activation
+  variance against ``_relu_t(v, v, v)``);
+- K5, K6 and the whole Gram: 1e-6 of the largest entry (at least 1e-6),
+  the fp32 bar of the JAX package's own conv-kernel tests
+  (tests/test_pallas.py:92-129); the residual states grow to ~10 over the
+  blocks, and acos / asin and the stencils' sums differ in the last bits;
+- gradients (x cotangents and the three scales): rtol 1e-5 with an atol of
+  1e-6 of the largest entry, the bar of tests/test_torch_grad.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import snngp.ops.pallas.resnet_conv_gram as JRG
+from snngp.nn import arch as jarch
+from snngp.nn import layers as JL
+from snngp.nn.state import KernelState as JS
+
+from snngp_torch.nn import arch as tarch
+from snngp_torch.nn import layers as TL
+from snngp_torch.ops import conv_gram as TCG
+from snngp_torch.ops import resnet_conv_gram as TRG
+
+from _torch_parity import cuda_device, randn, to_numpy, to_torch  # noqa: F401
+
+W, B, LAST = 1.1, 0.2, 0.9
+SCALES = dict(w_std=W, b_std=B, last_w_std=LAST)
+ACTS = ["relu", "erf"]
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode():
+    JRG.INTERPRET = True
+    yield
+    JRG.INTERPRET = False
+
+
+def _close(got, want, rel=1e-6):
+    want = np.asarray(want)
+    np.testing.assert_allclose(to_numpy(got), want,
+                               atol=rel * max(1.0, float(np.abs(want).max())))
+
+
+def _state(seed, n1, n2, h, w):
+    """A matched-pixel state with |k| <= sqrt(v1 v2) (the JAX package's own
+    test inputs, tests/test_pallas.py:217-238): k [N1, N2, H, W], v1, v2."""
+    rng = np.random.RandomState(seed)
+    v1 = (rng.rand(n1, h, w) + 0.5).astype(np.float32)
+    v2 = (rng.rand(n2, h, w) + 0.5).astype(np.float32)
+    k = (rng.rand(n1, n2, h, w) * np.sqrt(v1[:, None] * v2[None])).astype(np.float32)
+    return k, v1, v2
+
+
+def _scales():
+    return torch.tensor([W * W, B * B], dtype=torch.float32)
+
+
+# -- the lattice and the variance maps ----------------------------------------------
+
+@pytest.mark.parametrize("hw", [(8, 8), (7, 7), (6, 10), (5, 4), (1, 1)])
+def test_stride2_stencil_on_the_lattice_is_the_strided_conv(hw):
+    # S(.) read at the (oh, ow) lattice equals lax SAME's stride-2 conv.
+    h, w = hw
+    assert TRG._stride2_offsets(h, w) == JRG._stride2_offsets(h, w)
+    (img,) = randn(1, (3, h, w))
+    want = np.asarray(JL._patch_mean(jnp.asarray(img), (3, 3), (2, 2)))
+    got = TRG._lattice(TCG._stencil(to_torch(img).reshape(3, h * w), h, w), h, w)
+    np.testing.assert_allclose(to_numpy(got).reshape(want.shape), want, atol=2e-7)
+
+
+@pytest.mark.parametrize("mismatch", [True, False])
+@pytest.mark.parametrize("act", ACTS)
+def test_tail_var_stack_matches_jax(act, mismatch):
+    _, v, _ = _state(2, 4, 1, 7, 6)
+    want_rows, want_v = JRG._tail_var_stack(jnp.asarray(v), 3, act, W, B, mismatch)
+    got_rows, got_v = TRG.tail_var_stack(to_torch(v), 3, act, torch.tensor(W),
+                                         torch.tensor(B), mismatch)
+    assert got_rows.shape == (6, 4, 7, 6)
+    _close(got_rows, want_rows)
+    _close(got_v, want_v)
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (7, 7), (6, 10)])
+@pytest.mark.parametrize("act", ACTS)
+def test_strided_var_pieces_match_jax(act, hw):
+    _, v, _ = _state(3, 4, 1, *hw)
+    want = JRG._strided_var_pieces(jnp.asarray(v), act, W, B)
+    got = TRG.strided_var_pieces(to_torch(v), act, torch.tensor(W), torch.tensor(B))
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape
+        _close(g, wv)
+
+
+# -- K5's plain version -----------------------------------------------------------------
+
+TAIL_CASES = [("relu", (8, 8), 3, True), ("erf", (7, 7), 1, False),
+              ("relu", (6, 10), 2, True), ("erf", (8, 8), 2, False)]
+
+
+def _port_tail(k, v1, v2, act, nblocks, mismatch, h, w):
+    tv1, tv2 = to_torch(v1, v2)
+    s1, o1 = TRG.tail_var_stack(tv1, nblocks, act, torch.tensor(W), torch.tensor(B), mismatch)
+    s2, o2 = TRG.tail_var_stack(tv2, nblocks, act, torch.tensor(W), torch.tensor(B), mismatch)
+    n1, n2 = k.shape[:2]
+    got = TRG.resnet_tail_plain(to_torch(k).reshape(n1, n2, h * w), TRG._flat(s1),
+                                TRG._flat(s2), _scales(), nblocks=nblocks, act=act, h=h,
+                                w=w, mismatch=mismatch)
+    return got.reshape(k.shape), o1, o2
+
+
+@pytest.mark.parametrize("act,hw,nblocks,mismatch", TAIL_CASES)
+def test_resnet_tail_plain_matches_jax_interpret(act, hw, nblocks, mismatch):
+    k, v1, v2 = _state(4, 6, 5, *hw)
+    tail = jax.jit(lambda a, b, c: JRG.resnet_tail_blocks(
+        a, b, c, nblocks=nblocks, act=act, w_std=W, b_std=B, mismatch=mismatch))
+    want = tail(k, v1, v2)
+    got = _port_tail(k, v1, v2, act, nblocks, mismatch, *hw)
+    for g, wv in zip(got, want):
+        _close(g, wv)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_resnet_tail_plain_matches_jax_layer_tier(act):
+    # The JAX layer tier's residual blocks (arch.get_conv_resnet_layer's
+    # stride-1 group: a conv-shortcut block, then identity-shortcut blocks).
+    k, v1, v2 = _state(5, 5, 4, 7, 6)
+
+    def block(mismatch):
+        main = JL.serial(jarch.get_act(act), JL.Conv(1, (3, 3), (1, 1), w_std=W, b_std=B),
+                         jarch.get_act(act), JL.Conv(1, (3, 3), (1, 1), w_std=W, b_std=B))
+        short = JL.Conv(1, (3, 3), (1, 1), w_std=W, b_std=B) if mismatch else JL.Identity()
+        return JL.serial(JL.FanOut(2), JL.parallel(main, short), JL.FanInSum())
+
+    layer = JL.serial(block(True), block(False), block(False))
+    want = jax.jit(lambda a, b, c: layer.kfn(JS(nngp=a, var1=b, var2=c)))(k, v1, v2)
+    got = _port_tail(k, v1, v2, act, 3, True, 7, 6)
+    for g, wv in zip(got, (want.nngp, want.var1, want.var2)):
+        _close(g, wv)
+
+
+# -- K6's plain version -----------------------------------------------------------------
+
+STRIDED_CASES = [("relu", (8, 8)), ("relu", (7, 7)), ("relu", (6, 10)), ("erf", (7, 7)),
+                 ("erf", (6, 10))]
+
+
+def _port_strided(k, v1, v2, act, h, w):
+    tv1, tv2 = to_torch(v1, v2)
+    wt, bt = torch.tensor(W), torch.tensor(B)
+    m1, o1 = TRG.strided_var_pieces(tv1, act, wt, bt)
+    m2, o2 = TRG.strided_var_pieces(tv2, act, wt, bt)
+    n1, n2 = k.shape[:2]
+    got = TRG.strided_block_plain(to_torch(k).reshape(n1, n2, h * w),
+                                  (TRG._flat(tv1), TRG._flat(m1)),
+                                  (TRG._flat(tv2), TRG._flat(m2)), _scales(), act=act, h=h,
+                                  w=w)
+    return got.reshape(n1, n2, *m1.shape[1:]), o1, o2
+
+
+@pytest.mark.parametrize("act,hw", STRIDED_CASES)
+def test_strided_block_plain_matches_jax_interpret(act, hw):
+    # The TPU kernel runs at full resolution and XLA subsamples the lattice;
+    # the plain version (and K6) computes the reduced state directly.
+    k, v1, v2 = _state(6, 5, 4, *hw)
+    block = jax.jit(lambda a, b, c: JRG.strided_mismatch_block(
+        a, b, c, act=act, w_std=W, b_std=B, tile=(8, 8)))
+    want = block(k, v1, v2)
+    got = _port_strided(k, v1, v2, act, *hw)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape
+        _close(g, wv)
+
+
+@pytest.mark.parametrize("act,hw", STRIDED_CASES)
+def test_strided_block_plain_matches_xla_mismatch_block(act, hw):
+    k, v1, v2 = _state(7, 5, 4, *hw)
+    want = jax.jit(lambda a, b, c: JRG._mismatch_block(a, b, c, (2, 2), act, W, B))(
+        k, v1, v2)
+    got = _port_strided(k, v1, v2, act, *hw)
+    for g, wv in zip(got, want):
+        _close(g, wv)
+
+
+# -- the whole Gram ---------------------------------------------------------------------
+
+GRAM_CASES = [("relu", (8, 8), 1), ("erf", (8, 8), 3), ("relu", (7, 7), 3),
+              ("erf", (6, 10), 1)]
+
+
+def _images(seed, hw, n1=6, n2=5, c=3):
+    return randn(seed, (n1, *hw, c), (n2, *hw, c))
+
+
+def _jax_value_and_vjp(f, g, *args):
+    """f(*args) and its VJP on g, in one jitted call."""
+    def run(g, *args):
+        k, vjp = jax.vjp(f, *args)
+        return k, vjp(g)
+
+    k, grads = jax.jit(run)(jnp.asarray(g), *args)
+    return np.asarray(k), [np.asarray(t) for t in grads]
+
+
+@pytest.mark.parametrize("act,hw,depth", GRAM_CASES)
+def test_conv_resnet_gram_matches_jax_layer_tier(act, hw, depth):
+    x1, x2 = _images(8, hw)
+    kfn = JL.kernel_fn_of(jarch.get_conv_resnet_layer(depth, 3, act, **SCALES))
+    want = jax.jit(lambda a, b: kfn(a, b, get="nngp"))(x1, x2)
+    got = TRG.conv_resnet_gram(*to_torch(x1, x2), depth=depth, num_class=3, act=act,
+                               **SCALES)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_conv_resnet_layer_tier_matches_jax(act):
+    x1, x2 = _images(9, (7, 6), n1=4, n2=3)
+    kfn = JL.kernel_fn_of(jarch.get_conv_resnet_layer(2, 1, act, **SCALES))
+    want = jax.jit(lambda a, b: kfn(a, b, get="nngp"))(x1, x2)
+    got = TL.kernel_fn_of(tarch.get_conv_resnet_layer(2, 1, act, **SCALES))(
+        *to_torch(x1, x2))
+    _close(got, want)
+
+
+def test_conv_resnet_gram_and_its_gradients_match_jax_interpret():
+    # The JAX package's fused Gram (K5 / K6 interpreted; its custom VJP
+    # recomputes through the layer tier) against _ConvResnetGram.
+    x1, x2 = _images(10, (8, 8))
+    (g,) = randn(11, (6, 5))
+
+    def f(a, b, w, bs, last):
+        return JRG.conv_resnet_gram(a, b, depth=2, act="relu", w_std=w, b_std=bs,
+                                    last_w_std=last)
+
+    want_k, want_g = _jax_value_and_vjp(f, g, x1, x2, W, B, LAST)
+    leaves = [torch.tensor(v, requires_grad=True) for v in (x1, x2, W, B, LAST)]
+    a, b, w, bs, last = leaves
+    k = TRG.conv_resnet_gram(a, b, depth=2, act="relu", w_std=w, b_std=bs, last_w_std=last)
+    _close(k, want_k)
+    for got, want in zip(torch.autograd.grad(k, leaves, to_torch(g)), want_g):
+        np.testing.assert_allclose(to_numpy(got), want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("same", [False, True], ids=["x1,x2", "x,x"])
+@pytest.mark.parametrize("act", ACTS)
+def test_gradients_match_jax_reference_recursion(act, same):
+    # x1, x2 and scale cotangents against jax.vjp of _reference_conv_resnet.
+    x1, x2 = _images(12, (7, 6), n1=5, n2=4)
+    x2 = x1 if same else x2
+    (g,) = randn(13, (x1.shape[0], x2.shape[0]))
+
+    def f(a, b, w, bs, last):
+        return JRG._reference_conv_resnet(a, a if same else b, 2, 1, act, w, bs, last)
+
+    _, want = _jax_value_and_vjp(f, g, x1, x2, W, B, LAST)
+    leaves = [torch.tensor(v, requires_grad=True) for v in (x1, x2, W, B, LAST)]
+    a, b, w, bs, last = leaves
+    k = TRG.conv_resnet_gram(a, a if same else b, depth=2, act=act, w_std=w, b_std=bs,
+                             last_w_std=last)
+    wanted = [a, w, bs, last] if same else leaves
+    got = torch.autograd.grad(k, wanted, to_torch(g))
+    for gt, wt in zip(got, [want[0]] + want[2:] if same else want):
+        np.testing.assert_allclose(to_numpy(gt), wt, rtol=1e-5,
+                                   atol=1e-6 * np.abs(wt).max())
+
+
+def test_frozen_inputs_give_zero_x_cotangents_and_the_same_scale_gradients():
+    x1, x2 = _images(14, (6, 5), n1=4, n2=3)
+    (g,) = randn(15, (4, 3))
+    grads = {}
+    for trainable in (True, False):
+        leaves = [torch.tensor(v, requires_grad=True) for v in (x1, x2, W, B, LAST)]
+        a, b, w, bs, last = leaves
+        k = TRG.conv_resnet_gram(a, b, depth=2, act="relu", w_std=w, b_std=bs,
+                                 last_w_std=last, trainable_inputs=trainable)
+        grads[trainable] = torch.autograd.grad(k, leaves, to_torch(g))
+    assert grads[True][0].abs().max() > 0
+    assert not grads[False][0].any() and not grads[False][1].any()
+    for want, got in zip(grads[True][2:], grads[False][2:]):
+        assert torch.equal(want, got)
+
+
+# -- the kernel function and the wrappers ---------------------------------------------
+
+@pytest.mark.parametrize("act", ACTS)
+def test_get_conv_resnet_kernel_matches_jax(act):
+    # JAX's kernel_fn takes its layer tier on the CPU; the port's goes to
+    # the fused Gram's plain versions. x2=None means K(x, x).
+    (x,) = randn(16, (5, 8, 8, 2))
+    jfn = jarch.get_conv_resnet_kernel(2, 1, act, **SCALES)
+    want = jax.jit(lambda a: jfn(a, None, get="nngp"))(x)
+    got = to_numpy(tarch.get_conv_resnet_kernel(2, 1, act, **SCALES)(to_torch(x), None))
+    _close(got, want)
+    np.testing.assert_allclose(got, got.T, atol=1e-7)
+
+
+def test_get_conv_resnet_kernel_routes_by_image_size(monkeypatch):
+    # h w <= 1024 goes to conv_resnet_gram; larger images take the layer tier.
+    calls = []
+    real = TRG.conv_resnet_gram
+    monkeypatch.setattr(TRG, "conv_resnet_gram",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    kfn = tarch.get_conv_resnet_kernel(1, 1, "relu", **SCALES)
+    small, big = randn(17, (2, 32, 32, 1), (2, 33, 32, 1))
+    kfn(to_torch(small))
+    assert len(calls) == 1
+    got = kfn(to_torch(big))
+    assert len(calls) == 1
+    want = TL.kernel_fn_of(tarch.get_conv_resnet_layer(1, 1, "relu", **SCALES))(
+        to_torch(big))
+    np.testing.assert_allclose(to_numpy(got), to_numpy(want), atol=1e-6)
+    assert tarch.KERNELS["resnet-conv"] is tarch.get_conv_resnet_kernel
+
+
+def test_launch_geometry_fits_shared_memory():
+    # 2 x 2 pairs at 32 x 32, as K3; every image size up to 1,024 pixels fits.
+    assert TRG._launch_geometry(200, 200, 1024, TRG._tail_pair_floats(32, 32)) == (2, 2)
+    assert TRG._launch_geometry(200, 200, 64, TRG._strided_pair_floats(8, 8)) == (8, 8)
+    for h, w in [(32, 32), (7, 7), (6, 10), (1, 1024), (1024, 1), (4, 4)]:
+        for floats in (TRG._tail_pair_floats(h, w), TRG._strided_pair_floats(h, w)):
+            TRG._launch_geometry(10_000, 10_000, h * w, floats)
+
+
+def test_cuda_wrappers_reject_cpu_tensors_and_count_no_launch():
+    x1, x2 = _images(18, (8, 8))
+    before = dict(TRG.LAUNCHES)
+    TRG.conv_resnet_gram(*to_torch(x1, x2), depth=2, **SCALES)
+    assert TRG.LAUNCHES == before              # CPU tensors never reach a kernel
+    k, v1, v2 = (to_torch(a) for a in _state(19, 3, 2, 4, 4))
+    rows = torch.ones(2, 3, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        TRG.resnet_tail_cuda(k.reshape(3, 2, 16), rows, rows[:, :2], _scales(), nblocks=1,
+                             act="relu", h=4, w=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        TRG.strided_cuda(k.reshape(3, 2, 16), (rows[0], rows[0, :, :4]),
+                         (rows[0, :2], rows[0, :2, :4]), _scales(), act="relu", h=4, w=4)
+    with pytest.raises(KeyError):
+        TRG.conv_resnet_gram(*to_torch(x1, x2), depth=2, act="tanh", **SCALES)
+    with pytest.raises(ValueError, match="depth"):
+        TRG.conv_resnet_gram(*to_torch(x1, x2), depth=0, **SCALES)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_cuda_kernels_match_plain_versions(cuda_device, act):
+    # K5 and K6 within 1e-5 of max|K| of their plain versions, the bench.py
+    # bar, ragged 9 x 7 images. Runs only on a CUDA card.
+    k, v1, v2 = _state(20, 37, 21, 9, 7)
+    with torch.inference_mode():
+        kt, tv1, tv2 = (t.to(cuda_device) for t in to_torch(k, v1, v2))
+        wt, bt = (torch.tensor(v, device=cuda_device) for v in (W, B))
+        scales = torch.stack([wt * wt, bt * bt])
+        s1, _ = TRG.tail_var_stack(tv1, 2, act, wt, bt, True)
+        s2, _ = TRG.tail_var_stack(tv2, 2, act, wt, bt, True)
+        args = (kt.reshape(37, 21, 63), TRG._flat(s1), TRG._flat(s2),
+                scales)
+        kw = dict(nblocks=2, act=act, h=9, w=7, mismatch=True)
+        got, want = TRG.resnet_tail_cuda(*args, **kw), TRG.resnet_tail_plain(*args, **kw)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+        m1, _ = TRG.strided_var_pieces(tv1, act, wt, bt)
+        m2, _ = TRG.strided_var_pieces(tv2, act, wt, bt)
+        args = (kt.reshape(37, 21, 63), (TRG._flat(tv1), TRG._flat(m1)),
+                (TRG._flat(tv2), TRG._flat(m2)), scales)
+        got = TRG.strided_cuda(*args, act=act, h=9, w=7)
+        want = TRG.strided_block_plain(*args, act=act, h=9, w=7)
+        assert got.shape == (37, 21, 20)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()

@@ -371,7 +371,7 @@ def test_classifier_fits_predicts_and_follows_the_protocol():
     assert clf.get_params()["device"] == "cpu"
     assert clf.set_params(epochs=2).epochs == 2
     with pytest.raises(NotImplementedError):
-        SNNGPClassifier(network="resnet", device="cpu").fit(x, y)
+        SNNGPClassifier(network="myrtle", device="cpu").fit(x, y)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SNNGPClassifier(device="cuda").fit(x, y)
