@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of snngp_torch on one NVIDIA card: exact-GP serving and
-ML-II training, and sparse variational classification of images with the
-CNN and the WideResNet NNGP.
+ML-II training, sparse variational classification of images with the CNN,
+the WideResNet and the Myrtle NNGP, and the Myrtle Gram -> Cholesky ->
+Student-t pipeline.
 
     python3 chip_smoke.py
 
@@ -74,14 +75,39 @@ script exits non-zero:
    and 9 K6 launches a step), then one profiled step of each;
 13. the WideResNet classification CLI: ``cls tr -n resnet -m svtp -dn
    synthetic32 -e 1`` at the defaults on the card, ``cls ts`` on the card
-   and on the CPU (gate: within the Monte Carlo tolerance), ``cls pr``.
+   and on the CPU (gate: within the Monte Carlo tolerance), ``cls pr``;
+14. the fused Myrtle Gram (K7) and its scale-tangent mode against their
+   plain versions: Myrtle-5/7/10 x relu / erf at 8 x 8, 16 x 16 and 32 x 32
+   (rectangular and ragged, or symmetric), the tangent modes w, b and wb
+   (wb only at 32 x 32);
+   gate: error <= 1e-5 of max|K| (of max|dK| per tangent), two launches
+   bitwise equal; both timed (one call each) at 200 x 200 pairs of
+   32 x 32 x 3, Myrtle-5, relu, beside their plain versions and their
+   bounds;
+15. Myrtle SVSP at full width (synthetic32, 200 frozen inducing images,
+   batches of 100, Myrtle-5 relu): the ELBO's gradient against float64
+   through K7's plain versions at 20 inducing images and batch 10 (gate:
+   within 2x the plain fp32 path's error; svgp), then 1 timed step each of
+   svgp and svtp, split by phase, with the peak memory (gate: finite
+   losses, 3 K7 and 3 K7 tangent launches a step);
+16. ``cls tr -n myrtle -nh 5 -m svtp -dn synthetic32 -e 1`` (300 images, 20
+   inducing) on the card, ``cls ts`` on the card and on the CPU (gate:
+   within the Monte Carlo tolerance), ``cls pr``;
+17. the pipeline, ``python -m snngp_torch.examples.cifar_myrtle --device
+   cuda --image-size 32 --depth 5 --n-train 512 --n-test 128 --fused on
+   --mlii 3 --mlii-n 128`` on seeded synthetic images: its per-phase
+   report and a finite NLL, launching K7 only; then K7 against the full
+   tier on a 64-image block (gate: 2e-5 of max|K|).
 
-Four main paths run with the kernels' launch counts set to 0 just before
+Five main paths run with the kernels' launch counts set to 0 just before
 and read just after: serving (phases 2-3), training (phases 5-6), CNN
-classification (phases 9-10) and WideResNet classification (phases 12-13);
-each fails if a kernel of its path never launched. Launches made to compare
-a kernel with its plain version (phases 1, 4, 7, 8 and 11) are not
-counted. The line before the last is one JSON object
+classification (phases 9-10), WideResNet classification (phases 12-13)
+and Myrtle classification with the pipeline (phases 15-17); each fails if
+a kernel of its path never launched. Launches made to compare a kernel
+with its plain version (phases 1, 4, 7, 8, 11 and 14, the gradient checks
+of phases 9, 12 and 15, run just before their windows, and phase 17's
+full-tier comparison, run just after its window) are not counted.
+Each phase prints its seconds. The line before the last is one JSON object
 describing the kernels; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when CUDA is not available or the
 ``snngp_torch`` package is not beside this script. Imports nothing of JAX.
@@ -131,6 +157,21 @@ K34_HEAD = "relu/200x200 32x32x3 sym"   # K(Z, Z) of one SVSP step
 K5_HEAD = "relu/200x200 32x32 4 blocks+sc sym"   # group 1 of K(Z, Z)
 K6_HEAD = "relu/200x200 32->16 sym"              # group 2's stride-2 block of K(Z, Z)
 RESNET_TEST_N = 100        # test images of the resnet cls ts comparison
+MYRTLE_DEPTH = 5           # Myrtle-5: one conv per pooling group
+MYRTLE_STEPS = 1           # timed Myrtle ELBO steps of each method (~10 s each)
+# The float64 gradient check of the Myrtle SVSP at a reduced pair count: a
+# float64 pair state at full batch would be ~160 GB through the full tier,
+# and the plain versions at 32 x 32 are launch-bound (~2 s a Gram block).
+MYRTLE_CHECK_NI, MYRTLE_CHECK_NB = 20, 10
+# cls tr -n myrtle: 300 images (6 steps of 50), 20 inducing images, so that
+# cls ts on the CPU (K7's plain version at 32 x 32, a Python loop over
+# ~5,000 slabs a Gram block) stays within ~30 s.
+MYRTLE_CLI = ["-nd", "300", "-ni", "20", "-nb", "50"]
+MYRTLE_TEST_N = 20         # test images of the myrtle cls ts comparison
+# The pipeline at N = 512 / 128 (ML-II on 128): at 1,024 / 256 (ML-II on
+# 256) it took 56 s on an H100 (PERF.md), and the smoke aims at ~300 s.
+PIPELINE = ["--image-size", "32", "--depth", "5", "--n-train", "512", "--n-test", "128",
+            "--fused", "on", "--mlii", "3", "--mlii-n", "128"]
 CLI_RTOL = 5e-3            # CUDA vs CPU CLI NLL (tests/test_cli_smoke.py:47-51)
 # Student-t (a, b) of the CLI runs. syn-t's Gram is near rank-1 (1-D
 # inputs); at b/a = 1 the reference's hardcoded 1e-6 jitter on (b/a) K cannot
@@ -165,8 +206,9 @@ def _time_ms(fn, reps=5):
 def _counters():
     from snngp_torch.ops import conv_gram as CG
     from snngp_torch.ops import gram as G
+    from snngp_torch.ops import myrtle_gram as MG
     from snngp_torch.ops import resnet_conv_gram as RG
-    return (G.LAUNCHES, CG.LAUNCHES, RG.LAUNCHES)
+    return (G.LAUNCHES, CG.LAUNCHES, RG.LAUNCHES, MG.LAUNCHES)
 
 
 def _launches():
@@ -202,7 +244,7 @@ def phase0_setup():
     print(f"[setup] torch {torch.__version__}  CUDA {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
     # One nvcc per source, all started together.
-    sources = ("gram", "conv_gram", "resnet_conv_gram")
+    sources = ("gram", "conv_gram", "resnet_conv_gram", "myrtle_gram")
     built = {name: _build.library_path(name).exists() for name in sources}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -262,7 +304,7 @@ def phase1_kernel_vs_plain():
                 worst_abs = max(worst_abs, abs_err)
                 nbytes = sum(t.numel() * 4 for t in {id(t): t for t in args}.values())
                 bound, by = bound_ms(nbytes + n1 * x2.shape[0] * 4,
-                                     k1_ops(n1, x2.shape[0], d, DEPTH, act, mode))
+                                     k1_ops(n1, x2.shape[0], d, DEPTH, act, mode, x2 is x1))
                 rows[f"{mode}/{act}/{shape_name}"] = dict(
                     ms=ms, plain_ms=plain_ms, rel_err=rel_err, abs_err=abs_err,
                     bound_ms=bound, bound_by=by)
@@ -284,21 +326,28 @@ def _dual_act_ops(act, partials):
     return 31 if partials else 12
 
 
-def k1_ops(n1, n2, d, depth, act, mode):
+def _pairs(n1, n2, same):
+    """Pairs of images the function needs: n (n + 1) / 2 for K(x, x), whose
+    lower triangle mirrors its upper one (no kernel uses that yet), else
+    n1 n2."""
+    return n1 * (n1 + 1) // 2 if same else n1 * n2
+
+
+def k1_ops(n1, n2, d, depth, act, mode, same):
     """fp32 operations of K1 on these shapes (see _dual_act_ops)."""
     a = _dual_act_ops(act, False)
     per = 2 * d + 1 + (depth * (2 + a) + 1 if mode == "mlp"
                        else 2 + depth * (a + 3) + a + 1)
-    return n1 * n2 * per
+    return _pairs(n1, n2, same) * per
 
 
-def k2_ops(n1, n2, d, depth, act, mode):
+def k2_ops(n1, n2, d, depth, act, mode, same):
     """(fp32, fp64) operations of K2 on these shapes (see _dual_act_ops);
     the fp64 ones are the contraction's three FMAs per output."""
     p = _dual_act_ops(act, True)
     per = 2 * d + 1 + (depth * (17 + p) + 3 if mode == "mlp"
                        else 3 + depth * (p + 20) + p + 13)
-    return n1 * n2 * per, n1 * n2 * 6
+    return _pairs(n1, n2, same) * per, _pairs(n1, n2, same) * 6
 
 
 def bound_ms(nbytes, fp32_ops, fp64_ops=0):
@@ -350,7 +399,7 @@ def _k2_check(args, g, kw, label):
     nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in args}.values())
               + g.numel() * 4 + 3 * (-(-n1 // 64)) * (-(-n2 // 64)) * 8)
     bound, by = bound_ms(nbytes, *k2_ops(n1, n2, args[0].shape[1], kw["depth"],
-                                          kw["act"], kw["mode"]))
+                                          kw["act"], kw["mode"], args[1] is args[0]))
     return dict(ms=ms, plain_ms=plain_ms, rel_err=rel, abs_err=abs_err.max().item(),
                 bound_ms=bound, bound_by=by)
 
@@ -415,23 +464,23 @@ def _k2_repeat_and_depth(x_train, cot):
 
 # -- K3 and K4 ------------------------------------------------------------------
 
-def k3_ops(n1, n2, hw, c, depth, act):
+def k3_ops(n1, n2, hw, c, depth, act, same):
     """fp32 operations of K3 on these shapes (see _dual_act_ops): per pixel
     the input moment (C FMAs and a scale), per pixel and layer the stencil's
     4 adds and divide, the Dense FMA and the dual activation, then the
     readout's add; per pair the final scale."""
     a = _dual_act_ops(act, False)
-    return n1 * n2 * (hw * (2 * c + 1) + depth * hw * (7 + a) + hw + 1)
+    return _pairs(n1, n2, same) * (hw * (2 * c + 1) + depth * hw * (7 + a) + hw + 1)
 
 
-def k4_ops(n1, n2, hw, c, depth, act):
+def k4_ops(n1, n2, hw, c, depth, act, same):
     """(fp32, fp64) operations of K4 on these shapes: per pixel and layer
     three stencils (12 adds, 3 divides), u / du_w / du_b (7), the partials
     and the two tangent updates (10); three readout adds per pixel; the
     contraction's three fp64 FMAs per pair."""
     p = _dual_act_ops(act, True)
-    return (n1 * n2 * (hw * (2 * c + 1) + depth * hw * (32 + p) + 3 * hw + 3),
-            n1 * n2 * 6)
+    pairs = _pairs(n1, n2, same)
+    return pairs * (hw * (2 * c + 1) + depth * hw * (32 + p) + 3 * hw + 3), pairs * 6
 
 
 def _conv_inputs(rng, n1, n2, h, w, c, same):
@@ -500,7 +549,7 @@ def phase7_k3_vs_plain():
             ms = _time_ms(lambda: CG.conv_gram_cuda(*args, **kw))
             plain_ms = _time_ms(lambda: CG.conv_gram_plain(*args, **kw), reps=2)
             nbytes = sum(t.numel() * 4 for t in {id(t): t for t in args}.values()) + n1 * n2 * 4
-            bound, by = bound_ms(nbytes, k3_ops(n1, n2, h * w, c, depth, act))
+            bound, by = bound_ms(nbytes, k3_ops(n1, n2, h * w, c, depth, act, same))
             print(f"[K3] {act:4s} {label:24s} rel_err {rel_err:.3e} abs_err {abs_err:.3e}  "
                   f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({by})"
                   f"  max|K-K^T| {sym:.3e}")
@@ -562,7 +611,7 @@ def _k4_cases():
             nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in args}.values())
                       + g.numel() * 4
                       + 3 * 8 * (-(-n1 // blocks[0])) * (-(-n2 // blocks[1])))
-            bound, by = bound_ms(nbytes, *k4_ops(n1, n2, h * w, c, depth, act))
+            bound, by = bound_ms(nbytes, *k4_ops(n1, n2, h * w, c, depth, act, same))
             print(f"[K4] {act:4s} {label:24s} rel_err {rel:.3e} abs_err "
                   f"{abs_err.max().item():.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
                   f"bound {bound:.3f} ms ({by})  repeat {repeat}  sums "
@@ -1052,32 +1101,41 @@ def _svsp_data():
 def _svsp_model(method, z, num_class, *, network="cnn", plain=False, dtype=None, eps=1e-6,
                 trainable_inputs=True):
     """The CLI's model (``cls tr`` defaults: depth 4 relu CNN or WideResNet,
-    w_std 1, b_std 1e-8, a = b = 2), on the kernels or on the plain layer
-    tier."""
+    or Myrtle-5; w_std 1, b_std 1e-8, a = b = 2), on the kernels or on the
+    plain layer tier (Myrtle: K7's plain versions, scalar-only gradients)."""
     import torch
     from snngp_torch.cli.classification import _make_model
     from snngp_torch.nn import arch, layers
+    from snngp_torch.ops import myrtle_gram as MG
 
+    depth = MYRTLE_DEPTH if network == "myrtle" else SVSP_DEPTH
     get_kernel_fn = None
-    if plain:
+    if plain and network == "myrtle":
+        def get_kernel_fn(w, b, last):
+            def kernel_fn(x1, x2=None, get="nngp"):
+                x2e = x1 if x2 is None else x2
+                return MG._MyrtleGram.apply(x1, x2e, w, b, last, depth, "relu", False,
+                                            x2e is x1, True)
+            return kernel_fn
+    elif plain:
         builder = arch.get_cnn_layer if network == "cnn" else arch.get_conv_resnet_layer
 
         def get_kernel_fn(w, b, last):
             return layers.kernel_fn_of(builder(SVSP_DEPTH, num_class, "relu", w, b, last))
-    model = _make_model(method, network, SVSP_DEPTH, "relu", 1.0, 1e-8, 1.0, 2.0, 2.0,
+    model = _make_model(method, network, depth, "relu", 1.0, 1e-8, 1.0, 2.0, 2.0,
                         num_class, z, eps, get_kernel_fn=get_kernel_fn,
                         trainable_inputs=trainable_inputs)
     return model.to(device="cuda", dtype=dtype or torch.float32)
 
 
-def _svsp_draws(method, num_class):
+def _svsp_draws(method, num_class, nb=SVSP_NB):
     """One set of standard variates for the correlated ELBO draws, in float64
     (cast per model): normals, and for svtp gamma(a = 2) variates."""
     import torch
     from snngp_torch.ops.mvt import draw_t
 
     gen = torch.Generator(device="cuda").manual_seed(21)
-    shape = (SVSP_SAMPLES, num_class, SVSP_NB)
+    shape = (SVSP_SAMPLES, num_class, nb)
     like = dict(dtype=torch.float64, device="cuda")
     if method == "svgp":
         return torch.randn(shape, generator=gen, **like)
@@ -1091,7 +1149,7 @@ def _cast_draws(draws, dtype):
     return draws.to(dtype)
 
 
-def _svsp_gradient_check(method, x, y, z, num_class, network="cnn"):
+def _svsp_gradient_check(method, x, y, z, num_class, network="cnn", nb=SVSP_NB):
     """The ELBO's gradients on one batch through the kernels (fp32) and
     through the plain layer tier (fp32 and float64), on the same draws;
     gate: the kernel path's error against float64 within 2x the plain fp32
@@ -1100,7 +1158,7 @@ def _svsp_gradient_check(method, x, y, z, num_class, network="cnn"):
     pseudo-inverse floor."""
     import torch
 
-    draws = _svsp_draws(method, num_class)
+    draws = _svsp_draws(method, num_class, nb)
     grads, losses = {}, {}
     for name, plain, dtype in (("kernel", False, torch.float32),
                                ("plain fp32", True, torch.float32),
@@ -1108,8 +1166,8 @@ def _svsp_gradient_check(method, x, y, z, num_class, network="cnn"):
         torch.cuda.reset_peak_memory_stats()
         model = _svsp_model(method, z, num_class, network=network, plain=plain, dtype=dtype,
                             eps=1e-2)
-        xb = torch.as_tensor(x[:SVSP_NB], device="cuda", dtype=dtype)
-        yb = torch.as_tensor(y[:SVSP_NB], device="cuda")
+        xb = torch.as_tensor(x[:nb], device="cuda", dtype=dtype)
+        yb = torch.as_tensor(y[:nb], device="cuda")
         loss = model.loss(xb, yb, x.shape[0], SVSP_SAMPLES, draws=_cast_draws(draws, dtype))
         loss.backward()
         params = sorted(model.named_parameters())
@@ -1147,7 +1205,8 @@ def _svsp_stepper(method, x, y, z, num_class, trainable_inputs, network="cnn"):
     model = _svsp_model(method, z, num_class, network=network,
                         trainable_inputs=trainable_inputs)
     opts = _optimizers(model, argparse.Namespace(optimizer="adam", lr2=None, method=method,
-                                                 freeze_inducing=not trainable_inputs))
+                                                 freeze_inducing=not trainable_inputs,
+                                                 network=network))
     gen = torch.Generator(device="cuda").manual_seed(10)
     batches = iter(DataLoader(x, y, batch_size=SVSP_NB, shuffle=True, seed=10))
 
@@ -1162,8 +1221,8 @@ def _svsp_stepper(method, x, y, z, num_class, trainable_inputs, network="cnn"):
 
 
 def _svsp_steps(label, method, x, y, z, num_class, want, trainable_inputs=True,
-                network="cnn"):
-    """SVSP_STEPS timed ELBO steps after one untimed one; ``want`` maps each
+                network="cnn", steps=SVSP_STEPS):
+    """``steps`` timed ELBO steps after one untimed one; ``want`` maps each
     kernel to its launches a step (every other kernel: none). Returns the
     per-step phase times (ms)."""
     import torch
@@ -1176,34 +1235,39 @@ def _svsp_steps(label, method, x, y, z, num_class, want, trainable_inputs=True,
     before = _launches()
     prof = Profiler()
     t0 = time.perf_counter()
-    losses = [step(prof) for _ in range(SVSP_STEPS)]
+    losses = [step(prof) for _ in range(steps)]
     _sync()
-    wall = (time.perf_counter() - t0) / SVSP_STEPS * 1e3
+    wall = (time.perf_counter() - t0) / steps * 1e3
     launched = {k: v - before[k] for k, v in _launches().items()}
     losses = torch.stack(losses).tolist()
-    per_step = {k: 1e3 * v / SVSP_STEPS for k, v in prof.totals.items()}
+    per_step = {k: 1e3 * v / steps for k, v in prof.totals.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[svsp] {label}: {SVSP_STEPS} steps, losses "
+    print(f"[svsp] {label}: {steps} steps, losses "
           + " ".join(f"{v:.4f}" for v in losses))
     print(f"[svsp] {label}: step {wall:.2f} ms (synchronized phases): "
           + "  ".join(f"{k} {v:.2f} ms" for k, v in per_step.items())
           + f"; peak {peak:.2f} GiB; launches {launched}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: non-finite losses {losses}")
-    expected = {k: want.get(k, 0) * SVSP_STEPS for k in launched}
+    expected = {k: want.get(k, 0) * steps for k in launched}
     if launched != expected:
         raise AssertionError(f"{label}: launched {launched}; expected {want} a step")
     return dict(step_ms=wall, phases_ms=per_step, peak_gib=peak, losses=losses)
 
 
+def phase9_svsp_gradients():
+    """Phase 9's comparison, run before its launch window: the ELBO's
+    gradient on one batch against float64 for svgp and svtp."""
+    x, y, z, num_class = _svsp_data()
+    return {m: _svsp_gradient_check(m, x, y, z, num_class) for m in ("svgp", "svtp")}
+
+
 def phase9_svsp():
     """SVSP at full width on the card: synthetic32 (32 x 32 x 3), 200
     inducing images, batches of 100, depth 4 relu (``cls tr`` defaults):
-    the gradient against float64 for svgp and svtp, then SVSP_STEPS timed
-    ELBO steps each of svgp, svtp and svtp with frozen inducing inputs (the
-    scalar-only backward, K4)."""
+    SVSP_STEPS timed ELBO steps each of svgp, svtp and svtp with frozen
+    inducing inputs (the scalar-only backward, K4)."""
     x, y, z, num_class = _svsp_data()
-    errs = {m: _svsp_gradient_check(m, x, y, z, num_class) for m in ("svgp", "svtp")}
     configs = (("svgp", "svgp", True), ("svtp", "svtp", True), ("svtp frozen", "svtp", False))
     steps = {label: _svsp_steps(label, method, x, y, z, num_class,
                                 {"conv_gram": 3, "conv_gram_grads": 0 if trainable else 3},
@@ -1213,7 +1277,7 @@ def phase9_svsp():
     for label, method, trainable in configs:
         _profile(_svsp_stepper(method, x, y, z, num_class, trainable),
                  f"one {label} ELBO step", top=10)
-    return errs, steps
+    return steps
 
 
 def _cls_nll(log_dir):
@@ -1320,16 +1384,16 @@ def phase10_cls_cli():
 
 # -- K5 and K6 (WideResNet) -------------------------------------------------------------
 
-def k5_ops(n1, n2, hw, nblocks, act, mismatch):
+def k5_ops(n1, n2, hw, nblocks, act, mismatch, same):
     """fp32 operations of K5 on these shapes (see _dual_act_ops): per pixel
     and block two dual activations, two stencils (4 adds and a divide
     each), the FMA of c1 and the residual update (an FMA and an add); a
     conv shortcut adds a third stencil, its FMA and an add."""
     a = _dual_act_ops(act, False)
-    return n1 * n2 * hw * (nblocks * (2 * a + 15) + (7 if mismatch else 0))
+    return _pairs(n1, n2, same) * hw * (nblocks * (2 * a + 15) + (7 if mismatch else 0))
 
 
-def k6_ops(n1, n2, h, w, act):
+def k6_ops(n1, n2, h, w, act, same):
     """fp32 operations of K6 on these shapes: t1 at every full-resolution
     pixel; the column sums of t1 and of k at the lattice columns (2 adds
     each); at each reduced pixel the two lattice row sums with their
@@ -1337,7 +1401,7 @@ def k6_ops(n1, n2, h, w, act):
     final add."""
     a = _dual_act_ops(act, False)
     hr, wr = -(-h // 2), -(-w // 2)
-    return n1 * n2 * (h * w * a + 4 * h * wr + hr * wr * (a + 18))
+    return _pairs(n1, n2, same) * (h * w * a + 4 * h * wr + hr * wr * (a + 18))
 
 
 def _resnet_cases():
@@ -1427,8 +1491,8 @@ def phase11_k5_k6_vs_plain():
         tensors = [args[0], *args[1:3]] if kernel == "K5" else [args[0], *args[1], *args[2]]
         nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in tensors}.values())
                   + k_kernel.numel() * 4 + 8)
-        ops = (k5_ops(n1, n2, h * w, nblocks, act, mismatch) if kernel == "K5"
-               else k6_ops(n1, n2, h, w, act))
+        ops = (k5_ops(n1, n2, h * w, nblocks, act, mismatch, same) if kernel == "K5"
+               else k6_ops(n1, n2, h, w, act, same))
         bound, by = bound_ms(nbytes, ops)
         print(f"[{kernel}] {act:4s} {label:30s} rel_err {rel_err:.3e} abs_err {abs_err:.3e}  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({by})"
@@ -1446,14 +1510,19 @@ def phase11_k5_k6_vs_plain():
     return rows, worst
 
 
+def phase12_resnet_gradient():
+    """Phase 12's comparison, run before its launch window: the WideResNet
+    svgp ELBO's gradient on one batch against float64."""
+    x, y, z, num_class = _svsp_data()
+    return _svsp_gradient_check("svgp", x, y, z, num_class, network="resnet")
+
+
 def phase12_resnet_svsp():
     """WideResNet SVSP at full width on the card (phase 9's shape, ``-n
-    resnet``): the svgp gradient against float64, then SVSP_STEPS timed
-    svgp ELBO steps with trainable and with frozen inducing inputs (the
-    same layer-tier recompute, for the three scales only), then one
-    profiled step of each."""
+    resnet``): SVSP_STEPS timed svgp ELBO steps with trainable and with
+    frozen inducing inputs (the same layer-tier recompute, for the three
+    scales only), then one profiled step of each."""
     x, y, z, num_class = _svsp_data()
-    errs = _svsp_gradient_check("svgp", x, y, z, num_class, network="resnet")
     # A Gram block: one K5 for group 1, and for each of groups 2-4 one K6
     # and (depth > 1) one K5; three blocks a step.
     want = {"resnet_tail": 3 * (1 + 3 * (SVSP_DEPTH > 1)), "resnet_strided": 9}
@@ -1464,7 +1533,7 @@ def phase12_resnet_svsp():
     for label, method, trainable in configs:
         _profile(_svsp_stepper(method, x, y, z, num_class, trainable, network="resnet"),
                  f"one {label} ELBO step", top=10)
-    return errs, steps
+    return steps
 
 
 def phase13_resnet_cli():
@@ -1508,12 +1577,283 @@ def phase13_resnet_cli():
     return dict(nll=nll, tol=tol, times=times)
 
 
+# -- K7 (Myrtle) ----------------------------------------------------------------------
+
+def k7_ops(n1, n2, h, c, depth, act, same, tangents=0):
+    """(fp32, fp64) operations of K7 (or of its tangent mode carrying
+    ``tangents`` of them) on these shapes, counted from csrc/myrtle_gram.cu
+    (see _dual_act_ops): per stage-1 entry the moment (C FMAs and a scale)
+    and the pool (its add into the partial sum and a share of the
+    contribution's FMA: 2); per entry and conv the stencil's 4 adds and
+    divide for each state, the Dense FMA and the dual activation (or its
+    partials and, per tangent, the du update (3) and the tangent's two FMAs
+    and a product (5)); per stage-2 entry the pool again; the GAP adds one
+    fp64 add per stage-3 entry and state."""
+    from snngp_torch.ops.myrtle_gram import MYRTLE_GROUPS
+
+    g0, g1, g2 = MYRTLE_GROUPS[depth]
+    ns = 1 + tangents
+    act_ops = _dual_act_ops(act, tangents > 0)
+    conv = 5 * ns + 2 + act_ops + 8 * tangents
+    e1, e2, e3 = h ** 4, (h // 2) ** 4, (h // 4) ** 4
+    per = e1 * (2 * c + 1) + 2 * ns * (e1 + e2) + conv * (g0 * e1 + g1 * e2 + g2 * e3)
+    pairs = _pairs(n1, n2, same)
+    return pairs * per, pairs * ns * e3
+
+
+K7_HEAD = "relu/200x200 32x32x3 myrtle-5 sym"
+
+
+def _myrtle_args(x1, x2, depth, act, tangents):
+    """The kernels' inputs: packed profiles (and their tangents), scales."""
+    import torch
+    from snngp_torch.ops import myrtle_gram as MG
+
+    w, b, last = (torch.tensor(v, device="cuda") for v in (W_STD, B_STD, LAST_W_STD))
+    inv_c = torch.tensor(1.0 / x1.shape[-1], device="cuda")
+    groups = MG.MYRTLE_GROUPS[depth]
+    if not tangents:
+        p1 = MG.pack_profiles(MG.myrtle_var_profiles(x1, groups, act, w, b))
+        p2 = p1 if x2 is x1 else MG.pack_profiles(MG.myrtle_var_profiles(x2, groups, act, w, b))
+        return (x1, x2, p1, p2, torch.stack([w * w, b * b, last * last, inv_c]))
+    pr1 = MG._profiles_with_tangents(x1, groups, act, w, b)
+    pr2 = pr1 if x2 is x1 else MG._profiles_with_tangents(x2, groups, act, w, b)
+    return (x1, x2, MG.pack_profiles(pr1[0]), MG.pack_profiles(pr2[0]),
+            MG.pack_profiles(pr1[1]), MG.pack_profiles(pr2[1]),
+            torch.stack([w * w, b * b, last * last, inv_c, w, b]))
+
+
+def _k7_cases():
+    """(label, n1, n2, h, same, depth, act, tangents): every depth and act
+    at 8 x 8, 16 x 16 and 32 x 32 (rectangular and ragged, or symmetric),
+    and the tangent modes w, b, wb (at 32 x 32, wb only: the plain
+    versions take ~8 s a call there)."""
+    cases = []
+    for h, (n1, n2) in ((8, (9, 13)), (16, (5, 7)), (32, (3, 5))):
+        for depth in (5, 7, 10):
+            for act in ("relu", "erf"):
+                same = depth == 7
+                cases.append((f"{n1}x{n1 if same else n2} {h}x{h}x3 myrtle-{depth}"
+                              + (" sym" if same else ""), n1, n1 if same else n2, h, same,
+                              depth, act, ""))
+    for label, n1, n2, h, same, depth, act, modes in (
+            ("6x10 8x8x3 myrtle-10", 6, 10, 8, False, 10, "erf", ("wb", "w", "b")),
+            ("5x7 16x16x3 myrtle-5", 5, 7, 16, False, 5, "relu", ("wb", "w", "b")),
+            ("4x4 32x32x3 myrtle-5 sym", 4, 4, 32, True, 5, "relu", ("wb",)),
+            ("3x5 32x32x3 myrtle-7", 3, 5, 32, False, 7, "erf", ("wb",))):
+        for mode in modes:
+            cases.append((label, n1, n2, h, same, depth, act, mode))
+    return cases
+
+
+def _k7_check(label, x1, x2, depth, act, mode, time_it=False):
+    """One K7 (or tangent-mode) call against its plain version; returns the
+    row. Gate: max error <= 1e-5 of max |K| (per output: of max |dK| for a
+    tangent)."""
+    import torch
+    from snngp_torch.ops import myrtle_gram as MG
+
+    args = _myrtle_args(x1, x2, depth, act, bool(mode))
+    if mode:
+        kw = dict(depth=depth, act=act, tangents=mode)
+        cuda_fn, plain_fn = MG.myrtle_gram_tangents_cuda, MG.myrtle_gram_tangents_plain
+    else:
+        kw = dict(depth=depth, act=act)
+        cuda_fn = lambda *a, **k: (MG.myrtle_gram_cuda(*a, **k),)  # noqa: E731
+        plain_fn = lambda *a, **k: (MG.myrtle_gram_plain(*a, **k),)  # noqa: E731
+    # One call each is timed (each takes ~1-30 s at the head shape): the
+    # kernel's second call, after the first as its warm-up, and the plain
+    # version's only call.
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    got = cuda_fn(*args, **kw)
+    events[0].record()
+    again = cuda_fn(*args, **kw)
+    events[1].record()
+    events[2].record()
+    want = plain_fn(*args, **kw)
+    events[3].record()
+    _sync()
+    rels = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)]
+    abs_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+    same = x2 is x1
+    sym = (got[0] - got[0].T).abs().max().item() if same else float("nan")
+    row = dict(rel_err=max(rels), abs_err=abs_err)
+    timing = ""
+    if time_it:
+        row["ms"] = events[0].elapsed_time(events[1])
+        row["plain_ms"] = events[2].elapsed_time(events[3])
+        n1, n2, h, c = x1.shape[0], x2.shape[0], x1.shape[1], x1.shape[3]
+        nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in args}.values())
+                  + 4 * sum(g.numel() for g in got))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, *k7_ops(n1, n2, h, c, depth, act, same, len(mode)))
+        timing = (f"  kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  bound "
+                  f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+    print(f"[K7] {act:4s} {label:28s} {mode or 'fwd':3s} rel_err "
+          + "/".join(f"{r:.2e}" for r in rels) + f" abs_err {abs_err:.3e}{timing}"
+          f"  repeat {repeat}  max|K-K^T| {sym:.3e}")
+    if not finite or not max(rels) <= KERNEL_REL_TOL or not repeat:
+        raise AssertionError(f"K7 {act} {label} {mode or 'fwd'}: rel_err {rels} (tol "
+                             f"{KERNEL_REL_TOL}), finite={finite}, repeat={repeat}")
+    return row
+
+
+def phase14_k7_vs_plain():
+    """K7 and its tangent mode against their plain versions (every depth and
+    act at 8 x 8, 16 x 16 and 32 x 32; the w, b and wb modes), then both
+    timed at the main-path shape: 200 x 200 pairs of 32 x 32 x 3 images,
+    Myrtle-5, relu (K(Z, Z) of a Myrtle SVSP step). Two launches give the
+    same bits; K(x, x) is not bitwise symmetric (reported, not gated)."""
+    import torch
+
+    rng = np.random.RandomState(14)
+    rows = {"fwd": {}, "tangents": {}}
+    with torch.inference_mode():
+        for label, n1, n2, h, same, depth, act, mode in _k7_cases():
+            x1, x2 = _conv_inputs(rng, n1, n2, h, h, 3, same)
+            rows["tangents" if mode else "fwd"][f"{act}/{label}/{mode or 'fwd'}"] = \
+                _k7_check(label, x1, x2, depth, act, mode)
+        x = torch.as_tensor(rng.randn(SVSP_NI, 32, 32, 3).astype(np.float32), device="cuda")
+        rows["fwd"][K7_HEAD] = _k7_check(K7_HEAD[5:], x, x, 5, "relu", "", time_it=True)
+        rows["tangents"][K7_HEAD] = _k7_check(K7_HEAD[5:], x, x, 5, "relu", "wb",
+                                              time_it=True)
+    torch.cuda.empty_cache()
+    worst = {k: max(r["abs_err"] for r in v.values()) for k, v in rows.items()}
+    return rows, worst
+
+
+def phase15_myrtle_gradient():
+    """Phase 15's comparison, run before its launch window: the Myrtle svgp
+    ELBO's gradient (the kernel path svtp shares) against float64 through
+    K7's plain versions, at a reduced pair count: MYRTLE_CHECK_NI inducing
+    images, batch MYRTLE_CHECK_NB."""
+    from snngp_torch.cli.classification import _inducing_init
+
+    x, y, _, num_class = _svsp_data()
+    z_small, _ = _inducing_init(x, y, num_class, MYRTLE_CHECK_NI)
+    return _svsp_gradient_check("svgp", x, y, z_small, num_class, network="myrtle",
+                                nb=MYRTLE_CHECK_NB)
+
+
+def phase15_myrtle_svsp():
+    """Myrtle SVSP at full width on the card: synthetic32 (32 x 32 x 3), 200
+    inducing images (frozen, as ``cls tr -n myrtle`` freezes them), batches
+    of 100, Myrtle-5 relu: MYRTLE_STEPS timed steps each of svgp and svtp
+    (after one untimed step), split by phase, with the peak memory. A step
+    launches 3 K7 (the three Gram blocks) and 3 K7 tangent passes (their
+    scale cotangents)."""
+    x, y, z, num_class = _svsp_data()
+    want = {"myrtle": 3, "myrtle_grads": 3}
+    return {f"myrtle {m}": _svsp_steps(f"myrtle {m}", m, x, y, z, num_class, want,
+                                       trainable_inputs=False, network="myrtle",
+                                       steps=MYRTLE_STEPS)
+            for m in ("svgp", "svtp")}
+
+
+def phase16_myrtle_cli():
+    """``cls tr -n myrtle -nh 5 -m svtp -dn synthetic32 -e 1`` on the card
+    (MYRTLE_CLI sizes), then ``cls ts`` on the card and on the CPU (K7's
+    plain version; gate: within the Monte Carlo tolerance) and ``cls pr``."""
+    work = REPO / "build" / "chip_smoke" / "cls_myrtle"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    _run_cli(["--device", "cuda", "cls", "tr", "-m", "svtp", "-n", "myrtle", "-dn",
+              "synthetic32", "-e", "1", *MYRTLE_CLI, "-nh", str(MYRTLE_DEPTH), "-cr",
+              str(work), "-cn", "cuda", "-q"])
+    times = {"tr": time.perf_counter() - t0}
+    ckpt = work / "cuda"
+    text = (ckpt / "train.log").read_text()
+    if "Traceback" in text or "inducing inputs fixed" not in text:
+        raise AssertionError(text)
+    lines = [ln for ln in text.splitlines() if ln.startswith("[") and "NLL:" in ln]
+    print(f"[cls-myrtle] cls tr: {times['tr']:.2f} s; " + " | ".join(lines[-3:]))
+    test = ["-dn", "synthetic32", "-cd", str(ckpt), "-nd", str(MYRTLE_TEST_N), "-nb",
+            str(MYRTLE_TEST_N), "-q"]
+    nll = {}
+    for device in ("cuda", "cpu"):
+        shutil.rmtree(ckpt / "test", ignore_errors=True)
+        t0 = time.perf_counter()
+        _run_cli(["--device", device, "cls", "ts", *test])
+        nll[device] = _cls_nll(ckpt / "test")
+        times[f"ts {device}"] = time.perf_counter() - t0
+    _run_cli(["--device", "cuda", "cls", "pr", *test])
+    nll["pr"] = _nll(ckpt / "predict" / "predict.log")
+    tol = _mc_tolerance(ckpt, MYRTLE_TEST_N, 10_000)
+    print(f"[cls-myrtle] cls ts NLL cuda {nll['cuda']:.5f} ({times['ts cuda']:.2f} s) cpu "
+          f"{nll['cpu']:.5f} ({times['ts cpu']:.2f} s), |diff| "
+          f"{abs(nll['cuda'] - nll['cpu']):.2e} (MC tolerance {tol:.2e}); cls pr NLL "
+          f"{nll['pr']:.5f}")
+    if not all(math.isfinite(v) for v in nll.values()):
+        raise AssertionError(f"non-finite NLL {nll}")
+    if not abs(nll["cuda"] - nll["cpu"]) <= tol:
+        raise AssertionError(f"myrtle cls ts: CUDA and CPU NLLs differ beyond MC error "
+                             f"({tol:.2e})")
+    np.testing.assert_allclose(nll["pr"], nll["cuda"], rtol=1e-4)
+    return dict(nll=nll, tol=tol, times=times)
+
+
+def phase17_pipeline():
+    """The north-star pipeline, ``python -m snngp_torch.examples.cifar_myrtle
+    --device cuda`` with PIPELINE's arguments on the seeded synthetic images
+    (CIFAR-10 is not in the repository): its per-phase report and a finite
+    NLL, launching only K7 (and its tangent mode, in the ML-II fit)."""
+    from snngp_torch.examples import cifar_myrtle
+
+    before = _launches()
+    t0 = time.perf_counter()
+    result = cifar_myrtle.main(["--device", "cuda", *PIPELINE])
+    wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    print(f"[pipeline] {wall:.2f} s; phases " + "  ".join(
+        f"{k} {v:.3f} s" for k, v in result["phases_s"].items())
+        + f"; NLL {result['nll']:.5f}; launches {launched}")
+    if not math.isfinite(result["nll"]):
+        raise AssertionError(f"pipeline NLL {result['nll']}")
+    if any(v for k, v in launched.items() if k not in ("myrtle", "myrtle_grads")) \
+            or not launched["myrtle"]:
+        raise AssertionError(f"the pipeline launched {launched}; expected K7 only")
+    return dict(result, wall_s=wall, launched=launched)
+
+
+def phase17_full_tier(hyper):
+    """Phase 17's comparison, run after its launch window: K7 against the
+    full tier on a 64-image block of the pipeline's images, at the
+    hyperparameters its ML-II fit found."""
+    import torch
+    from snngp_torch.examples import cifar_myrtle
+    from snngp_torch.nn.full import get_myrtle_kernel, scan_tiled_gram
+    from snngp_torch.ops import myrtle_gram as MG
+
+    x, _ = cifar_myrtle.load_images(64, 32, seed=0)
+    x = torch.as_tensor(x, device="cuda")
+    with torch.inference_mode():
+        k7 = MG.myrtle_gram(x, depth=MYRTLE_DEPTH, **hyper)
+        full = scan_tiled_gram(get_myrtle_kernel(MYRTLE_DEPTH, 1, "relu", **hyper), x,
+                               tile=16)
+    rel = float(np.abs(k7.cpu().numpy() - full).max() / np.abs(full).max())
+    print(f"[pipeline] K7 against the full tier on 64 x 64 pairs: rel err {rel:.3e}")
+    if not rel <= 2e-5:    # two summation orders (tests/test_myrtle_pallas.py's bar)
+        raise AssertionError(f"K7 against the full tier: rel err {rel:.3e}")
+    torch.cuda.empty_cache()
+    return rel
+
+
 def _kernel_entry(name, source, replaces, launches, rows, head, worst_abs):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": worst_abs,
             "ms": rows[head]["ms"], "plain_ms": rows[head]["plain_ms"],
             "bound_ms": rows[head]["bound_ms"], "bound_by": rows[head]["bound_by"],
             "library_ms": None, "variants": rows}
+
+
+def _phase(number, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] phase {number}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1530,41 +1870,52 @@ def main() -> int:
     import snngp_torch  # noqa: F401  (precision policy)
 
     t_start = time.perf_counter()
-    phase0_setup()
+    _phase(0, phase0_setup)
     with torch.inference_mode():
-        k1_rows, k1_abs = phase1_kernel_vs_plain()
+        k1_rows, k1_abs = _phase(1, phase1_kernel_vs_plain)
         data = _serving_data()
         _warm_up(data)
         _reset_launches()                 # serving path starts here
-        phase2_serving(data)
-    phase3_cli()
+        _phase(2, phase2_serving, data)
+    _phase(3, phase3_cli)
     serving = _read_launches("serve", ["gram"])   # serving path ends here
 
     x_train, cot = ml2_cotangent(data)
     with torch.inference_mode():
-        k2_rows = phase4_k2_vs_plain(x_train, cot)
+        k2_rows = _phase(4, phase4_k2_vs_plain, x_train, cot)
     del x_train, cot
     torch.cuda.empty_cache()
     _reset_launches()                     # training path starts here
-    phase5_training(data)
-    phase6_train_cli()
+    _phase(5, phase5_training, data)
+    _phase(6, phase6_train_cli)
     training = _read_launches("train", ["gram", "gram_grads"])  # training path ends here
 
     with torch.inference_mode():
-        k3_rows, k3_abs = phase7_k3_vs_plain()
-    k4_rows = phase8_k4_vs_plain()
+        k3_rows, k3_abs = _phase(7, phase7_k3_vs_plain)
+    k4_rows = _phase(8, phase8_k4_vs_plain)
+    _phase("9 (gradient checks)", phase9_svsp_gradients)
     torch.cuda.empty_cache()
     _reset_launches()                     # classification path starts here
-    phase9_svsp()
-    phase10_cls_cli()
+    _phase(9, phase9_svsp)
+    _phase(10, phase10_cls_cli)
     classify = _read_launches("classify", ["conv_gram", "conv_gram_grads"])  # ends here
 
     with torch.inference_mode():
-        k56_rows, k56_abs = phase11_k5_k6_vs_plain()
+        k56_rows, k56_abs = _phase(11, phase11_k5_k6_vs_plain)
+    _phase("12 (gradient check)", phase12_resnet_gradient)
     _reset_launches()                     # WideResNet classification path starts here
-    phase12_resnet_svsp()
-    phase13_resnet_cli()
-    resnet = _read_launches("classify-resnet", ["resnet_tail", "resnet_strided"])  # ends here
+    _phase(12, phase12_resnet_svsp)
+    _phase(13, phase13_resnet_cli)
+    resnet = _read_launches("classify-resnet", ["resnet_tail", "resnet_strided"])  # ends
+
+    k7_rows, k7_abs = _phase(14, phase14_k7_vs_plain)
+    _phase("15 (gradient check)", phase15_myrtle_gradient)
+    _reset_launches()                     # Myrtle classification + pipeline path starts here
+    _phase(15, phase15_myrtle_svsp)
+    _phase(16, phase16_myrtle_cli)
+    pipeline = _phase(17, phase17_pipeline)
+    myrtle = _read_launches("myrtle", ["myrtle", "myrtle_grads"])  # ends here
+    _phase("17 (full tier)", phase17_full_tier, pipeline["hyper"])
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -1592,7 +1943,15 @@ def main() -> int:
                        "at the reduced resolution)", "snngp_torch/csrc/resnet_conv_gram.cu",
                        "snngp/ops/pallas/resnet_conv_gram.py:54", resnet["resnet_strided"],
                        k56_rows["K6"], K6_HEAD, k56_abs["K6"])
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
+    k7 = _kernel_entry("myrtle (K7, fused Myrtle-5/7/10 Gram, Delta-slab recursion)",
+                       "snngp_torch/csrc/myrtle_gram.cu",
+                       "snngp/ops/pallas/myrtle_gram.py:278", myrtle["myrtle"],
+                       k7_rows["fwd"], K7_HEAD, k7_abs["fwd"])
+    k7t = _kernel_entry("myrtle_grads (K7 scale-tangent mode, dK/dw and dK/db in one pass)",
+                        "snngp_torch/csrc/myrtle_gram.cu",
+                        "snngp/ops/pallas/myrtle_gram.py:278", myrtle["myrtle_grads"],
+                        k7_rows["tangents"], K7_HEAD, k7_abs["tangents"])
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k7t]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,10 @@ plateau LR and best-NLL checkpoints (``NNN.npz``, ``meta.npy`` and
 ``resume.state`` in the JAX package's layouts, readable by either
 package). Every tensor lives on the device named by
 ``python -m snngp_torch --device``; the Gram blocks go through K3 there
-(``-n cnn``), or through K5 and K6 (``-n resnet``).
+(``-n cnn``), through K5 and K6 (``-n resnet``), or through K7 (``-n
+myrtle``, with ``-nh`` the Myrtle depth 5, 7 or 10; the inducing inputs are
+frozen and the Gram blocks take scalar-only gradients, K7's tangent mode,
+as in the JAX package).
 
 Kept reference quirks: the ``-lr2`` split does not apply the svtp
 ``last_w_std`` freeze (classification/train.py:228-229), and ``cls ts``
@@ -33,8 +36,8 @@ Divergences from the JAX package:
   the inducing inputs' gradient, and so their Adam moments, are then zero
   (the JAX package computes and masks them); every parameter takes the
   same values;
-- ``-n myrtle`` raises ``NotImplementedError`` (its kernel is a later
-  slice of the port), as does ``SNNGP_MESH_DEVICES`` > 1;
+- ``SNNGP_MESH_DEVICES`` > 1 raises ``NotImplementedError`` (the
+  multi-device path is a later slice of the port);
 - the progress bars need ``tqdm`` only if it can be imported.
 """
 
@@ -51,7 +54,7 @@ from snngp_torch.data.resize import bilinear_resize
 from snngp_torch.models import (SVSP, GaussianPrior, InverseGammaPrior, NNGPKernel,
                                 fit_svsp)
 from snngp_torch.models.params import get_by_suffix
-from snngp_torch.nn.arch import get_cnn_kernel, get_conv_resnet_kernel
+from snngp_torch.nn.arch import get_cnn_kernel, get_conv_resnet_kernel, get_myrtle_kernel
 from snngp_torch.utils import (SGD, Adam, Checkpointer, DataLoader, Logger,
                                ReduceLROnPlateau, get_context_summary, load_named,
                                load_training_state, progress, save_training_state,
@@ -72,7 +75,8 @@ def _add_train_parser(subparsers):
 
     parser.add_argument("-m",   "--method",           choices=["svgp", "svtp"], required=True)
     parser.add_argument("-n",   "--network",          choices=["cnn", "resnet", "myrtle"],
-                        default="cnn", help="kernel architecture; cnn and resnet are ported")
+                        default="cnn", help="kernel architecture; myrtle takes -nh as "
+                                            "the Myrtle depth (5, 7, 10)")
     parser.add_argument("-dr",  "--data-root",        type=str, default="./data")
     parser.add_argument("-dn",  "--data-name",        required=True)
     parser.add_argument("-cr",  "--ckpt-root",        type=str, default="./_ckpt/cls")
@@ -123,10 +127,14 @@ def _base_kernel(network):
     if network == "resnet":
         return "resnet", get_conv_resnet_kernel
     if network == "myrtle":
-        raise NotImplementedError(
-            "-n myrtle: its Gram kernel is not ported yet (slice 5, K7); use -n cnn "
-            "or -n resnet")
+        return "myrtle", get_myrtle_kernel
     raise ValueError(f"Unsupported network '{network}'")
+
+
+def _check_myrtle_depth(network, num_hiddens):
+    if network == "myrtle" and num_hiddens not in (5, 7, 10):
+        raise ValueError("-n myrtle uses -nh/--num-hiddens as the Myrtle depth: "
+                         f"one of 5, 7, 10 (got {num_hiddens})")
 
 
 def _make_model(method, network, num_hiddens, activation, w_std, b_std, last_w_std,
@@ -135,9 +143,14 @@ def _make_model(method, network, num_hiddens, activation, w_std, b_std, last_w_s
     """``trainable_inputs=False`` (``--freeze-inducing``): the Gram blocks
     take scalar-only gradients (``-n cnn``: K4 on the card instead of the
     layer-tier recompute; ``-n resnet``: the same recompute, for the three
-    scales only) and the inducing inputs zero cotangents."""
+    scales only) and the inducing inputs zero cotangents. ``-n myrtle``
+    always takes scalar-only gradients (K7's tangent mode): its inducing
+    inputs are frozen."""
     if get_kernel_fn is None:
         _, base_kernel_fn = _base_kernel(network)
+        if network == "myrtle":
+            _check_myrtle_depth(network, num_hiddens)
+            trainable_inputs = False
 
         def get_kernel_fn(w, b, l):
             return base_kernel_fn(num_hiddens, num_class, activation, w_std=w, b_std=b,
@@ -167,7 +180,7 @@ def _optimizers(model, args):
     off to a second optimizer and, as the reference does, drops the svtp
     freeze there."""
     opt_cls = Adam if args.optimizer == "adam" else SGD
-    freeze_z = args.freeze_inducing
+    freeze_z = args.freeze_inducing or getattr(args, "network", None) == "myrtle"
     if args.lr2:
         return [opt_cls(model, mask=lambda n: "prior" not in n
                         and not (freeze_z and "inducing_variable" in n)),
@@ -205,6 +218,7 @@ def _inducing_init(x_train, y_train, num_class, num_inducing):
 
 def train_main(args):
     device = args.device
+    _check_myrtle_depth(args.network, args.num_hiddens)   # before the log opens
     dataset = get_train_dataset(
         name=args.data_name, root=args.data_root,
         num_data=args.num_data, valid_prop=args.valid_prop,
@@ -245,7 +259,10 @@ def train_main(args):
                             args.w_std, args.b_std, args.last_w_std, args.alpha,
                             args.beta, num_class, inducing_points, args.epsilon,
                             trainable_inputs=not args.freeze_inducing).to(device)
-        if args.freeze_inducing:
+        if args.network == "myrtle":
+            logger.log("Myrtle kernel: inducing inputs fixed at their "
+                       "class-proportional init (scalar-only kernel gradients)")
+        elif args.freeze_inducing:
             logger.log("--freeze-inducing: inducing inputs fixed at their "
                        "class-proportional init (scalar-only kernel gradients)")
         optimizers = _optimizers(model, args)

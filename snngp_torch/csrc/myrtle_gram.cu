@@ -1,0 +1,539 @@
+// Fused Myrtle conv-NNGP Gram (K7) and its scale-tangent mode, CUDA C++ for
+// Hopper (sm_90a). Bound to Python with ctypes by
+// snngp_torch/ops/myrtle_gram.py.
+//
+// Replaces snngp/ops/pallas/myrtle_gram.py::_myrtle_kernel (launched by
+// _myrtle_call), both its forward and its `tangents` mode. Per pair (a, b)
+// of [h, h, C] images (h a power of two, >= 8) it runs the Myrtle-5/7/10
+// recursion on the [h^2, h^2] pixel-pair covariance K[p1, p2]:
+//   K = sum_c x1[a, p1, c] x2[b, p2, c] / C
+//   three groups of g0 / g1 / g2 x [K = T(w2 S(K) + b2; v1[p1], v2[p2])],
+//   each followed by an exact 2 x 2 average pool on both sides,
+//   out[a, b] = last2 * mean(K)   (global average pool + dense readout)
+// with S the same-offset 3 x 3 stencil mean K'[p1, p2] = 1/9 sum_d
+// K[p1 + d, p2 + d] (zero off the image), T the arccos (ReLU) or arcsin
+// (Erf) dual activation, and the per-sample variance profiles v1, v2 of
+// every conv layer computed outside (O(N h^4) per sample, not per pair).
+// The tangent mode also carries dK/dw_std and/or dK/db_std: the conv adds
+// 2 w S(K) and 2 b, the activation's partials serve every tangent, and the
+// pools and the GAP apply to each state; it writes the tangent Grams
+// themselves (dK/dlast = (2 / last) K needs no kernel).
+//
+// What bounds it on an H100: at 32 x 32 one pair's stage 1 alone is 1M
+// pixel pairs x (the moment's C FMAs, a 9-point stencil, a dual activation
+// with acosf / asinf, two sqrtf and divides, the pool) and it writes one
+// float: fp32 and SFU operations, not memory (the inputs are ~MBs and stay
+// in L2), ~35-40 M operations a pair at Myrtle-5.
+//
+// Design. The TPU kernel kept a pair's whole 4 MB state in VMEM, with
+// strip-mined stage-1 rows and halos, one-hot matvecs to read profile
+// columns, reshape pooling and sparse 128-lane tail layouts; none of that
+// carries over, since a block has 227 KB. Instead the state is cut into
+// Delta-slabs: S keeps the offset Delta = p2 - p1 and the moment and T are
+// pointwise, so inside a conv group slab Delta (an (r - |Di|) x (r - |Dj|)
+// image, at most 4 KB) evolves alone, with its own zero boundary and the
+// profiles of p1 on side a and of p1 + Delta on side b. A 2 x 2 pool sends
+// each entry of slab Delta to exactly one entry of pooled slab floor(D/2)
+// or ceil(D/2) per axis (an entry with even p1 to floor, odd to ceil, for
+// odd D). One block runs one pair; each warp runs whole slabs in its own
+// shared-memory planes (the states and a column-sum plane):
+//   stage 1 (h): slab rows Di ascending; in a row three waves (Dj even,
+//     Dj = 1 mod 4, Dj = 3 mod 4) whose slabs pool into disjoint targets,
+//     so warps add into the pooled slabs without atomics, one barrier a
+//     wave; the pooled (h/2) state lives in shared memory as a ring of two
+//     pooled rows (row m receives from Di = 2m - 1, 2m, 2m + 1);
+//   stage 2 (h/2): a pooled row m runs as soon as Di = 2m + 1 is done, in
+//     place in the ring, pooling into the whole stage-3 (h/4) state;
+//   stage 3 (h/4): every slab, then the GAP, which after the last pool is
+//     the mean over stage 3's entries, accumulated in float64.
+// Each pooled entry receives its partial sums in one fixed order (rows,
+// then waves), so results repeat bitwise; K(x, x) is not bitwise symmetric
+// (pair (a, b) walks the slabs in another order than (b, a)); the port's
+// Cholesky symmetrizes. Shared memory a block at 32 x 32: 112 KB forward
+// (8 warps), 208-224 KB for three states (5 warps). The plain version
+// (ops/myrtle_gram.py::_PlainRecursion) runs the same order. IEEE acosf /
+// asinf / sqrtf and divides, no fast math. Not yet used: the symmetry of
+// K(x, x), the pair-independence of the side-a moment and profile loads,
+// tensor cores.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxWarps = 8;
+constexpr int kMaxStates = 3;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kInv2Pi = 0.15915494309189533577f;
+constexpr float kInv4Pi = 0.07957747154594766788f;
+constexpr float kTwoOverPi = 0.63661977236758134308f;
+
+enum Act { kRelu = 0, kErf = 1 };
+
+// The dual activations and their partials: line for line those of
+// csrc/conv_gram.cu and of ops/gram.py.
+template <int ACT>
+__device__ __forceinline__ float dual_act(float k, float v1, float v2);
+
+template <>
+__device__ __forceinline__ float dual_act<kRelu>(float k, float v1, float v2) {
+  const float s = sqrtf(fmaxf(v1 * v2, 1e-30f));
+  const float c = fminf(fmaxf(k / s, -1.0f), 1.0f);
+  const float theta = acosf(c);
+  const float sin_t = sqrtf(fmaxf(1.0f - c * c, 0.0f));
+  return (s * sin_t + (kPi - theta) * k) * kInv2Pi;
+}
+
+template <>
+__device__ __forceinline__ float dual_act<kErf>(float k, float v1, float v2) {
+  const float denom = sqrtf((1.0f + 2.0f * v1) * (1.0f + 2.0f * v2));
+  const float c = fminf(fmaxf(2.0f * k / denom, -1.0f), 1.0f);
+  return kTwoOverPi * asinf(c);
+}
+
+struct Partials {
+  float t, tk, tv1, tv2;
+};
+
+template <int ACT>
+__device__ __forceinline__ Partials dual_act_partials(float k, float v1, float v2);
+
+template <>
+__device__ __forceinline__ Partials dual_act_partials<kRelu>(float k, float v1,
+                                                             float v2) {
+  const float s = sqrtf(fmaxf(v1 * v2, 1e-30f));
+  const float c = fminf(fmaxf(k / s, -1.0f), 1.0f);
+  const float theta = acosf(c);
+  const float sin_t = sqrtf(fmaxf(1.0f - c * c, 0.0f));
+  const float q = sin_t / s * kInv4Pi;
+  Partials p;
+  p.t = (s * sin_t + (kPi - theta) * k) * kInv2Pi;
+  p.tk = (kPi - theta) * kInv2Pi;
+  p.tv1 = q * v2;
+  p.tv2 = q * v1;
+  return p;
+}
+
+template <>
+__device__ __forceinline__ Partials dual_act_partials<kErf>(float k, float v1,
+                                                            float v2) {
+  const float d1 = 1.0f + 2.0f * v1;
+  const float d2 = 1.0f + 2.0f * v2;
+  const float r = 1.0f / sqrtf(d1 * d2);
+  const float g = 2.0f * k * r;
+  const float c = fminf(fmaxf(g, -1.0f), 1.0f);
+  const bool inside = (g > -1.0f) && (g < 1.0f);
+  const float base = inside ? kTwoOverPi / sqrtf(fmaxf(1.0f - c * c, 1e-30f)) : 0.0f;
+  const float bgr2 = base * g * (r * r);
+  Partials p;
+  p.t = kTwoOverPi * asinf(c);
+  p.tk = base * (2.0f * r);
+  p.tv1 = -bgr2 * d2;
+  p.tv2 = -bgr2 * d1;
+  return p;
+}
+
+// Slab geometry at resolution r: offsets d in (-r, r); slab d spans r - |d|
+// entries starting at p1 = max(0, -d); cum(r, d) counts the entries of the
+// slabs d' < d on one axis, so slab (di, dj) of a full state starts at
+// cum(r, di) r^2 + span(r, di) cum(r, dj).
+__device__ __forceinline__ int span(int r, int d) { return r - abs(d); }
+__device__ __forceinline__ int lo(int d) { return d < 0 ? -d : 0; }
+__device__ __forceinline__ int cum(int r, int d) {
+  if (d <= 0) {
+    const int k = r + d - 1;
+    return k * (k + 1) / 2;
+  }
+  return r * (r + 1) / 2 + (d - 1) * (2 * r - d) / 2;
+}
+// e / n for 0 <= e < 4096 and 1 <= n <= 64 (a slab has at most h^2 = 1024
+// entries), by a float reciprocal instead of an integer division: exact
+// there, since (e + 0.5) / n lies at least 0.5 / n from an integer and the
+// float product errs by less than 4096 * 2^-23.
+struct Div {
+  float inv;
+  __device__ explicit Div(int n) : inv(1.0f / (float)n) {}
+  __device__ __forceinline__ int operator()(int e) const {
+    return __float2int_rz(((float)e + 0.5f) * inv);
+  }
+};
+
+// The wave of slab column d: 0 even, 1 for d = 1 mod 4, 2 for d = 3 mod 4.
+__device__ __forceinline__ int wave_of(int d) {
+  if ((d & 1) == 0) return 0;
+  return (((d % 4) + 4) % 4 == 1) ? 1 : 2;
+}
+
+struct Args {
+  const float* x1;      // [n1, h, h, c]
+  const float* x2;      // [n2, h, h, c]
+  const float* prof1;   // [n1, P]: every conv layer's [r, r] profile
+  const float* prof2;   // [n2, P]
+  const float* dprof1;  // [n1, 2, P] (d/dw, d/db) or null
+  const float* dprof2;  // [n2, 2, P] or null
+  const float* scales;  // [w^2, b^2, last^2, 1/C(, w, b)]
+  float* out;           // [states, n1, n2]
+  int n1, n2, h, c, g0, g1, g2, tsel, warps;
+};
+
+// Per-pair pointers and scales, and the tangents carried.
+template <int NT>
+struct Pair {
+  const float* v1;             // prof1 row of a
+  const float* v2;             // prof2 row of b
+  const float* dv1[kMaxStates];
+  const float* dv2[kMaxStates];
+  int tan[kMaxStates];         // 0 = d/dw, 1 = d/db
+  float w2, b2, two_w, two_b;
+};
+
+// Layer l's offset into a profile row and its resolution.
+__device__ __forceinline__ int layer_offset(const Args& A, int l) {
+  const int h = A.h, r2 = h / 2, r3 = h / 4;
+  if (l < A.g0) return l * h * h;
+  if (l < A.g0 + A.g1) return A.g0 * h * h + (l - A.g0) * r2 * r2;
+  return A.g0 * h * h + A.g1 * r2 * r2 + (l - A.g0 - A.g1) * r3 * r3;
+}
+
+// g convs (layers l0 .. l0 + g - 1) on one slab (di, dj) at resolution r
+// whose NS = 1 + NT state planes st[] hold ni x nj entries; tmp is the
+// warp's column-sum plane. Warp-wide; one __syncwarp after each pass.
+template <int ACT, int NT>
+__device__ void slab_convs(const Args& A, const Pair<NT>& P, float* const* st, float* tmp,
+                           int r, int di, int dj, int l0, int g, int lane) {
+  const int ni = span(r, di), nj = span(r, dj), i0 = lo(di), j0 = lo(dj);
+  const int n = ni * nj;
+  const Div div(nj);
+  for (int l = l0; l < l0 + g; ++l) {
+    const int off = layer_offset(A, l);
+#pragma unroll
+    for (int s = 0; s < 1 + NT; ++s) {
+      // Column sums (z + left) + right, then row sums (zc + up) + down, / 9.
+      const float* z = st[s];
+      for (int e = lane; e < n; e += 32) {
+        const int v = e - div(e) * nj;
+        float acc = z[e] + ((v >= 1) ? z[e - 1] : 0.0f);
+        tmp[e] = acc + ((v < nj - 1) ? z[e + 1] : 0.0f);
+      }
+      __syncwarp();
+      for (int e = lane; e < n; e += 32) {
+        const int u = div(e);
+        float acc = tmp[e] + ((u >= 1) ? tmp[e - nj] : 0.0f);
+        acc = acc + ((u < ni - 1) ? tmp[e + nj] : 0.0f);
+        const float sk = acc / 9.0f;
+        if (NT == 0) {
+          const int v = e - u * nj;
+          const int q1 = (i0 + u) * r + j0 + v;
+          const int q2 = q1 + di * r + dj;
+          st[0][e] = dual_act<ACT>(P.w2 * sk + P.b2, __ldg(P.v1 + off + q1),
+                                   __ldg(P.v2 + off + q2));
+        } else {
+          st[s][e] = sk;
+        }
+      }
+      __syncwarp();
+    }
+    if (NT > 0) {
+      for (int e = lane; e < n; e += 32) {
+        const int u = div(e);
+        const int v = e - u * nj;
+        const int q1 = off + (i0 + u) * r + j0 + v;
+        const int q2 = q1 + di * r + dj;
+        const float sk = st[0][e];
+        const Partials pa = dual_act_partials<ACT>(P.w2 * sk + P.b2, __ldg(P.v1 + q1),
+                                                   __ldg(P.v2 + q2));
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const float du = P.w2 * st[1 + t][e] + (P.tan[t] == 0 ? P.two_w * sk : P.two_b);
+          st[1 + t][e] = pa.tk * du + pa.tv1 * __ldg(P.dv1[t] + q1) +
+                         pa.tv2 * __ldg(P.dv2[t] + q2);
+        }
+        st[0][e] = pa.t;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Where pooled slabs live: stage 2's ring of two rows ([slot][state][rowmax],
+// row m in slot (m + r - 1) & 1) or stage 3's whole state ([state][r^4]).
+struct Dest {
+  float* base;
+  int r;        // the pooled resolution
+  bool ring;
+  int states;
+
+  __device__ float* row(int s, int pi) const {
+    if (ring) {
+      const int slot = (pi + r - 1) & 1;
+      return base + (size_t)(slot * states + s) * r * r * r;
+    }
+    return base + (size_t)s * r * r * r * r + (size_t)cum(r, pi) * r * r;
+  }
+};
+
+// Add the 2 x 2 pool of slab (di, dj) at resolution r to the pooled slabs
+// it feeds: each target entry gets 1/16 of the sum of its 1, 2 or 4
+// sources, in (row parity, column parity) order. Warp-wide.
+template <int NT>
+__device__ void slab_pool(float* const* st, int r, int di, int dj, const Dest& D,
+                          int lane) {
+  const int r2 = r / 2, nj = span(r, dj);
+  for (int ti = 0; ti < 2; ++ti) {
+    const int pi = (ti == 0) ? (di >> 1) : ((di + 1) >> 1);
+    if ((ti == 1 && pi == (di >> 1)) || abs(pi) >= r2) continue;
+    const int ei = di - 2 * pi;
+    const int ai = (ei == -1) ? 1 : 0, bi = (ei == 1) ? 0 : 1;
+    const int ni_t = span(r2, pi), i0_t = lo(pi);
+    for (int tj = 0; tj < 2; ++tj) {
+      const int pj = (tj == 0) ? (dj >> 1) : ((dj + 1) >> 1);
+      if ((tj == 1 && pj == (dj >> 1)) || abs(pj) >= r2) continue;
+      const int ej = dj - 2 * pj;
+      const int aj = (ej == -1) ? 1 : 0, bj = (ej == 1) ? 0 : 1;
+      const int nj_t = span(r2, pj), j0_t = lo(pj);
+      const int toff = ni_t * cum(r2, pj);
+      float* dst[1 + NT];
+#pragma unroll
+      for (int s = 0; s < 1 + NT; ++s) dst[s] = D.row(s, pi) + toff;
+      const Div div(nj_t);
+      for (int e = lane; e < ni_t * nj_t; e += 32) {
+        const int uu = div(e);
+        const int vv = e - uu * nj_t;
+        const int ub = 2 * (i0_t + uu) - lo(di);
+        const int vb = 2 * (j0_t + vv) - lo(dj);
+#pragma unroll
+        for (int s = 0; s < 1 + NT; ++s) {
+          float acc = 0.0f;
+          for (int a = ai; a <= bi; ++a)
+            for (int b = aj; b <= bj; ++b) acc += st[s][(ub + a) * nj + vb + b];
+          dst[s][e] += 0.0625f * acc;
+        }
+      }
+    }
+  }
+  __syncwarp();
+}
+
+template <int ACT, int NT>
+__device__ void pair_recursion(const Args& A, float* smem, double* red) {
+  constexpr int NS = 1 + NT;
+  const int a = blockIdx.y, b = blockIdx.x;
+  const int h = A.h, r2 = h / 2, r3 = h / 4, c = A.c;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nthreads = blockDim.x;
+  const int W = A.warps;
+
+  // Shared memory: the warps' slab planes, the stage-2 ring, stage 3.
+  float* mine = smem + (size_t)warp * (NS + 1) * h * h;
+  float* st[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) st[s] = mine + (size_t)s * h * h;
+  float* tmp = mine + (size_t)NS * h * h;
+  float* ring = smem + (size_t)W * (NS + 1) * h * h;
+  float* buf3 = ring + (size_t)2 * NS * r2 * r2 * r2;
+  const Dest to2{ring, r2, true, NS};
+  const Dest to3{buf3, r3, false, NS};
+
+  Pair<NT> P;
+  const int plen = A.g0 * h * h + A.g1 * r2 * r2 + A.g2 * r3 * r3;
+  P.v1 = A.prof1 + (size_t)a * plen;
+  P.v2 = A.prof2 + (size_t)b * plen;
+  P.w2 = A.scales[0];
+  P.b2 = A.scales[1];
+  P.two_w = 0.0f;
+  P.two_b = 0.0f;
+  if (NT > 0) {
+    P.two_w = 2.0f * A.scales[4];
+    P.two_b = 2.0f * A.scales[5];
+    for (int t = 0; t < NT; ++t) {
+      P.tan[t] = (NT == 2) ? t : A.tsel;
+      P.dv1[t] = A.dprof1 + ((size_t)a * 2 + P.tan[t]) * plen;
+      P.dv2[t] = A.dprof2 + ((size_t)b * 2 + P.tan[t]) * plen;
+    }
+  }
+  const float inv_c = A.scales[3];
+  const float* xa = A.x1 + (size_t)a * h * h * c;
+  const float* xb = A.x2 + (size_t)b * h * h * c;
+
+  for (int e = threadIdx.x; e < NS * r3 * r3 * r3 * r3; e += nthreads) buf3[e] = 0.0f;
+
+  // ---- stage 1 (resolution h), pooling into the ring ----
+  for (int di = -(h - 1); di < h; ++di) {
+    const int m = (di - 1) >> 1;     // for odd di: the pooled rows m, m + 1
+    if (di & 1) {
+      if (m + 1 <= r2 - 1) {           // row m + 1 first receives from di = 2m + 1
+        for (int s = 0; s < NS; ++s) {
+          float* row = to2.row(s, m + 1);
+          for (int e = threadIdx.x; e < r2 * r2 * r2; e += nthreads) row[e] = 0.0f;
+        }
+      }
+      __syncthreads();
+    }
+    const int ni = span(h, di), i0 = lo(di);
+    for (int wave = 0; wave < 3; ++wave) {
+      int rank = 0;
+      for (int dj = -(h - 1); dj < h; ++dj) {
+        if (wave_of(dj) != wave) continue;
+        if (rank++ % W != warp) continue;
+        const int nj = span(h, dj), j0 = lo(dj);
+        const Div div(nj);
+        for (int e = lane; e < ni * nj; e += 32) {
+          const int u = div(e);
+          const int v = e - u * nj;
+          const float* pa = xa + ((size_t)(i0 + u) * h + j0 + v) * c;
+          const float* pb = xb + ((size_t)(i0 + u + di) * h + j0 + v + dj) * c;
+          float acc = 0.0f;
+          for (int ch = 0; ch < c; ++ch) acc = fmaf(__ldg(pa + ch), __ldg(pb + ch), acc);
+          st[0][e] = acc * inv_c;
+#pragma unroll
+          for (int s = 1; s < NS; ++s) st[s][e] = 0.0f;   // the moment has no tangent
+        }
+        __syncwarp();
+        slab_convs<ACT, NT>(A, P, st, tmp, h, di, dj, 0, A.g0, lane);
+        slab_pool<NT>(st, h, di, dj, to2, lane);
+      }
+      __syncthreads();
+    }
+
+    // ---- stage 2 (h/2): pooled row m is complete ----
+    if ((di & 1) && m > -r2) {
+      for (int wave = 0; wave < 3; ++wave) {
+        int rank = 0;
+        for (int pj = -(r2 - 1); pj < r2; ++pj) {
+          if (wave_of(pj) != wave) continue;
+          if (rank++ % W != warp) continue;
+          float* ps[NS];
+          const int off = span(r2, m) * cum(r2, pj);
+#pragma unroll
+          for (int s = 0; s < NS; ++s) ps[s] = to2.row(s, m) + off;
+          slab_convs<ACT, NT>(A, P, ps, tmp, r2, m, pj, A.g0, A.g1, lane);
+          slab_pool<NT>(ps, r2, m, pj, to3, lane);
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  // ---- stage 3 (h/4) and the GAP, in float64 ----
+  double acc[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) acc[s] = 0.0;
+  int rank = 0;
+  for (int qi = -(r3 - 1); qi < r3; ++qi) {
+    for (int qj = -(r3 - 1); qj < r3; ++qj) {
+      if (rank++ % W != warp) continue;
+      float* ps[NS];
+      const int ni = span(r3, qi), nj = span(r3, qj);
+      const size_t off = (size_t)cum(r3, qi) * r3 * r3 + (size_t)ni * cum(r3, qj);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) ps[s] = buf3 + (size_t)s * r3 * r3 * r3 * r3 + off;
+      slab_convs<ACT, NT>(A, P, ps, tmp, r3, qi, qj, A.g0 + A.g1, A.g2, lane);
+      for (int e = lane; e < ni * nj; e += 32) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) acc[s] += (double)ps[s][e];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    double v = acc[s];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) red[warp * kMaxStates + s] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < NS) {
+    double sum = 0.0;
+    for (int wi = 0; wi < W; ++wi) sum += red[wi * kMaxStates + threadIdx.x];
+    const double count = (double)r3 * r3 * r3 * r3;
+    A.out[((size_t)threadIdx.x * A.n1 + a) * A.n2 + b] =
+        (float)(sum * (double)A.scales[2] / count);
+  }
+}
+
+template <int ACT>
+__global__ void __launch_bounds__(32 * kMaxWarps) myrtle_gram_kernel(Args A) {
+  extern __shared__ float smem[];
+  __shared__ double red[kMaxWarps * kMaxStates];
+  pair_recursion<ACT, 0>(A, smem, red);
+}
+
+template <int ACT, int NT>
+__global__ void __launch_bounds__(32 * kMaxWarps) myrtle_gram_tangents_kernel(Args A) {
+  extern __shared__ float smem[];
+  __shared__ double red[kMaxWarps * kMaxStates];
+  pair_recursion<ACT, NT>(A, smem, red);
+}
+
+size_t smem_bytes(int h, int ns, int warps) {
+  const size_t r2 = h / 2, r3 = h / 4;
+  return sizeof(float) * ((size_t)warps * (ns + 1) * h * h + 2 * ns * r2 * r2 * r2 +
+                          ns * r3 * r3 * r3 * r3);
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, const Args& A, int ns, cudaStream_t stream) {
+  const size_t smem = smem_bytes(A.h, ns, A.warps);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(A.n2, A.n1);
+  kernel<<<grid, 32 * A.warps, smem, stream>>>(A);
+  return cudaGetLastError();
+}
+
+bool valid(const Args& A) {
+  return A.n1 >= 1 && A.n2 >= 1 && A.n1 <= 65535 && A.h >= 8 && (A.h & (A.h - 1)) == 0 &&
+         A.c >= 1 && A.warps >= 1 && A.warps <= kMaxWarps;
+}
+
+}  // namespace
+
+// x1 [n1, h, h, c], x2 [n2, h, h, c], prof1 [n1, P], prof2 [n2, P] (the
+// packed per-layer variance profiles, P = g0 h^2 + g1 (h/2)^2 + g2 (h/4)^2),
+// scales [w^2, b^2, last^2, 1/c], out [n1, n2]: fp32, contiguous, on the
+// device of `stream`. (g0, g1, g2): convs per pooling group; act: 0 relu,
+// 1 erf; warps: warps a block (one pair), whose shared memory the caller
+// checked. Returns the CUDA error code of the launch (0 on success); does
+// not synchronize.
+extern "C" int snngp_myrtle_gram_f32(const float* x1, const float* x2, const float* prof1,
+                                     const float* prof2, const float* scales, float* out,
+                                     int n1, int n2, int h, int c, int g0, int g1, int g2,
+                                     int act, int warps, void* stream) {
+  const Args A{x1, x2, prof1, prof2, nullptr, nullptr, scales, out,
+               n1, n2, h, c, g0, g1, g2, 0, warps};
+  if (!valid(A)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (act == kRelu) err = launch(myrtle_gram_kernel<kRelu>, A, 1, s);
+  else if (act == kErf) err = launch(myrtle_gram_kernel<kErf>, A, 1, s);
+  return static_cast<int>(err);
+}
+
+// As snngp_myrtle_gram_f32, plus dprof1 [n1, 2, P] and dprof2 [n2, 2, P]
+// (the profiles' tangents in w_std, b_std), scales [w^2, b^2, last^2, 1/c,
+// w, b], and mode 0 (dK/dw), 1 (dK/db) or 2 (both); out is [states, n1, n2]
+// with states = 2 or 3: K, then the tangents carried.
+extern "C" int snngp_myrtle_gram_tangents_f32(const float* x1, const float* x2,
+                                              const float* prof1, const float* prof2,
+                                              const float* dprof1, const float* dprof2,
+                                              const float* scales, float* out, int n1,
+                                              int n2, int h, int c, int g0, int g1, int g2,
+                                              int act, int mode, int warps, void* stream) {
+  const Args A{x1, x2, prof1, prof2, dprof1, dprof2, scales, out,
+               n1, n2, h, c, g0, g1, g2, mode == 1 ? 1 : 0, warps};
+  if (!valid(A) || mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (mode == 2) {
+    if (act == kRelu) err = launch(myrtle_gram_tangents_kernel<kRelu, 2>, A, 3, s);
+    else if (act == kErf) err = launch(myrtle_gram_tangents_kernel<kErf, 2>, A, 3, s);
+  } else {
+    if (act == kRelu) err = launch(myrtle_gram_tangents_kernel<kRelu, 1>, A, 2, s);
+    else if (act == kErf) err = launch(myrtle_gram_tangents_kernel<kErf, 1>, A, 2, s);
+  }
+  return static_cast<int>(err);
+}
+
+// cudaGetErrorString for the wrapper's exception message.
+extern "C" const char* snngp_myrtle_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

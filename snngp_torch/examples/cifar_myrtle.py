@@ -1,0 +1,241 @@
+"""The north-star pipeline on the port: the Myrtle conv-NNGP Gram, its
+Cholesky factor and the Student-t predictive (counterpart of
+``examples/cifar_myrtle.py``).
+
+    python -m snngp_torch.examples.cifar_myrtle --device cuda --image-size 32 \
+        --depth 5 --n-train 1024 --n-test 256 --fused on --mlii 3 --mlii-n 256
+
+The images are CIFAR-10's if its batches are under ./data/cifar10, else
+seeded synthetic ones; the targets are the class labels, regressed. With
+``--fused`` on (``auto``: a CUDA device and an image side of 8, 16 or 32)
+the three Gram blocks are assembled by
+:func:`snngp_torch.ops.myrtle_gram.myrtle_gram_tiled` (K7 on the card, its
+plain version on the CPU) into host memory, resumable with
+``--resume-gram``; with ``off`` they come from the full spatial-covariance
+tier, tile by tile. ``--mlii N`` first fits (w_std, b_std, last_w_std, eps
+and the Student-t a, b) by N steps of Adam on the marginal NLL of an
+``--mlii-n`` subset, through the fused Gram's scalar-tangent backward.
+
+Not ported (they raise ``NotImplementedError``): ``--mlii-scope full``
+(``models/mlii.py``), ``--devices`` > 1 (the multi-device slice),
+``--chol blocked`` / ``inplace`` (``parallel/cholesky.py``), and the JAX
+dispatch knobs ``--scan-chunk`` / ``--remat``. ``--bf16`` is ignored on the
+fused path on the card, with the JAX script's message, and raises
+elsewhere (the bf16 pair state is not ported).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from snngp_torch.data.classification import _load_cifar10_dir
+from snngp_torch.data.resize import bilinear_resize
+from snngp_torch.models import SPR, GaussianLikelihood, NNGPKernel, StudentTLikelihood, fit_spr
+from snngp_torch.models import params as P
+from snngp_torch.nn.arch import get_myrtle_kernel
+from snngp_torch.nn.full import get_myrtle_kernel as full_myrtle
+from snngp_torch.nn.full import scan_tiled_gram
+from snngp_torch.ops.myrtle_gram import myrtle_gram_tiled
+from snngp_torch.utils import Adam, Profiler
+
+
+def load_images(n, image_size, seed):
+    """CIFAR-10 batches if cached under ./data, else seeded synthetic;
+    (images [n, s, s, 3], labels [n]) as float32 numpy."""
+    try:
+        x, y, _ = _load_cifar10_dir("./data/cifar10", "train")
+        x = x[:n] / 255.0
+    except Exception:
+        rng = np.random.RandomState(seed)
+        x = rng.rand(n, 32, 32, 3)
+        y = rng.randint(10, size=n)
+    x = bilinear_resize(np.asarray(x, np.float32), image_size, image_size)
+    return x, np.asarray(y[:n], np.float32)
+
+
+def mlii_fit(args, x_sub, y_sub, device):
+    """ML-II fit of the Myrtle kernel's scales and eps (and the Student-t
+    a, b) on a training subset: full-batch Adam on the marginal NLL, with
+    the Gram's scalar-tangent backward (``trainable_inputs=False``)."""
+    import time
+
+    def get_kernel_fn(w_std, b_std, last_w_std):
+        return get_myrtle_kernel(args.depth, 1, "relu", w_std=w_std, b_std=b_std,
+                                 last_w_std=last_w_std, trainable_inputs=False)
+
+    kernel = NNGPKernel(get_kernel_fn, 1.0, 0.1, 1.0)
+    lik = (StudentTLikelihood(args.alpha, args.beta) if args.mlii_method == "tp"
+           else GaussianLikelihood())
+    model = SPR(kernel, lik, x_sub, y_sub, 0.0, 1.0, eps=args.eps).to(device)
+    opt = Adam(model)
+    t0 = time.time()
+    for i in range(args.mlii):
+        opt.zero_grad()
+        loss = model.loss()
+        loss.backward()
+        opt.update(args.mlii_lr)
+        if i % max(1, args.mlii // 8) == 0 or i == args.mlii - 1:
+            print(f"[mlii] step {i + 1}/{args.mlii}: nll {loss.item():.4f}")
+    with torch.no_grad():
+        w, b, l = (float(v) for v in kernel.get_params())
+        eps = float(P.constrained_read(model.eps, model.bij))
+        alpha, beta = args.alpha, args.beta
+        if args.mlii_method == "tp":
+            alpha, beta = (float(v) for v in lik._ab())
+    hyper = dict(w_std=w, b_std=b, last_w_std=l)
+    print(f"[mlii] {args.mlii} steps on N={x_sub.shape[0]} in {time.time() - t0:.1f}s -> "
+          f"{hyper} eps {eps:.3e}"
+          + (f" a {alpha:.3f} b {beta:.3f}" if args.mlii_method == "tp" else ""))
+    return hyper, eps, alpha, beta
+
+
+def _parser():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--n-train", type=int, default=128)
+    ap.add_argument("--n-test", type=int, default=32)
+    ap.add_argument("--image-size", type=int, default=16)
+    ap.add_argument("--tile", type=int, default=8,
+                    help="tile of the full-tier assembly (--fused off)")
+    ap.add_argument("--depth", type=int, default=5, choices=[5, 7, 10])
+    ap.add_argument("--alpha", type=float, default=2.0)
+    ap.add_argument("--beta", type=float, default=2.0)
+    ap.add_argument("--eps", type=float, default=1e-4,
+                    help="absolute regularizer of the train Gram (K + eps I)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the JAX package's bf16 pair state: not ported")
+    ap.add_argument("--scan-chunk", type=int, default=0,
+                    help="JAX dispatch knob (lax.scan chunks): not ported")
+    ap.add_argument("--remat", action="store_true", help="JAX dispatch knob: not ported")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shard the Gram over devices: not ported (one device)")
+    ap.add_argument("--fused", choices=["auto", "on", "off"], default="auto",
+                    help="assemble the Grams with the fused Myrtle Gram (K7 on the "
+                         "card); auto = a CUDA device and an image side of 8, 16 or 32")
+    ap.add_argument("--fused-block", type=int, default=512,
+                    help="block of the fused assembly")
+    ap.add_argument("--resume-gram", default="",
+                    help="directory for resumable fused-Gram assembly: each Gram in an "
+                         ".npy memmap with a block bitmap, flushed per block")
+    ap.add_argument("--mlii", type=int, default=0,
+                    help="ML-II steps on an --mlii-n training subset first")
+    ap.add_argument("--mlii-n", type=int, default=512)
+    ap.add_argument("--mlii-scope", choices=["subset", "full"], default="subset",
+                    help="full (the tiled full-Gram ML-II of models/mlii.py) is not "
+                         "ported")
+    ap.add_argument("--mlii-panel", type=int, default=2048,
+                    help="panel of the full-scope contraction (not ported)")
+    ap.add_argument("--mlii-method", choices=["gp", "tp"], default="tp")
+    ap.add_argument("--mlii-lr", type=float, default=1e-2)
+    ap.add_argument("--chol", choices=["auto", "xla", "blocked", "inplace"], default="auto",
+                    help="factorization: torch.linalg (auto, xla); blocked and inplace "
+                         "(parallel/cholesky.py) are not ported")
+    ap.add_argument("--t-jitter", type=float, default=1e-6,
+                    help="absolute jitter on the scaled Gram (b/a) K of the Student-t "
+                         "data scale")
+    ap.add_argument("--var-floor", type=float, default=1e-6,
+                    help="posterior-variance floor relative to the prior test variance")
+    return ap
+
+
+def _check_unported(args):
+    if args.mlii and args.mlii_scope == "full":
+        raise NotImplementedError("--mlii-scope full: the tiled full-Gram ML-II "
+                                  "(models/mlii.py) is not ported yet")
+    if args.devices > 1:
+        raise NotImplementedError("--devices > 1: the multi-device path is not ported yet")
+    if args.chol in ("blocked", "inplace"):
+        raise NotImplementedError(f"--chol {args.chol}: parallel/cholesky.py is not ported "
+                                  "yet; use auto or xla (torch.linalg)")
+    if args.scan_chunk or args.remat:
+        raise NotImplementedError("--scan-chunk / --remat batch JAX dispatches; the port "
+                                  "dispatches eagerly and does not take them")
+
+
+def main(argv=None):
+    """Run the pipeline; returns {"nll", "phases_s", "hyper"}."""
+    args = _parser().parse_args(argv)
+    _check_unported(args)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: CUDA is not available")
+    device = torch.device(args.device)
+
+    x, y = load_images(args.n_train + args.n_test, args.image_size, seed=0)
+    x_train, x_test = x[:args.n_train], x[args.n_train:]
+    y_mean = np.float32(np.mean(y[:args.n_train]))
+    y_std = np.float32(np.std(y[:args.n_train]))
+    y_train = (y[:args.n_train] - y_mean) / y_std
+
+    hyper = dict(w_std=1.0, b_std=0.1, last_w_std=1.0)
+    if args.mlii:
+        n_fit = min(args.mlii_n, args.n_train)
+        hyper, args.eps, args.alpha, args.beta = mlii_fit(
+            args, x_train[:n_fit], y_train[:n_fit], device)
+
+    fused = (args.fused == "on"
+             or (args.fused == "auto" and device.type == "cuda"
+                 and args.image_size in (8, 16, 32)))
+    if args.bf16:
+        if not (fused and device.type == "cuda"):
+            raise NotImplementedError("--bf16: the bf16 pair state is not ported")
+        print("[cifar_myrtle] --bf16 ignored on the fused path (the kernel's pair state "
+              "is fp32); Gram stays fp32, keeping the fp32-sized eps.")
+    xt_train = torch.as_tensor(x_train, device=device)
+    xt_test = torch.as_tensor(x_test, device=device)
+    prof = Profiler()
+
+    if fused:
+        if args.resume_gram:
+            os.makedirs(args.resume_gram, exist_ok=True)
+
+        def gram(a, b, symmetric, name=""):
+            resume = (os.path.join(args.resume_gram, f"gram_{name}.npy")
+                      if args.resume_gram else None)
+            return myrtle_gram_tiled(a, None if symmetric else b, depth=args.depth,
+                                     act="relu", block=args.fused_block, log=print,
+                                     resume_path=resume, **hyper)
+    else:
+        kfn = full_myrtle(args.depth, 1, "relu", **hyper)
+
+        def gram(a, b, symmetric, name=""):
+            return scan_tiled_gram(kfn, a, None if symmetric else b, tile=args.tile)
+
+    with prof.phase("gram_train"):
+        k_dd = gram(xt_train, xt_train, True, "train")
+    with prof.phase("gram_cross"):
+        k_td = gram(xt_test, xt_train, False, "cross")
+    with prof.phase("gram_test"):
+        k_tt = gram(xt_test, xt_test, True, "test")
+
+    # --eps is absolute; fit_spr applies the trace-relative add_diag_reg,
+    # so convert: eps_rel tr(K) / N == args.eps.
+    eps_rel = args.eps / (float(np.trace(k_dd)) / args.n_train)
+
+    def kernel_builder(w_std, b_std, last_w_std):
+        return get_myrtle_kernel(args.depth, 1, "relu", w_std=w_std, b_std=b_std,
+                                 last_w_std=last_w_std, trainable_inputs=False)
+
+    kernel = NNGPKernel(kernel_builder, hyper["w_std"], hyper["b_std"], hyper["last_w_std"])
+    model = SPR(kernel, StudentTLikelihood(args.alpha, args.beta), x_train, y_train,
+                y_mean, y_std, eps=eps_rel).to(device)
+    y_test_n = torch.as_tensor((y[args.n_train:] - y_mean) / y_std, device=device)
+    with torch.no_grad():
+        with prof.phase("fit"):
+            fitted = fit_spr(model, gram=k_dd, var_floor=args.var_floor,
+                             t_jitter=args.t_jitter)
+        with prof.phase("predictive"):
+            nll = fitted.test_nll_given(k_td, np.diagonal(k_tt).copy(), y_test_n)
+    print(prof.report())
+    total = sum(prof.totals.values())
+    print(f"\nN={args.n_train} Myrtle-{args.depth} ({args.image_size}x{args.image_size}) "
+          f"pipeline total: {total:.2f}s  t-predictive NLL (de-normalized, reference "
+          f"semantics): {float(nll):.4f}")
+    return dict(nll=float(nll), phases_s=dict(prof.totals), hyper=hyper)
+
+
+if __name__ == "__main__":
+    main()

@@ -15,9 +15,12 @@ The fitted state is a flat dict of tensors. ``save`` / ``load`` use the JAX
 package's ``.npz`` layout (state arrays plus ``param:<dotted name>``), so a
 file written by either package loads in the other.
 
-Not ported yet (they raise ``NotImplementedError``): ``memory_lean`` (the
-in-place blocked factorization for Grams past one chip's memory),
-``extendable`` / ``FittedSPR.extend`` and ``var_floor``.
+``var_floor`` clips the posterior variance at predict time, and
+``predict_given`` / ``test_nll_given`` serve from precomputed Gram pieces
+(the Myrtle pipeline, ``snngp_torch.examples.cifar_myrtle``). Not ported
+(they raise ``NotImplementedError``): ``memory_lean`` (the in-place blocked
+factorization for Grams past one chip's memory; an 80 GB card holds a 50k
+fp32 Gram and its factor) and ``extendable`` / ``FittedSPR.extend``.
 """
 
 from __future__ import annotations
@@ -43,22 +46,31 @@ def fit_spr(model, memory_lean: bool = False, extendable: bool = False,
     """One-time train-side solve for an :class:`snngp_torch.models.gp.SPR`,
     with the parameters the model holds.
 
-    ``gram`` optionally supplies the precomputed train Gram; it must equal
+    ``gram`` optionally supplies the precomputed train Gram (a tensor, or a
+    host array such as :func:`~snngp_torch.ops.myrtle_gram.myrtle_gram_tiled`'s
+    result, moved to the model's device); it must equal
     ``model._gram(kernel_fn)`` for the same parameters, since the fitted
     state stores solved quantities, not the inputs.
+
+    ``var_floor`` (relative to the prior test variance) clips the posterior
+    variance at predict time: ``var = max(var, var_floor * diag(k_tt))``.
+    0 keeps the reference's exact arithmetic; at large N the fp32 posterior
+    variance sits below the cancellation noise of the [N]-long contraction
+    and can go slightly negative, so large-N pipelines pass ~1e-6.
 
     ``t_jitter`` is the absolute jitter on the scaled Gram ``(b/a) K`` whose
     factor defines the Student-t data scale ``d`` (the reference hardcodes
     1e-6). At large N the Gram's own fp32 noise exceeds 1e-6 and the
     factorization needs a proportionally larger value to stay PD.
     """
-    if memory_lean or extendable or var_floor:
-        raise NotImplementedError(
-            "memory_lean, extendable and var_floor are not ported yet")
+    if memory_lean or extendable:
+        raise NotImplementedError("memory_lean and extendable are not ported")
     eps = P.constrained_read(model.eps, model.bij)
     kernel_fn = model.kernel.get_kernel_fn()
 
-    k_dd = model._gram(kernel_fn) if gram is None else gram
+    like = model.x_data
+    k_dd = (model._gram(kernel_fn) if gram is None
+            else torch.as_tensor(gram, dtype=like.dtype, device=like.device))
     chol = cholesky(add_diag_reg(k_dd, eps))                    # [N, N]
     alpha = chol_solve(chol, model.y_data[:, None])             # [N, 1]
 
@@ -68,6 +80,8 @@ def fit_spr(model, memory_lean: bool = False, extendable: bool = False,
         "y_mean": model.y_mean,
         "y_std": model.y_std,
     }
+    if var_floor:
+        state["var_floor"] = torch.tensor(var_floor, dtype=like.dtype, device=like.device)
     if model.likelihood.require:  # Student-t conditional predictive
         a, b = model.likelihood._ab()
         df = 2.0 * a
@@ -85,13 +99,13 @@ class FittedSPR:
         if "chol_lower" in state and not bool(state["chol_lower"]):
             raise NotImplementedError(
                 "upper-factor (memory_lean) fitted states are not ported yet")
-        if "var_floor" in state or "reg" in state:
-            raise NotImplementedError(
-                "var_floor / extendable fitted states are not ported yet")
+        if "reg" in state:
+            raise NotImplementedError("extendable fitted states are not ported")
         self.model = model
         self.state = state
         self._kernel_fn = model.kernel.get_kernel_fn()
         self._student_t = "d" in state
+        self._var_floor = float(state["var_floor"]) if "var_floor" in state else 0.0
 
     # -- prediction -------------------------------------------------------
 
@@ -109,6 +123,23 @@ class FittedSPR:
     def test_nll(self, x, y, batch: int = None):
         """Predictive NLL on de-normalized targets; equals SPR.test_nll."""
         mean_n, var_n = self._posterior(x, batch=batch)
+        return self._score_nll(mean_n, var_n, y)
+
+    def predict_given(self, k_td, k_tt_diag):
+        """:meth:`predict` from precomputed Gram pieces: ``k_td`` [n, N] is
+        K(x_test, x_train), ``k_tt_diag`` [n] the prior test variance, for
+        pipelines that assemble their Grams outside the kernel function
+        (``snngp_torch.examples.cifar_myrtle``). With only the diagonal,
+        the variance takes the streaming form ``k_tt_diag - sum(v * v)``,
+        which cancels in fp32 when the posterior variance is tiny: pair it
+        with a ``var_floor`` at scale."""
+        mean_n, var_n = self._posterior_given(k_td, k_tt_diag)
+        return self._denorm(mean_n, var_n)
+
+    def test_nll_given(self, k_td, k_tt_diag, y):
+        """:meth:`test_nll` from precomputed Gram pieces (see
+        :meth:`predict_given`); ``y`` is normalized like ``test_nll``'s."""
+        mean_n, var_n = self._posterior_given(k_td, k_tt_diag)
         return self._score_nll(mean_n, var_n, y)
 
     def _denorm(self, mean_n, var_n):
@@ -149,6 +180,21 @@ class FittedSPR:
         v = self._whiten(k_td)                                   # [N, n]
         k_tt = model.kernel.K(self._kernel_fn, x)                # [n, n]
         var = torch.diagonal(k_tt - v.T @ v)
+        if self._var_floor:
+            var = torch.maximum(var, self._var_floor * torch.diagonal(k_tt))
+        return mean, var
+
+    def _posterior_given(self, k_td, k_tt_diag):
+        """As :meth:`_posterior` from precomputed (k_td, diag(k_tt)), with the
+        streaming variance (see :meth:`predict_given`)."""
+        like = self.state["alpha"]
+        k_td = torch.as_tensor(k_td, dtype=like.dtype, device=like.device)
+        k_tt_diag = torch.as_tensor(k_tt_diag, dtype=like.dtype, device=like.device)
+        mean = (k_td @ self.state["alpha"]).flatten()
+        v = self._whiten(k_td)                                   # [N, n]
+        var = k_tt_diag - torch.sum(v * v, dim=0)
+        if self._var_floor:
+            var = torch.maximum(var, self._var_floor * k_tt_diag)
         return mean, var
 
     def _whiten(self, k_td):

@@ -6,11 +6,13 @@ dense-ResNet, CNN and conv-WideResNet networks).
 the fused Gram (:mod:`snngp_torch.ops.gram`), every CNN block of images
 with at most 1,024 pixels to the fused conv Gram
 (:mod:`snngp_torch.ops.conv_gram`) and every such WideResNet block to the
-fused WideResNet Gram (:mod:`snngp_torch.ops.resnet_conv_gram`). Each
-launches its CUDA kernels for CUDA tensors and runs their plain versions
-for CPU tensors. There is no size
-threshold on N: the JAX package's ``SNNGP_PALLAS_MIN_N`` amortized TPU
-compile latency, which a prebuilt CUDA kernel does not have.
+fused WideResNet Gram (:mod:`snngp_torch.ops.resnet_conv_gram`), and every
+Myrtle block of square power-of-two images from 8 x 8 to 32 x 32 to the
+fused Myrtle Gram (:mod:`snngp_torch.ops.myrtle_gram`). Each launches its
+CUDA kernels for CUDA tensors and runs their plain versions for CPU
+tensors. There is no size threshold on N: the JAX package's
+``SNNGP_PALLAS_MIN_N`` amortized TPU compile latency, which a prebuilt CUDA
+kernel does not have (nor the Myrtle dispatch's 2 GB full-tier threshold).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 from snngp_torch.nn import layers as L
 from snngp_torch.ops import conv_gram as CG
 from snngp_torch.ops import gram as G
+from snngp_torch.ops import myrtle_gram as MG
 from snngp_torch.ops import resnet_conv_gram as RG
 
 __all__ = [
@@ -26,6 +29,7 @@ __all__ = [
     "get_dense_resnet_kernel",
     "get_cnn_kernel",
     "get_conv_resnet_kernel",
+    "get_myrtle_kernel",
     "get_mlp_layer",
     "get_dense_resnet_layer",
     "get_cnn_layer",
@@ -200,9 +204,39 @@ def get_conv_resnet_kernel(num_hiddens, num_class=1, act="relu", w_std=1.0, b_st
     return kernel_fn
 
 
+MYRTLE_SIDES = (8, 16, 32)   # the fused Myrtle Gram's image sides
+
+
+def get_myrtle_kernel(depth=5, num_class=1, act="relu", w_std=1.0, b_std=0.0,
+                      last_w_std=1.0, trainable_inputs=True):
+    """Myrtle-{5,7,10} kernel_fn (the full spatial-covariance tier with 2 x 2
+    average pools and GAP, :func:`snngp_torch.nn.full.get_myrtle_kernel`):
+    NNGP blocks of square [N, h, h, C] images with h in 8, 16, 32 go to the
+    fused Myrtle Gram (K7 on the card); other shapes and ``get="ntk"`` go to
+    the full tier, as in the JAX package.
+
+    ``trainable_inputs=False``: scalar-only gradients through K7's tangent
+    mode, with zero x cotangents (the ML-II configuration and ``cls tr -n
+    myrtle``, whose inducing inputs are frozen)."""
+    from snngp_torch.nn.full import get_myrtle_kernel as full_myrtle
+    ref_fn = full_myrtle(depth, num_class, act, w_std=w_std, b_std=b_std,
+                         last_w_std=last_w_std)
+
+    def kernel_fn(x1, x2=None, get="nngp"):
+        if (get == "nngp" and x1.ndim == 4 and x1.shape[1] == x1.shape[2]
+                and x1.shape[1] in MYRTLE_SIDES):
+            return MG.myrtle_gram(x1, x1 if x2 is None else x2, depth=depth, act=act,
+                                  w_std=w_std, b_std=b_std, last_w_std=last_w_std,
+                                  trainable_inputs=trainable_inputs)
+        return ref_fn(x1, x2, get=get)
+
+    return kernel_fn
+
+
 KERNELS = {
     "mlp": get_mlp_kernel,
     "cnn": get_cnn_kernel,
     "resnet-conv": get_conv_resnet_kernel,
     "resnet-dense": get_dense_resnet_kernel,
+    "myrtle": get_myrtle_kernel,
 }

@@ -125,28 +125,55 @@ class _ReluT(torch.autograd.Function):
 
         dT/dK = (pi - theta) / (2 pi),  dT/dv1 = sin(theta) v2 / (4 pi s),
 
-    and symmetrically for v2 (``snngp/nn/layers.py:_relu_t_jvp``)."""
+    and symmetrically for v2 (``snngp/nn/layers.py:_relu_t_jvp``), in both
+    modes: ``backward`` for reverse-mode autograd, ``jvp`` for
+    ``torch.func.jvp`` (the Myrtle variance profiles' scale tangents).
+
+    ``forward`` also returns s, theta and sin(theta), marked
+    non-differentiable, so that both rules read them saved instead of
+    recomputing them (``torch.func`` needs ``setup_context``, which sees only
+    inputs and outputs); :func:`_relu_t` returns the first output. Their
+    cotangents are not materialized: ``backward`` gets ``None`` for them."""
 
     @staticmethod
-    def forward(ctx, nngp, v1, v2):
+    def forward(nngp, v1, v2):
         s = torch.sqrt(torch.clamp(v1 * v2, min=_TINY))
-        c = torch.clamp(nngp / s, -1.0, 1.0)
-        theta = torch.acos(c)
+        theta = torch.acos(torch.clamp(nngp / s, -1.0, 1.0))
         sin_t = torch.sin(theta)
-        ctx.save_for_backward(v1, v2, s, theta, sin_t)
-        return (s * sin_t + (math.pi - theta) * nngp) / (2.0 * math.pi)
+        return (s * sin_t + (math.pi - theta) * nngp) / (2.0 * math.pi), s, theta, sin_t
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        _, v1, v2 = inputs
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.set_materialize_grads(False)   # no zero cotangents for the extra outputs
+        ctx.save_for_backward(v1, v2, *output[1:])
+        ctx.save_for_forward(v1, v2, *output[1:])
+
+    @staticmethod
+    def backward(ctx, g, *_):
         v1, v2, s, theta, sin_t = ctx.saved_tensors
         q = g * sin_t / (4.0 * math.pi * s)
         return ((g * ((math.pi - theta) / (2.0 * math.pi))),
                 (q * v2).sum_to_size(v1.shape), (q * v1).sum_to_size(v2.shape))
 
+    @staticmethod
+    def jvp(ctx, dk, dv1, dv2):
+        v1, v2, s, theta, sin_t = ctx.saved_tensors
+        q = sin_t / (4.0 * math.pi * s)
+        out = torch.zeros_like(s * theta)
+        if dk is not None:
+            out = out + ((math.pi - theta) / (2.0 * math.pi)) * dk
+        if dv1 is not None:
+            out = out + q * v2 * dv1
+        if dv2 is not None:
+            out = out + q * v1 * dv2
+        return out, None, None, None
+
 
 def _relu_t(nngp, v1, v2):
     """Arccos kernel T(K) = E[relu(u) relu(v)] for (u,v) ~ N(0, [[v1,K],[K,v2]])."""
-    return _ReluT.apply(nngp, v1, v2)
+    return _ReluT.apply(nngp, v1, v2)[0]
 
 
 def Relu() -> Layer:

@@ -184,8 +184,11 @@ class SNNGPClassifier(_EstimatorBase):
     [N, H, W, C] images.
 
     Parameters mirror ``cls tr`` flags: ``method`` svgp|svtp, the kernel's
-    network (``"cnn"`` or ``"resnet"``, the conv WideResNet; myrtle and
-    mlp are not ported and raise), depth / activation / scales, ``alpha`` /
+    network (``"cnn"``, ``"resnet"``, the conv WideResNet, or ``"myrtle"``,
+    with ``num_hiddens`` the Myrtle depth 5, 7 or 10, which freezes the
+    inducing inputs and takes scalar-only kernel gradients as ``cls tr -n
+    myrtle`` does; mlp is not ported and raises), depth / activation /
+    scales, ``alpha`` /
     ``beta`` of the svtp prior, jitter ``eps``, the inducing-point count,
     the ELBO's MC sample count and the minibatch schedule. ``fit`` initializes the inducing
     points class-proportionally (the first images of each class, as the CLI
@@ -235,9 +238,12 @@ class SNNGPClassifier(_EstimatorBase):
         from snngp_torch.models.predictor import fit_svsp
         from snngp_torch.utils.training import svsp_train_step
 
-        if self.network not in ("cnn", "resnet"):
-            raise NotImplementedError(f"network={self.network!r}: only 'cnn' and 'resnet' "
-                                      "are ported")
+        if self.network not in ("cnn", "resnet", "myrtle"):
+            raise NotImplementedError(f"network={self.network!r}: only 'cnn', 'resnet' "
+                                      "and 'myrtle' are ported")
+        if self.network == "myrtle" and self.num_hiddens not in (5, 7, 10):
+            raise ValueError("network='myrtle' uses num_hiddens as the Myrtle depth: "
+                             f"one of 5, 7, 10 (got {self.num_hiddens})")
         self.device_ = _device(self.device)
         X = np.asarray(X, np.float32)
         y = np.asarray(y).reshape(-1)
@@ -251,7 +257,11 @@ class SNNGPClassifier(_EstimatorBase):
         model = _make_model(self.method, self.network, self.num_hiddens, self.activation,
                             self.w_std, self.b_std, self.last_w_std, self.alpha, self.beta,
                             num_class, z, self.eps).to(self.device_)
-        opt = (Adam if self.optimizer == "adam" else SGD)(model)
+        opt_cls = Adam if self.optimizer == "adam" else SGD
+        if self.network == "myrtle":   # the inducing inputs stay at their init
+            opt = opt_cls(model, mask=lambda n: "inducing_variable" not in n)
+        else:
+            opt = opt_cls(model)
         xt = torch.as_tensor(X, device=self.device_)
         yt = torch.as_tensor(y_idx, device=self.device_)
         gen = torch.Generator(device=self.device_).manual_seed(self.seed)

@@ -179,9 +179,13 @@ def test_freeze_inducing_keeps_the_inducing_inputs(tmp_path):
 
 
 @pytest.mark.parametrize("network", ["myrtle"])
-def test_unported_networks_raise_and_log(network, tmp_path):
+def test_unported_networks_raise_and_log(network, tmp_path, monkeypatch):
+    # Every network is ported; what is not (the multi-device path) still
+    # raises, and the failure is logged before it is re-raised.
+    monkeypatch.setenv("SNNGP_MESH_DEVICES", "4")
     with pytest.raises(NotImplementedError, match="not ported"):
-        _port([*TRAIN, "-n", network, "-cr", str(tmp_path), "-cn", "x"])
+        _port([*_epochs(TRAIN, 1), "-n", network, "-nh", "5", "-cr", str(tmp_path),
+               "-cn", "x"])
     text = open(tmp_path / "x" / "train.log").read()
     assert "Traceback" in text and "Stopped" in text
 

@@ -18,7 +18,9 @@ MODULES = ["snngp_torch", "snngp_torch.__main__", "snngp_torch.cli.regression",
            "snngp_torch.utils.training", "snngp_torch.cli.classification",
            "snngp_torch.ops.conv_gram", "snngp_torch.ops.softmax",
            "snngp_torch.models.priors", "snngp_torch.data.classification",
-           "snngp_torch.data.resize", "snngp_torch.ops.resnet_conv_gram"]
+           "snngp_torch.data.resize", "snngp_torch.ops.resnet_conv_gram",
+           "snngp_torch.nn.full", "snngp_torch.ops.myrtle_gram",
+           "snngp_torch.examples.cifar_myrtle"]
 
 
 def _run(code):

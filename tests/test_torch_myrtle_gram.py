@@ -1,0 +1,265 @@
+"""Port parity: the fused Myrtle Gram (``snngp_torch.ops.myrtle_gram``, K7's
+plain version on the CPU) against the JAX package: its full tier, its
+Pallas kernel in interpret mode, its scale tangents and its VJPs.
+
+Tolerances:
+- K against the JAX full tier and the interpret-mode kernel: fp32 rtol
+  2e-5 / atol 1e-6, the bar of tests/test_myrtle_pallas.py (the slab
+  order sums the stencils and pools in another order than either);
+- (K, dK/dw, dK/db) of ``myrtle_gram_scale_grads`` against the JAX
+  function: rtol 1e-6 / atol 1e-7, its own split test's bar;
+- the VJPs against ``jax.grad`` through the JAX full tier: rtol 1e-5 (the
+  scalar VJP's sums are float64 here, fp32 reverse-mode there);
+- profiles and their tangents: rtol 1e-6 / atol 1e-7.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import snngp.ops.pallas.myrtle_gram as mg
+import snngp_torch.ops.myrtle_gram as MG
+from snngp.nn.full import get_myrtle_kernel as jax_full
+
+from _torch_parity import cuda_device, to_numpy  # noqa: F401  (fixture)
+
+HP = dict(w_std=1.3, b_std=0.2, last_w_std=1.1)
+
+
+def _data(n1, n2, h, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.rand(n1, h, h, 3).astype(np.float32),
+            rng.rand(n2, h, h, 3).astype(np.float32))
+
+
+def _t(*arrays):
+    return [torch.as_tensor(a) for a in arrays]
+
+
+@pytest.mark.parametrize("depth,act,h", [(5, "relu", 8), (7, "relu", 8), (10, "relu", 8),
+                                         (5, "erf", 8), (7, "erf", 8), (10, "erf", 8),
+                                         (5, "relu", 16)])
+def test_plain_matches_jax_full_tier(depth, act, h):
+    x1, x2 = _data(3, 5, h, seed=depth)
+    want = np.asarray(jax.jit(jax_full(depth, 1, act, **HP))(x1, x2))
+    got = to_numpy(MG.myrtle_gram(*_t(x1, x2), depth=depth, act=act, **HP))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
+
+
+def test_symmetric_default_and_chunked_plain(monkeypatch):
+    x1, _ = _data(5, 1, 8, seed=3)
+    want = np.asarray(jax.jit(jax_full(5, 1, "relu", **HP))(x1, x1))
+    got = to_numpy(MG.myrtle_gram(torch.as_tensor(x1), depth=5, act="relu", **HP))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
+    # Chunks of one x1 row give the same bits as one chunk.
+    monkeypatch.setitem(MG._PLAIN_BYTES, "cpu", 1)
+    again = to_numpy(MG.myrtle_gram(torch.as_tensor(x1), depth=5, act="relu", **HP))
+    np.testing.assert_array_equal(again, got)
+
+
+def test_plain_matches_jax_pallas_interpret(monkeypatch):
+    monkeypatch.setattr(mg, "INTERPRET", True)
+    x1, x2 = _data(4, 8, 8, seed=1)
+    want = np.asarray(mg.myrtle_gram(x1, x2, depth=5, act="relu", **HP))
+    got = to_numpy(MG.myrtle_gram(*_t(x1, x2), depth=5, act="relu", **HP))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
+
+
+SG = dict(depth=5, act="relu", w_std=1.2, b_std=0.25, last_w_std=0.9)
+
+
+@pytest.fixture(scope="module")
+def jax_scale_grads():
+    mg.INTERPRET = True
+    try:
+        x1, x2 = _data(4, 8, 8, seed=13)
+        return x1, x2, [np.asarray(a) for a in mg.myrtle_gram_scale_grads(
+            x1, x2, split=False, **SG)]
+    finally:
+        mg.INTERPRET = False
+
+
+@pytest.mark.parametrize("split", [None, False, True])
+@pytest.mark.parametrize("with_profiles", [False, True])
+def test_scale_grads_match_jax(jax_scale_grads, split, with_profiles):
+    x1, x2, want = jax_scale_grads
+    t1, t2 = _t(x1, x2)
+    profiles = None
+    if with_profiles:
+        kw = dict(depth=5, act="relu", w_std=1.2, b_std=0.25)
+        profiles = (MG.myrtle_profile_tangents(t1, **kw), MG.myrtle_profile_tangents(t2, **kw))
+    got = MG.myrtle_gram_scale_grads(t1, t2, split=split, profiles=profiles, **SG)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(to_numpy(g), w, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("depth,act", [(5, "relu"), (7, "erf")])
+def test_scalar_vjp_matches_jax_grad(depth, act):
+    """trainable_inputs=False: the tangent mode's scale cotangents, zero x
+    cotangents, against reverse mode through the JAX full tier."""
+    x1, x2 = _data(4, 6, 8, seed=9)
+    g = np.random.RandomState(1).rand(4, 6).astype(np.float32)
+
+    def loss_ref(w, b, l):
+        return jnp.sum(g * jax_full(depth, 1, act, w_std=w, b_std=b, last_w_std=l)(x1, x2))
+
+    want = jax.jit(jax.grad(loss_ref, argnums=(0, 1, 2)))(1.3, 0.2, 1.1)
+    leaves = [torch.tensor(v, requires_grad=True) for v in (x1, x2, 1.3, 0.2, 1.1)]
+    k = MG.myrtle_gram(leaves[0], leaves[1], depth=depth, act=act, w_std=leaves[2],
+                       b_std=leaves[3], last_w_std=leaves[4], trainable_inputs=False)
+    got = torch.autograd.grad(torch.sum(torch.as_tensor(g) * k), leaves)
+    assert not got[0].any() and not got[1].any()
+    for a, b in zip(got[2:], want):
+        np.testing.assert_allclose(to_numpy(a), np.asarray(b), rtol=1e-5)
+
+
+def test_trainable_inputs_vjp_matches_jax_grad():
+    """trainable_inputs=True: x and scale cotangents by autograd through the
+    port's full tier."""
+    x1, x2 = _data(2, 3, 8, seed=2)
+    g = np.random.RandomState(2).rand(2, 3).astype(np.float32)
+
+    def loss_ref(a, c, w, b, l):
+        return jnp.sum(g * jax_full(5, 1, "relu", w_std=w, b_std=b, last_w_std=l)(a, c))
+
+    want = jax.jit(jax.grad(loss_ref, argnums=(0, 1, 2, 3, 4)))(x1, x2, 1.2, 0.3, 1.0)
+    leaves = [torch.tensor(v, requires_grad=True) for v in (x1, x2, 1.2, 0.3, 1.0)]
+    k = MG.myrtle_gram(leaves[0], leaves[1], depth=5, act="relu", w_std=leaves[2],
+                       b_std=leaves[3], last_w_std=leaves[4])
+    got = torch.autograd.grad(torch.sum(torch.as_tensor(g) * k), leaves)
+    scale = max(float(np.abs(np.asarray(w)).max()) for w in want[:2])
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(to_numpy(a), np.asarray(b), rtol=1e-5, atol=1e-5 * scale)
+    for a, b in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(to_numpy(a), np.asarray(b), rtol=1e-5)
+
+
+def test_profiles_and_tangents_match_jax_and_are_finite_at_c_one():
+    """The per-sample covariance meets c = 1 on its spatial diagonal, where
+    autograd through acos gives NaN; the analytic JVP keeps it finite."""
+    x, _ = _data(3, 1, 8, seed=4)
+    want_p, want_t = mg._profiles_with_tangents(jnp.asarray(x), (1, 1, 1), "relu", 1.2, 0.3)
+    got_p, got_t = MG.myrtle_profile_tangents(torch.as_tensor(x), depth=5, act="relu",
+                                              w_std=1.2, b_std=0.3)
+    assert [tuple(p.shape) for p in got_p] == [(3, 8, 8), (3, 4, 4), (3, 2, 2)]
+    for g, w in zip(got_p + got_t, list(want_p) + list(want_t)):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(to_numpy(g), np.asarray(w), rtol=1e-6, atol=1e-7)
+    chunked = MG.myrtle_var_profiles(torch.as_tensor(x), (1, 1, 1), "relu", 1.2, 0.3,
+                                     chunk=2)
+    for a, b in zip(chunked, got_p):
+        np.testing.assert_array_equal(to_numpy(a), to_numpy(b))
+    from snngp_torch.nn.layers import _relu_t
+    k = torch.tensor([1.0, -1.0, 0.3], dtype=torch.float64)
+    v = torch.ones(3, dtype=torch.float64)
+    _, tangent = torch.func.jvp(lambda s: _relu_t(s * k, s * v, s * v),
+                                (torch.tensor(1.0, dtype=torch.float64),),
+                                (torch.tensor(1.0, dtype=torch.float64),))
+    assert torch.isfinite(tangent).all()
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_tiled_resume_across_packages(writer, tmp_path, monkeypatch):
+    """A resume file (the Gram memmap and its block bitmap) written by one
+    package, with half its blocks lost, is finished by the other. The JAX
+    side's fused call is its full tier: the bookkeeping is under test."""
+    def jax_block(depth, act, dtype_key):
+        return jax.jit(lambda a, b, w, bs, l: jax_full(depth, 1, act, w_std=w, b_std=bs,
+                                                       last_w_std=l)(a, b))
+
+    monkeypatch.setattr(mg, "_tiled_jit", jax_block)
+    x, _ = _data(10, 1, 8, seed=6)
+    path = str(tmp_path / "gram.npy")
+
+    def run_jax(**kw):
+        return np.asarray(mg.myrtle_gram_tiled(jnp.asarray(x), block=4, **kw, **HP))
+
+    def run_torch(**kw):
+        return MG.myrtle_gram_tiled(torch.as_tensor(x), block=4, **kw, **HP)
+
+    first, second = (run_jax, run_torch) if writer == "jax" else (run_torch, run_jax)
+    want = run_torch()
+    first(resume_path=path)
+    done = np.load(path + ".done.npy")
+    assert done.shape == (6,) and done.all()
+    # Blocks (0, 4), (4, 4) and (8, 8) of the upper triangle are lost.
+    done[1::2] = False
+    np.save(path + ".done.npy", done)
+    gram = np.lib.format.open_memmap(path, mode="r+")
+    gram[0:8, 4:8] = np.nan
+    gram[4:8, 0:4] = np.nan
+    gram[8:, 8:] = np.nan
+    gram.flush()
+    del gram
+    got = second(resume_path=path)
+    assert np.load(path + ".done.npy").all()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="block"):
+        MG.myrtle_gram_tiled(torch.as_tensor(x[:8]), block=4, resume_path=path, **HP)
+
+
+def test_tiled_cross_blocks_and_logging():
+    x1, x2 = _data(6, 5, 8, seed=7)
+    lines = []
+    got = MG.myrtle_gram_tiled(*_t(x1, x2), block=4, log=lines.append, **HP)
+    want = to_numpy(MG.myrtle_gram(*_t(x1, x2), **HP))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    assert lines and "block 4/4" in lines[-1]
+
+
+def test_arch_dispatch(monkeypatch):
+    """Square power-of-two images from 8 x 8 to 32 x 32 go to the fused
+    Gram; other shapes and get="ntk" to the full tier."""
+    from snngp_torch.nn import arch
+    calls = []
+    real = MG.myrtle_gram
+
+    def spy(x1, x2, **kw):
+        calls.append(tuple(x1.shape[1:3]))
+        return real(x1, x2, **kw)
+
+    monkeypatch.setattr(MG, "myrtle_gram", spy)
+    kfn = arch.get_myrtle_kernel(5, 1, "relu", **HP)
+    assert arch.KERNELS["myrtle"] is arch.get_myrtle_kernel
+    x8, y8 = _data(2, 3, 8)
+    k8 = kfn(torch.as_tensor(x8))
+    assert calls == [(8, 8)] and k8.shape == (2, 2)
+    # Off the diagonal: the arccos derivative at c = 1 amplifies round-off.
+    ntk = kfn(*_t(x8, y8), get="ntk")
+    want = jax.jit(lambda a, b: jax_full(5, 1, "relu", **HP)(a, b, get="ntk"))(x8, y8)
+    np.testing.assert_allclose(to_numpy(ntk), np.asarray(want), rtol=2e-5, atol=1e-6)
+    x24 = np.random.RandomState(8).rand(1, 24, 24, 1).astype(np.float32)
+    kfn(torch.as_tensor(x24))
+    assert calls == [(8, 8)]
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x, _ = _data(2, 1, 8)
+    t = torch.as_tensor(x)
+    with pytest.raises(ValueError, match="power-of-two"):
+        MG.myrtle_gram(torch.zeros(2, 12, 12, 3))
+    with pytest.raises(NotImplementedError, match="bf16"):
+        MG.myrtle_gram(t, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Myrtle depth"):
+        MG.myrtle_gram(t, depth=6)
+    p = MG.pack_profiles(MG.myrtle_var_profiles(t, (1, 1, 1), "relu", 1.0, 0.1))
+    scales = torch.tensor([1.0, 0.01, 1.0, 1 / 3])
+    with pytest.raises(ValueError, match="CUDA"):
+        MG.myrtle_gram_cuda(t, t, p, p, scales, depth=5, act="relu")
+    assert MG.launch_warps(32, 1) == 8 and MG.launch_warps(32, 3) == 5
+    assert 4 * MG.smem_floats(32, 3, 5) <= 232_448
+
+
+def test_kernels_match_plain_on_the_card(cuda_device):
+    x1, x2 = _data(3, 5, 16, seed=11)
+    a, b = (torch.as_tensor(v, device=cuda_device) for v in (x1, x2))
+    before = dict(MG.LAUNCHES)
+    got = [MG.myrtle_gram(a, b, **HP), *MG.myrtle_gram_scale_grads(a, b, **SG)]
+    want = [MG.myrtle_gram(*_t(x1, x2), **HP), *MG.myrtle_gram_scale_grads(*_t(x1, x2), **SG)]
+    assert MG.LAUNCHES["myrtle"] == before["myrtle"] + 1
+    assert MG.LAUNCHES["myrtle_grads"] == before["myrtle_grads"] + 1
+    for g, w in zip(got, want):
+        assert ((g.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-5

@@ -171,7 +171,7 @@ def test_checkpoint_cross_loads(writer, tmp_path):
 def test_unported_fit_options_raise():
     x, y, _, _ = _data()
     model = _torch_model("gp", x, y)
-    for kw in (dict(memory_lean=True), dict(extendable=True), dict(var_floor=1e-6)):
+    for kw in (dict(memory_lean=True), dict(extendable=True)):
         with pytest.raises(NotImplementedError):
             fit_spr(model, **kw)
 

@@ -370,8 +370,8 @@ def test_classifier_fits_predicts_and_follows_the_protocol():
     assert 0.0 <= clf.score(x, y) <= 1.0
     assert clf.get_params()["device"] == "cpu"
     assert clf.set_params(epochs=2).epochs == 2
-    with pytest.raises(NotImplementedError):
-        SNNGPClassifier(network="myrtle", device="cpu").fit(x, y)
+    with pytest.raises(NotImplementedError):     # myrtle is ported; mlp is not
+        SNNGPClassifier(network="mlp", device="cpu").fit(x, y)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SNNGPClassifier(device="cuda").fit(x, y)
