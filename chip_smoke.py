@@ -79,11 +79,12 @@ script exits non-zero:
 14. the fused Myrtle Gram (K7) and its scale-tangent mode against their
    plain versions: Myrtle-5/7/10 x relu / erf at 8 x 8, 16 x 16 and 32 x 32
    (rectangular and ragged, or symmetric), the tangent modes w, b and wb
-   (wb only at 32 x 32);
+   (wb only at 32 x 32), a ragged symmetric wb case at 16 x 16;
    gate: error <= 1e-5 of max|K| (of max|dK| per tangent), two launches
-   bitwise equal; both timed (one call each) at 200 x 200 pairs of
-   32 x 32 x 3, Myrtle-5, relu, beside their plain versions and their
-   bounds;
+   bitwise equal, the tangent mode's symmetric launches bitwise symmetric
+   in K and both tangents; both timed (one call each) at 200 x 200 pairs
+   of 32 x 32 x 3, Myrtle-5, relu, beside their plain versions, their
+   bounds and the bound's share of the kernel's time;
 15. Myrtle SVSP at full width (synthetic32, 200 frozen inducing images,
    batches of 100, Myrtle-5 relu): the ELBO's gradient against float64
    through K7's plain versions at 20 inducing images and batch 10 (gate:
@@ -1627,7 +1628,7 @@ def _k7_cases():
     """(label, n1, n2, h, same, depth, act, tangents): every depth and act
     at 8 x 8, 16 x 16 and 32 x 32 (rectangular and ragged, or symmetric),
     and the tangent modes w, b, wb (at 32 x 32, wb only: the plain
-    versions take ~8 s a call there)."""
+    versions take ~8 s a call there), with a ragged symmetric wb case."""
     cases = []
     for h, (n1, n2) in ((8, (9, 13)), (16, (5, 7)), (32, (3, 5))):
         for depth in (5, 7, 10):
@@ -1639,6 +1640,7 @@ def _k7_cases():
     for label, n1, n2, h, same, depth, act, modes in (
             ("6x10 8x8x3 myrtle-10", 6, 10, 8, False, 10, "erf", ("wb", "w", "b")),
             ("5x7 16x16x3 myrtle-5", 5, 7, 16, False, 5, "relu", ("wb", "w", "b")),
+            ("7x7 16x16x3 myrtle-7 sym", 7, 7, 16, True, 7, "erf", ("wb",)),
             ("4x4 32x32x3 myrtle-5 sym", 4, 4, 32, True, 5, "relu", ("wb",)),
             ("3x5 32x32x3 myrtle-7", 3, 5, 32, False, 7, "erf", ("wb",))):
         for mode in modes:
@@ -1649,14 +1651,18 @@ def _k7_cases():
 def _k7_check(label, x1, x2, depth, act, mode, time_it=False):
     """One K7 (or tangent-mode) call against its plain version; returns the
     row. Gate: max error <= 1e-5 of max |K| (per output: of max |dK| for a
-    tangent)."""
+    tangent), two launches give the same bits, and a symmetric tangent-mode
+    launch (``same``) gives bitwise symmetric K and tangents."""
+    import functools
     import torch
     from snngp_torch.ops import myrtle_gram as MG
 
+    same = x2 is x1
     args = _myrtle_args(x1, x2, depth, act, bool(mode))
     if mode:
         kw = dict(depth=depth, act=act, tangents=mode)
-        cuda_fn, plain_fn = MG.myrtle_gram_tangents_cuda, MG.myrtle_gram_tangents_plain
+        cuda_fn = functools.partial(MG.myrtle_gram_tangents_cuda, same=same)
+        plain_fn = MG.myrtle_gram_tangents_plain
     else:
         kw = dict(depth=depth, act=act)
         cuda_fn = lambda *a, **k: (MG.myrtle_gram_cuda(*a, **k),)  # noqa: E731
@@ -1677,8 +1683,7 @@ def _k7_check(label, x1, x2, depth, act, mode, time_it=False):
     abs_err = max((g - w).abs().max().item() for g, w in zip(got, want))
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     repeat = all(torch.equal(g, a) for g, a in zip(got, again))
-    same = x2 is x1
-    sym = (got[0] - got[0].T).abs().max().item() if same else float("nan")
+    sym = max((g - g.T).abs().max().item() for g in got) if same else float("nan")
     row = dict(rel_err=max(rels), abs_err=abs_err)
     timing = ""
     if time_it:
@@ -1690,13 +1695,16 @@ def _k7_check(label, x1, x2, depth, act, mode, time_it=False):
         row["bound_ms"], row["bound_by"] = bound_ms(
             nbytes, *k7_ops(n1, n2, h, c, depth, act, same, len(mode)))
         timing = (f"  kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  bound "
-                  f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+                  f"{row['bound_ms']:.3f} ms ({row['bound_by']}, "
+                  f"{100 * row['bound_ms'] / row['ms']:.2f}% of the kernel's time)")
     print(f"[K7] {act:4s} {label:28s} {mode or 'fwd':3s} rel_err "
           + "/".join(f"{r:.2e}" for r in rels) + f" abs_err {abs_err:.3e}{timing}"
           f"  repeat {repeat}  max|K-K^T| {sym:.3e}")
-    if not finite or not max(rels) <= KERNEL_REL_TOL or not repeat:
+    symmetric = not (mode and same) or sym == 0.0
+    if not finite or not max(rels) <= KERNEL_REL_TOL or not repeat or not symmetric:
         raise AssertionError(f"K7 {act} {label} {mode or 'fwd'}: rel_err {rels} (tol "
-                             f"{KERNEL_REL_TOL}), finite={finite}, repeat={repeat}")
+                             f"{KERNEL_REL_TOL}), finite={finite}, repeat={repeat}, "
+                             f"max|K-K^T| {sym} (tangent mode: 0)")
     return row
 
 
@@ -1705,7 +1713,9 @@ def phase14_k7_vs_plain():
     act at 8 x 8, 16 x 16 and 32 x 32; the w, b and wb modes), then both
     timed at the main-path shape: 200 x 200 pairs of 32 x 32 x 3 images,
     Myrtle-5, relu (K(Z, Z) of a Myrtle SVSP step). Two launches give the
-    same bits; K(x, x) is not bitwise symmetric (reported, not gated)."""
+    same bits; the tangent mode's symmetric launches give bitwise symmetric
+    K, dK/dw and dK/db (gated); the forward's K(x, x) is not bitwise
+    symmetric (reported, not gated)."""
     import torch
 
     rng = np.random.RandomState(14)
@@ -1947,7 +1957,9 @@ def main() -> int:
                        "snngp_torch/csrc/myrtle_gram.cu",
                        "snngp/ops/pallas/myrtle_gram.py:278", myrtle["myrtle"],
                        k7_rows["fwd"], K7_HEAD, k7_abs["fwd"])
-    k7t = _kernel_entry("myrtle_grads (K7 scale-tangent mode, dK/dw and dK/db in one pass)",
+    k7t = _kernel_entry("myrtle_grads (K7 scale-tangent mode, dK/dw and dK/db in one pass; "
+                        "stage 1 streamed through registers, 16 warps, one block per pair "
+                        "of K(x, x))",
                         "snngp_torch/csrc/myrtle_gram.cu",
                         "snngp/ops/pallas/myrtle_gram.py:278", myrtle["myrtle_grads"],
                         k7_rows["tangents"], K7_HEAD, k7_abs["tangents"])

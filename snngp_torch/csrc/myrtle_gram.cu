@@ -47,14 +47,41 @@
 //   stage 3 (h/4): every slab, then the GAP, which after the last pool is
 //     the mean over stage 3's entries, accumulated in float64.
 // Each pooled entry receives its partial sums in one fixed order (rows,
-// then waves), so results repeat bitwise; K(x, x) is not bitwise symmetric
-// (pair (a, b) walks the slabs in another order than (b, a)); the port's
-// Cholesky symmetrizes. Shared memory a block at 32 x 32: 112 KB forward
-// (8 warps), 208-224 KB for three states (5 warps). The plain version
+// then waves), so results repeat bitwise; the forward's K(x, x) is not
+// bitwise symmetric (pair (a, b) walks the slabs in another order than
+// (b, a)); the port's Cholesky symmetrizes. Shared memory a forward block at
+// 32 x 32: 112 KB (8 warps, 2 blocks an SM). The plain version
 // (ops/myrtle_gram.py::_PlainRecursion) runs the same order. IEEE acosf /
-// asinf / sqrtf and divides, no fast math. Not yet used: the symmetry of
-// K(x, x), the pair-independence of the side-a moment and profile loads,
-// tensor cores.
+// asinf / sqrtf and divides, no fast math.
+//
+// The tangent mode (myrtle_gram_tangents_kernel) has a pair recursion of
+// its own, tangent_recursion; the forward keeps pair_recursion. Its stage 1
+// (94% of a pair's entries at 32 x 32, and all of the moment work) keeps no
+// slab in shared memory: a warp streams a slab's rows top to bottom through
+// registers, one slab column a lane (stream_task). Column sums come by
+// shuffles, row sums from a window of three rows a conv layer, layer l + 1
+// runs one row behind layer l, and the 2 x 2 pool adds rows held in
+// registers and columns by shuffle, then adds into the ring once. The slabs
+// Dj > 0 and Dj - h fill one warp together (h columns, the seam a slab
+// edge; both in the same wave), so a row's waves hold h/2, h/4 and h/4 warp
+// tasks; the tasks of the short waves are split into row parts (a part
+// recomputes G0 rows above its first) so that all 16 warps have work.
+// Every entry sees the forward's operations in the same order, so the plain
+// version serves both. Shared memory is the ring, stage 3 and a (h/2)^2
+// plane a warp for stages 2 and 3 (slab_convs / slab_pool, unchanged): 160
+// KB at 32 x 32 with three states, 16 warps (512 threads) an SM where the
+// shared-memory planes allowed 5. With `same` (x2 is x1) block (a, b), b <
+// a, returns at once and block (a, b), b >= a, writes (a, b) and (b, a):
+// half the pairs, and K and both tangents bitwise symmetric.
+//
+// What bounds the tangent mode: per entry and conv the IEEE divides,
+// sqrtf and acosf of the partials and the stencil's dependent adds, a chain
+// with one or two loads and shuffles in it, at 4 warps a scheduler; the
+// short waves and the halo rows of split tasks; stage 2 still runs in
+// shared memory with a barrier a wave. Not used: the forward's symmetry
+// (a later change can reuse this design), the pair-independence of the
+// side-a moment and profile loads, and tensor cores: the work is
+// transcendental and elementwise, with no matrix product to give wgmma.
 
 #include <cuda_runtime.h>
 
@@ -173,6 +200,7 @@ struct Args {
   const float* scales;  // [w^2, b^2, last^2, 1/C(, w, b)]
   float* out;           // [states, n1, n2]
   int n1, n2, h, c, g0, g1, g2, tsel, warps;
+  int same;             // tangent mode: x2 is x1, run only b >= a
 };
 
 // Per-pair pointers and scales, and the tangents carried.
@@ -456,11 +484,313 @@ __global__ void __launch_bounds__(32 * kMaxWarps) myrtle_gram_kernel(Args A) {
   pair_recursion<ACT, 0>(A, smem, red);
 }
 
-template <int ACT, int NT>
-__global__ void __launch_bounds__(32 * kMaxWarps) myrtle_gram_tangents_kernel(Args A) {
+// ---- the tangent mode: stage 1 streamed through registers ----
+
+template <int NT>
+__device__ Pair<NT> tangent_pair(const Args& A, int a, int b) {
+  const int h = A.h, r2 = h / 2, r3 = h / 4;
+  const int plen = A.g0 * h * h + A.g1 * r2 * r2 + A.g2 * r3 * r3;
+  Pair<NT> P;
+  P.v1 = A.prof1 + (size_t)a * plen;
+  P.v2 = A.prof2 + (size_t)b * plen;
+  P.w2 = A.scales[0];
+  P.b2 = A.scales[1];
+  P.two_w = 2.0f * A.scales[4];
+  P.two_b = 2.0f * A.scales[5];
+  for (int t = 0; t < NT; ++t) {
+    P.tan[t] = (NT == 2) ? t : A.tsel;
+    P.dv1[t] = A.dprof1 + ((size_t)a * 2 + P.tan[t]) * plen;
+    P.dv2[t] = A.dprof2 + ((size_t)b * 2 + P.tan[t]) * plen;
+  }
+  return P;
+}
+
+// Stage 1 of one warp task: the slab pair (di, dj) and (di, dj - h), which
+// together are h columns wide (dj = 0: the one slab (di, 0)), rows [ua, ub)
+// of their ni = h - |di| rows. Lane L owns absolute column p1_j = L of both
+// (slab dj holds lanes [0, h - dj), slab dj - h the rest; the seam acts as a
+// slab edge). The warp streams the rows top to bottom: the moment of row t
+// enters conv layer 0 at step t, and layer l emits row t - l - 1 from the
+// column sums of its input rows held in registers (cp, cc, and the new
+// row's cn), so the last of the G0 layers emits row t - G0. Each entry sees
+// pair_recursion's operations in its order: column sums (z + left) + right
+// by shuffles, row sums (zc + up) + down, / 9, the partials, and the 2 x 2
+// pool's (row parity, column parity) order, then one += into the ring. A
+// task starting below row 0 (ua > 0, a split slab) starts G0 rows early, so
+// that its window holds true rows by row ua, and pools only rows >= ua.
+template <int ACT, int NT, int G0>
+__device__ void stream_task(const Args& A, const Pair<NT>& P, const float* xa, const float* xb,
+                            const Dest& D, int di, int dj, int ua, int ub, int lane) {
+  constexpr int NS = 1 + NT;
+  const int h = A.h, c = A.c, r2 = h / 2;
+  const int ni = span(h, di), i0 = lo(di);
+  const float inv_c = A.scales[3];
+  const bool active = lane < h;
+  const int seam = h - dj;                    // first lane of slab dj - h
+  const int dl = lane < seam ? dj : dj - h;   // this lane's slab: (di, dl)
+  const bool has_left = active && lane >= 1 && lane != seam;
+  const bool has_right = lane + 1 < h && lane + 1 != seam;
+
+  // The pool's column target: dl even -> pooled slab dl / 2, the even lane
+  // adding its own entry and its right neighbour's; dl odd -> floor(dl / 2)
+  // from an even column, ceil from an odd one.
+  const bool col_pair = (dl & 1) == 0;
+  const int pj = (col_pair || (lane & 1) == 0) ? (dl >> 1) : ((dl + 1) >> 1);
+  const int qc = (lane >> 1) - lo(pj);
+  const int ncol = span(r2, pj);
+  const bool col_ok = active && abs(pj) < r2 && qc >= 0 && qc < ncol &&
+                      !(col_pair && (lane & 1));
+  const int col_cum = cum(r2, pj);
+
+  float cp[G0][NS], cc[G0][NS], acc[NS];
+#pragma unroll
+  for (int l = 0; l < G0; ++l)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) cp[l][s] = cc[l][s] = 0.0f;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) acc[s] = 0.0f;
+
+  const int t0 = ua > G0 ? ua - G0 : 0;
+  for (int t = t0; t < ub + G0; ++t) {
+    float in[NS];
+    in[0] = 0.0f;
+    if (active && t < ni) {
+      const float* pa = xa + ((size_t)(i0 + t) * h + lane) * c;
+      const float* pb = xb + ((size_t)(i0 + t + di) * h + lane + dl) * c;
+      float m = 0.0f;
+      for (int ch = 0; ch < c; ++ch) m = fmaf(__ldg(pa + ch), __ldg(pb + ch), m);
+      in[0] = m * inv_c;
+    }
+#pragma unroll
+    for (int s = 1; s < NS; ++s) in[s] = 0.0f;   // the moment has no tangent
+
+#pragma unroll
+    for (int l = 0; l < G0; ++l) {
+      const int u_in = t - l;     // the row entering layer l
+      const bool real = u_in >= 0 && u_in < ni;
+      float cn[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float z = real ? in[s] : 0.0f;
+        const float left = __shfl_up_sync(0xffffffffu, z, 1);
+        const float right = __shfl_down_sync(0xffffffffu, z, 1);
+        cn[s] = (z + (has_left ? left : 0.0f)) + (has_right ? right : 0.0f);
+      }
+      const int u = u_in - 1;     // the row layer l emits
+      if (u >= 0 && u < ni) {
+        float sk[NS];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) sk[s] = ((cc[l][s] + cp[l][s]) + cn[s]) / 9.0f;
+        float v1 = 1.0f, v2 = 1.0f, dv1[NS], dv2[NS];
+        const int q1 = l * h * h + (i0 + u) * h + lane;
+        const int q2 = q1 + di * h + dl;
+#pragma unroll
+        for (int k = 0; k < NT; ++k) dv1[k] = dv2[k] = 0.0f;
+        if (active) {
+          v1 = __ldg(P.v1 + q1);
+          v2 = __ldg(P.v2 + q2);
+#pragma unroll
+          for (int k = 0; k < NT; ++k) {
+            dv1[k] = __ldg(P.dv1[k] + q1);
+            dv2[k] = __ldg(P.dv2[k] + q2);
+          }
+        }
+        const Partials pa = dual_act_partials<ACT>(P.w2 * sk[0] + P.b2, v1, v2);
+#pragma unroll
+        for (int k = 0; k < NT; ++k) {
+          const float du = P.w2 * sk[1 + k] + (P.tan[k] == 0 ? P.two_w * sk[0] : P.two_b);
+          in[1 + k] = pa.tk * du + pa.tv1 * dv1[k] + pa.tv2 * dv2[k];
+        }
+        in[0] = pa.t;
+      }
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        cp[l][s] = cc[l][s];
+        cc[l][s] = cn[s];
+      }
+    }
+
+    // The last layer emitted row u: pool it into the ring.
+    const int u = t - G0;
+    if (u >= ua && u < ub) {
+      const int R = i0 + u;       // its absolute row p1_i
+      const bool both = (di & 1) == 0;   // di even: rows 2P and 2P + 1 feed one entry
+      const int pi = (both || (R & 1) == 0) ? (di >> 1) : ((di + 1) >> 1);
+      const int pr = (R >> 1) - lo(pi);
+      const bool row_ok = abs(pi) < r2 && pr >= 0 && pr < span(r2, pi);
+      const bool first = !both || (R & 1) == 0;
+      const bool last = !both || (R & 1) == 1;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float nb = __shfl_down_sync(0xffffffffu, in[s], 1);
+        if (first) acc[s] = 0.0f;
+        acc[s] = acc[s] + in[s];
+        if (col_pair) acc[s] = acc[s] + nb;
+      }
+      if (last && row_ok && col_ok) {
+        const int off = span(r2, pi) * col_cum + pr * ncol + qc;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) D.row(s, pi)[off] += 0.0625f * acc[s];
+      }
+    }
+  }
+}
+
+constexpr int kTangentWarps = 16;
+
+// One block per pair (a, b); with A.same, only b >= a, written to both
+// (a, b) and (b, a). Stage 1 in registers (stream_task); stages 2 and 3 and
+// the GAP as pair_recursion runs them, with one (h/2)^2 column-sum plane a
+// warp.
+template <int ACT, int NT, int G0>
+__device__ void tangent_recursion(const Args& A, float* smem, double* red) {
+  constexpr int NS = 1 + NT;
+  constexpr int W = kTangentWarps;
+  const int a = blockIdx.y, b = blockIdx.x;
+  if (A.same && b < a) return;
+  const int h = A.h, r2 = h / 2, r3 = h / 4, c = A.c;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nthreads = blockDim.x;
+
+  // Shared memory: the stage-2 ring, stage 3, the warps' column-sum planes.
+  float* ring = smem;
+  float* buf3 = ring + (size_t)2 * NS * r2 * r2 * r2;
+  float* tmp = buf3 + (size_t)NS * r3 * r3 * r3 * r3 + (size_t)warp * r2 * r2;
+  const Dest to2{ring, r2, true, NS};
+  const Dest to3{buf3, r3, false, NS};
+
+  const Pair<NT> P = tangent_pair<NT>(A, a, b);
+  const float* xa = A.x1 + (size_t)a * h * h * c;
+  const float* xb = A.x2 + (size_t)b * h * h * c;
+
+  for (int e = threadIdx.x; e < NS * r3 * r3 * r3 * r3; e += nthreads) buf3[e] = 0.0f;
+
+  // ---- stage 1 (resolution h), pooling into the ring ----
+  for (int di = -(h - 1); di < h; ++di) {
+    const int m = (di - 1) >> 1;     // for odd di: the pooled rows m, m + 1
+    if (di & 1) {
+      if (m + 1 <= r2 - 1) {           // row m + 1 first receives from di = 2m + 1
+        for (int s = 0; s < NS; ++s) {
+          float* row = to2.row(s, m + 1);
+          for (int e = threadIdx.x; e < r2 * r2 * r2; e += nthreads) row[e] = 0.0f;
+        }
+      }
+      __syncthreads();
+    }
+    const int ni = span(h, di);
+    for (int wave = 0; wave < 3; ++wave) {
+      // The wave's slab pairs dj in [0, h) (h / 2, h / 4, h / 4 of them),
+      // each split into row parts of an even length so that every warp
+      // has a task.
+      const int pairs = wave == 0 ? h / 2 : h / 4;
+      const int parts = pairs >= W ? 1 : W / pairs;
+      const int rows = ((ni + parts - 1) / parts + 1) & ~1;
+      int rank = 0;
+      for (int dj = 0; dj < h; ++dj) {
+        if (wave_of(dj) != wave) continue;
+        for (int k = 0; k < parts; ++k) {
+          if (rank++ % W != warp || k * rows >= ni) continue;
+          stream_task<ACT, NT, G0>(A, P, xa, xb, to2, di, dj, k * rows,
+                                   min(ni, (k + 1) * rows), lane);
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- stage 2 (h/2): pooled row m is complete ----
+    if ((di & 1) && m > -r2) {
+      for (int wave = 0; wave < 3; ++wave) {
+        int rank = 0;
+        for (int pj = -(r2 - 1); pj < r2; ++pj) {
+          if (wave_of(pj) != wave) continue;
+          if (rank++ % W != warp) continue;
+          float* ps[NS];
+          const int off = span(r2, m) * cum(r2, pj);
+#pragma unroll
+          for (int s = 0; s < NS; ++s) ps[s] = to2.row(s, m) + off;
+          slab_convs<ACT, NT>(A, P, ps, tmp, r2, m, pj, A.g0, A.g1, lane);
+          slab_pool<NT>(ps, r2, m, pj, to3, lane);
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  // ---- stage 3 (h/4) and the GAP, in float64 ----
+  double acc[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) acc[s] = 0.0;
+  int rank = 0;
+  for (int qi = -(r3 - 1); qi < r3; ++qi) {
+    for (int qj = -(r3 - 1); qj < r3; ++qj) {
+      if (rank++ % W != warp) continue;
+      float* ps[NS];
+      const int ni = span(r3, qi), nj = span(r3, qj);
+      const size_t off = (size_t)cum(r3, qi) * r3 * r3 + (size_t)ni * cum(r3, qj);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) ps[s] = buf3 + (size_t)s * r3 * r3 * r3 * r3 + off;
+      slab_convs<ACT, NT>(A, P, ps, tmp, r3, qi, qj, A.g0 + A.g1, A.g2, lane);
+      for (int e = lane; e < ni * nj; e += 32) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) acc[s] += (double)ps[s][e];
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    double v = acc[s];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) red[warp * kMaxStates + s] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < NS) {
+    double sum = 0.0;
+    for (int wi = 0; wi < W; ++wi) sum += red[wi * kMaxStates + threadIdx.x];
+    const double count = (double)r3 * r3 * r3 * r3;
+    const float v = (float)(sum * (double)A.scales[2] / count);
+    A.out[((size_t)threadIdx.x * A.n1 + a) * A.n2 + b] = v;
+    if (A.same) A.out[((size_t)threadIdx.x * A.n1 + b) * A.n2 + a] = v;
+  }
+}
+
+template <int ACT, int NT, int G0>
+__global__ void __launch_bounds__(32 * kTangentWarps, 1) myrtle_gram_tangents_kernel(Args A) {
   extern __shared__ float smem[];
-  __shared__ double red[kMaxWarps * kMaxStates];
-  pair_recursion<ACT, NT>(A, smem, red);
+  __shared__ double red[kTangentWarps * kMaxStates];
+  tangent_recursion<ACT, NT, G0>(A, smem, red);
+}
+
+size_t tangent_smem_bytes(int h, int ns) {
+  const size_t r2 = h / 2, r3 = h / 4;
+  return sizeof(float) * (2 * ns * r2 * r2 * r2 + ns * r3 * r3 * r3 * r3 +
+                          (size_t)kTangentWarps * r2 * r2);
+}
+
+template <typename Kernel>
+cudaError_t launch_tangents(Kernel kernel, const Args& A, int ns, cudaStream_t stream) {
+  const size_t smem = tangent_smem_bytes(A.h, ns);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(A.n2, A.n1);
+  kernel<<<grid, 32 * kTangentWarps, smem, stream>>>(A);
+  return cudaGetLastError();
+}
+
+template <int ACT, int NT>
+cudaError_t launch_tangents_g0(const Args& A, cudaStream_t stream) {
+  switch (A.g0) {
+    case 1: return launch_tangents(myrtle_gram_tangents_kernel<ACT, NT, 1>, A, 1 + NT, stream);
+    case 2: return launch_tangents(myrtle_gram_tangents_kernel<ACT, NT, 2>, A, 1 + NT, stream);
+    case 3: return launch_tangents(myrtle_gram_tangents_kernel<ACT, NT, 3>, A, 1 + NT, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool valid_tangents(const Args& A) {
+  return A.n1 >= 1 && A.n2 >= 1 && A.n1 <= 65535 && (A.h == 8 || A.h == 16 || A.h == 32) &&
+         A.c >= 1 && A.warps == kTangentWarps && A.g0 >= 1 && A.g0 <= 3 &&
+         (!A.same || A.n1 == A.n2);
 }
 
 size_t smem_bytes(int h, int ns, int warps) {
@@ -511,24 +841,29 @@ extern "C" int snngp_myrtle_gram_f32(const float* x1, const float* x2, const flo
 // As snngp_myrtle_gram_f32, plus dprof1 [n1, 2, P] and dprof2 [n2, 2, P]
 // (the profiles' tangents in w_std, b_std), scales [w^2, b^2, last^2, 1/c,
 // w, b], and mode 0 (dK/dw), 1 (dK/db) or 2 (both); out is [states, n1, n2]
-// with states = 2 or 3: K, then the tangents carried.
+// with states = 2 or 3: K, then the tangents carried. h is 8, 16 or 32,
+// g0 1 to 3, warps 16 (the kernel's own count, which the caller states);
+// same = 1 says x2 is x1 (n1 == n2): each pair b >= a runs once and is
+// written to (a, b) and (b, a).
 extern "C" int snngp_myrtle_gram_tangents_f32(const float* x1, const float* x2,
                                               const float* prof1, const float* prof2,
                                               const float* dprof1, const float* dprof2,
                                               const float* scales, float* out, int n1,
                                               int n2, int h, int c, int g0, int g1, int g2,
-                                              int act, int mode, int warps, void* stream) {
+                                              int act, int mode, int warps, int same,
+                                              void* stream) {
   const Args A{x1, x2, prof1, prof2, dprof1, dprof2, scales, out,
-               n1, n2, h, c, g0, g1, g2, mode == 1 ? 1 : 0, warps};
-  if (!valid(A) || mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+               n1, n2, h, c, g0, g1, g2, mode == 1 ? 1 : 0, warps, same ? 1 : 0};
+  if (!valid_tangents(A) || mode < 0 || mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (mode == 2) {
-    if (act == kRelu) err = launch(myrtle_gram_tangents_kernel<kRelu, 2>, A, 3, s);
-    else if (act == kErf) err = launch(myrtle_gram_tangents_kernel<kErf, 2>, A, 3, s);
+    if (act == kRelu) err = launch_tangents_g0<kRelu, 2>(A, s);
+    else if (act == kErf) err = launch_tangents_g0<kErf, 2>(A, s);
   } else {
-    if (act == kRelu) err = launch(myrtle_gram_tangents_kernel<kRelu, 1>, A, 2, s);
-    else if (act == kErf) err = launch(myrtle_gram_tangents_kernel<kErf, 1>, A, 2, s);
+    if (act == kRelu) err = launch_tangents_g0<kRelu, 1>(A, s);
+    else if (act == kErf) err = launch_tangents_g0<kErf, 1>(A, s);
   }
   return static_cast<int>(err);
 }

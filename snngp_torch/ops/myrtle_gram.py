@@ -37,8 +37,10 @@ last. See ``csrc/myrtle_gram.cu`` for the kernel's side.
   CPU tensor runs and the oracle of the kernels.
 - :func:`myrtle_gram_cuda` (K7, ``myrtle_gram_kernel``),
   :func:`myrtle_gram_tangents_cuda` (its scale-tangent mode,
-  ``myrtle_gram_tangents_kernel``): launch the kernels on a CUDA tensor, or
-  raise. ``LAUNCHES`` counts them ("myrtle", "myrtle_grads").
+  ``myrtle_gram_tangents_kernel``, whose stage 1 streams the slabs through
+  registers; ``same=True`` runs each pair of K(x, x) once): launch the
+  kernels on a CUDA tensor, or raise. ``LAUNCHES`` counts them ("myrtle",
+  "myrtle_grads").
 - :func:`myrtle_gram`: one ``torch.autograd.Function`` with the JAX
   package's ``trainable_inputs`` contract (True: backward by autograd
   through the full tier, x cotangents included; False: zero x cotangents
@@ -75,6 +77,11 @@ LAUNCHES = {"myrtle": 0, "myrtle_grads": 0}
 _TANGENT_MODES = {"w": 0, "b": 1, "wb": 2}
 _SMEM_LIMIT = 232_448 - 3 * 8 * 8   # bytes a block may use, less the reduction scratch
 _MAX_WARPS = 8
+# The tangent kernel's warps a block (csrc/myrtle_gram.cu kTangentWarps;
+# the launch refuses another count) and the largest image side it takes
+# (one slab column a lane).
+TANGENT_WARPS = 16
+_TANGENT_MAX_H = 32
 _MAX_C = 8
 # Pooled-state bytes one chunk of the plain versions may hold: the card's
 # 80 GB take larger chunks, and so fewer passes of small launches.
@@ -372,7 +379,7 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.snngp_myrtle_gram_tangents_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.snngp_myrtle_error_string.argtypes = [ctypes.c_int]
     lib.snngp_myrtle_error_string.restype = ctypes.c_char_p
@@ -380,20 +387,28 @@ def _lib() -> ctypes.CDLL:
 
 
 def smem_floats(h, ns, warps):
-    """Shared-memory floats of one block: each warp's slab planes (ns states
-    and a column-sum plane, h^2 each), two rows of pooled stage-2 slabs
-    (2 ns (h/2)^3) and the whole stage-3 state (ns (h/4)^4)."""
+    """Shared-memory floats of one forward block: each warp's slab planes (ns
+    states and a column-sum plane, h^2 each), two rows of pooled stage-2
+    slabs (2 ns (h/2)^3) and the whole stage-3 state (ns (h/4)^4)."""
     return warps * (ns + 1) * h * h + 2 * ns * (h // 2) ** 3 + ns * (h // 4) ** 4
 
 
 def launch_warps(h, ns):
-    """Warps a block (one pair) runs with: as many as fit the block's shared
-    memory, at most 8."""
+    """Warps a forward block (one pair) runs with: as many as fit the
+    block's shared memory, at most 8."""
     fixed = 2 * ns * (h // 2) ** 3 + ns * (h // 4) ** 4
     warps = min(_MAX_WARPS, (_SMEM_LIMIT // 4 - fixed) // ((ns + 1) * h * h))
     if warps < 1:
         raise ValueError(f"{h} x {h} images with {ns} states exceed a block's shared memory")
     return warps
+
+
+def tangent_smem_floats(h, ns):
+    """Shared-memory floats of one tangent-mode block (TANGENT_WARPS warps):
+    the stage-2 ring and the stage-3 state as in the forward, and one
+    (h/2)^2 column-sum plane a warp for stages 2 and 3; stage 1 streams its
+    slabs through registers."""
+    return 2 * ns * (h // 2) ** 3 + ns * (h // 4) ** 4 + TANGENT_WARPS * (h // 2) ** 2
 
 
 def _check_cuda_inputs(tensors, depth, act, p):
@@ -465,10 +480,19 @@ def myrtle_gram_cuda(x1, x2, prof1, prof2, scales, *, depth: int, act: str):
 
 
 def myrtle_gram_tangents_cuda(x1, x2, prof1, prof2, dprof1, dprof2, scales, *,
-                              depth: int, act: str, tangents: str = "wb"):
+                              depth: int, act: str, tangents: str = "wb", same: bool = False):
     """Launch K7's scale-tangent mode (``csrc/myrtle_gram.cu``) on the current
-    stream; same inputs and results as :func:`myrtle_gram_tangents_plain`."""
+    stream; same inputs and results as :func:`myrtle_gram_tangents_plain`.
+    ``same=True`` says that x2 (and its profiles) are x1's: the kernel runs
+    each pair b >= a once and mirrors it, so K and both tangents come out
+    bitwise symmetric."""
+    if same and x1.shape[0] != x2.shape[0]:
+        raise ValueError(f"same=True needs one operand twice; got n1 = {x1.shape[0]}, "
+                         f"n2 = {x2.shape[0]}")
     h = x1.shape[1] if x1.ndim == 4 else 0
+    if h > _TANGENT_MAX_H:
+        raise ValueError(f"{h} x {h} images: the tangent mode takes h <= {_TANGENT_MAX_H} "
+                         "(one slab column a lane)")
     n1, n2, h, c = _check_cuda_inputs(
         dict(x1=x1, x2=x2, prof1=prof1, prof2=prof2, dprof1=dprof1, dprof2=dprof2,
              scales=scales), depth, act, _profile_len(h, depth))
@@ -488,7 +512,7 @@ def myrtle_gram_tangents_cuda(x1, x2, prof1, prof2, dprof1, dprof2, scales, *,
         err = lib.snngp_myrtle_gram_tangents_f32(
             x1.data_ptr(), x2.data_ptr(), prof1.data_ptr(), prof2.data_ptr(),
             dprof1.data_ptr(), dprof2.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            n1, n2, h, c, g0, g1, g2, _ACTS[act], mode, launch_warps(h, ns), stream)
+            n1, n2, h, c, g0, g1, g2, _ACTS[act], mode, TANGENT_WARPS, int(same), stream)
     _raise_on(lib, err, "Myrtle Gram tangent kernel")
     LAUNCHES["myrtle_grads"] += 1
     return tuple(out.unbind())
@@ -510,12 +534,18 @@ def _scales(x1, w, b, last, tangents):
     return torch.stack([torch.as_tensor(v, **like) for v in vals])
 
 
+def _use_kernel(x, plain):
+    """The device dispatch: the kernels for a CUDA tensor, the plain
+    versions for a CPU tensor or when asked (``plain``)."""
+    return not plain and x.device.type != "cpu"
+
+
 def _forward(x1, x2, w, b, last, depth, act, same, plain=False):
     groups = MYRTLE_GROUPS[depth]
     p1 = pack_profiles(myrtle_var_profiles(x1, groups, act, w, b))
     p2 = p1 if same else pack_profiles(myrtle_var_profiles(x2, groups, act, w, b))
     args = (x1.contiguous(), x2.contiguous(), p1, p2, _scales(x1, w, b, last, False))
-    if plain or x1.device.type == "cpu":
+    if not _use_kernel(x1, plain):
         return myrtle_gram_plain(*args, depth=depth, act=act)
     return myrtle_gram_cuda(*args, depth=depth, act=act)
 
@@ -523,20 +553,22 @@ def _forward(x1, x2, w, b, last, depth, act, same, plain=False):
 def _tangents(x1, x2, w, b, last, depth, act, profiles=None, tangents="wb", plain=False):
     """(K, dK/dw, dK/db) (or one tangent) through the tangent mode, with
     the profiles and their tangents computed here unless given as
-    ``((p1, d1), (p2, d2))``."""
+    ``((p1, d1), (p2, d2))``. ``x2 is x1`` launches the kernel's symmetric
+    mode (each pair of K(x, x) once)."""
+    same = x2 is x1
     if profiles is None:
         groups = MYRTLE_GROUPS[depth]
         pr1 = _profiles_with_tangents(x1, groups, act, w, b)
-        pr2 = pr1 if x2 is x1 else _profiles_with_tangents(x2, groups, act, w, b)
+        pr2 = pr1 if same else _profiles_with_tangents(x2, groups, act, w, b)
     else:
         pr1, pr2 = profiles
     p1, d1 = pack_profiles(pr1[0]), pack_profiles(pr1[1])
-    p2, d2 = pack_profiles(pr2[0]), pack_profiles(pr2[1])
+    p2, d2 = (p1, d1) if pr2 is pr1 else (pack_profiles(pr2[0]), pack_profiles(pr2[1]))
     args = (x1.contiguous(), x2.contiguous(), p1, p2, d1, d2, _scales(x1, w, b, last, True))
     kw = dict(depth=depth, act=act, tangents=tangents)
-    if plain or x1.device.type == "cpu":
+    if not _use_kernel(x1, plain):
         return myrtle_gram_tangents_plain(*args, **kw)
-    return myrtle_gram_tangents_cuda(*args, **kw)
+    return myrtle_gram_tangents_cuda(*args, **kw, same=same)
 
 
 def _reference(x1, x2, depth, act, w, b, last):

@@ -249,8 +249,78 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     scales = torch.tensor([1.0, 0.01, 1.0, 1 / 3])
     with pytest.raises(ValueError, match="CUDA"):
         MG.myrtle_gram_cuda(t, t, p, p, scales, depth=5, act="relu")
-    assert MG.launch_warps(32, 1) == 8 and MG.launch_warps(32, 3) == 5
-    assert 4 * MG.smem_floats(32, 3, 5) <= 232_448
+    # The forward's accounting (its tangent mode has its own, below).
+    assert MG.launch_warps(32, 1) == 8
+    assert 4 * MG.smem_floats(32, 1, 8) <= 232_448
+    d = MG.pack_profiles(MG.myrtle_profile_tangents(t, depth=5)[1])
+    scales6 = torch.tensor([1.0, 0.01, 1.0, 1 / 3, 1.0, 0.1])
+    with pytest.raises(ValueError, match="same=True"):
+        MG.myrtle_gram_tangents_cuda(t, t[:1], p, p[:1], d, d[:1], scales6, depth=5,
+                                     act="relu", same=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        MG.myrtle_gram_tangents_cuda(t, t, p, p, d, d, scales6, depth=5, act="relu",
+                                     same=True)
+    x64 = torch.zeros(1, 64, 64, 3)
+    with pytest.raises(ValueError, match="h <= 32"):
+        MG.myrtle_gram_tangents_cuda(x64, x64, p, p, d, d, scales6, depth=5, act="relu")
+
+
+@pytest.mark.parametrize("h", [8, 16, 32])
+@pytest.mark.parametrize("ns", [2, 3])
+def test_tangent_block_fits_shared_memory(h, ns):
+    """The tangent kernel runs TANGENT_WARPS (16) warps a block at every
+    image size it takes: the ring, the stage-3 state, a column-sum plane a
+    warp and the float64 reduction scratch fit a block's 232,448 bytes,
+    with stage 1 in registers (no per-warp slab planes)."""
+    assert MG.TANGENT_WARPS == 16
+    floats = MG.tangent_smem_floats(h, ns)
+    assert floats == 2 * ns * (h // 2) ** 3 + ns * (h // 4) ** 4 + 16 * (h // 2) ** 2
+    assert 4 * floats + 8 * 3 * MG.TANGENT_WARPS <= 232_448
+
+
+def test_tangent_mode_asks_for_same_exactly_for_one_operand(monkeypatch):
+    """_tangents, myrtle_gram_scale_grads, _MyrtleGram.backward and the
+    kernel_fn of nn.arch ask the tangent kernel for its symmetric launch
+    exactly when both operands are one tensor. The device dispatch is
+    patched to take the kernels' path, whose wrappers run the plain
+    versions here."""
+    from snngp_torch.nn import arch
+    seen = []
+
+    def tangents_spy(*args, same=False, **kw):
+        seen.append(same)
+        return MG.myrtle_gram_tangents_plain(*args, **kw)
+
+    monkeypatch.setattr(MG, "_use_kernel", lambda x, plain: not plain)
+    monkeypatch.setattr(MG, "myrtle_gram_tangents_cuda", tangents_spy)
+    monkeypatch.setattr(MG, "myrtle_gram_cuda", MG.myrtle_gram_plain)
+    x1, x2 = _t(*_data(3, 3, 8, seed=12))
+    w, b, last = (torch.tensor(v) for v in (1.2, 0.25, 0.9))
+    MG._tangents(x1, x1, w, b, last, 5, "relu")
+    MG._tangents(x1, x2, w, b, last, 5, "relu")
+    assert seen == [True, False]
+    seen.clear()
+    MG.myrtle_gram_scale_grads(x1, **SG)
+    MG.myrtle_gram_scale_grads(x1, x1, **SG)
+    MG.myrtle_gram_scale_grads(x1, x1.clone(), **SG)
+    MG.myrtle_gram_scale_grads(x1, x2, **SG)
+    assert seen == [True, True, False, False]
+    for x, y, want in ((x1, None, True), (x1, x1, True), (x1, x2, False)):
+        seen.clear()
+        ws = torch.tensor(1.2, requires_grad=True)
+        k = MG.myrtle_gram(x, y, depth=5, act="relu", w_std=ws, trainable_inputs=False)
+        k.sum().backward()
+        assert seen == [want] and ws.grad is not None
+        seen.clear()
+        ws = torch.tensor(1.2, requires_grad=True)
+        kfn = arch.get_myrtle_kernel(5, 1, "relu", w_std=ws, trainable_inputs=False)
+        (kfn(x) if y is None else kfn(x, y)).sum().backward()
+        assert seen == [want]
+    # The symmetric launch does not change the values the plain path gives.
+    sym = MG.myrtle_gram_scale_grads(x1, **SG)
+    monkeypatch.setattr(MG, "_use_kernel", lambda x, plain: False)
+    for g, r in zip(sym, MG.myrtle_gram_scale_grads(x1, **SG)):
+        np.testing.assert_array_equal(to_numpy(g), to_numpy(r))
 
 
 def test_kernels_match_plain_on_the_card(cuda_device):
@@ -262,4 +332,12 @@ def test_kernels_match_plain_on_the_card(cuda_device):
     assert MG.LAUNCHES["myrtle"] == before["myrtle"] + 1
     assert MG.LAUNCHES["myrtle_grads"] == before["myrtle_grads"] + 1
     for g, w in zip(got, want):
+        assert ((g.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-5
+    # The symmetric wb launch on a ragged pair count: bitwise symmetric.
+    x7, _ = _data(7, 1, 16, seed=12)
+    got = MG.myrtle_gram_scale_grads(torch.as_tensor(x7, device=cuda_device), **SG)
+    want = MG.myrtle_gram_scale_grads(torch.as_tensor(x7), **SG)
+    assert MG.LAUNCHES["myrtle_grads"] == before["myrtle_grads"] + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, g.T)
         assert ((g.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-5
