@@ -386,20 +386,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def smem_floats(h, ns, warps):
-    """Shared-memory floats of one forward block: each warp's slab planes (ns
-    states and a column-sum plane, h^2 each), two rows of pooled stage-2
-    slabs (2 ns (h/2)^3) and the whole stage-3 state (ns (h/4)^4)."""
-    return warps * (ns + 1) * h * h + 2 * ns * (h // 2) ** 3 + ns * (h // 4) ** 4
+def smem_floats(h, warps):
+    """Shared-memory floats of one forward block (one state): each warp's
+    slab plane and column-sum plane (h^2 each), two rows of pooled stage-2
+    slabs (2 (h/2)^3) and the whole stage-3 state ((h/4)^4)."""
+    return warps * 2 * h * h + 2 * (h // 2) ** 3 + (h // 4) ** 4
 
 
-def launch_warps(h, ns):
+def launch_warps(h):
     """Warps a forward block (one pair) runs with: as many as fit the
     block's shared memory, at most 8."""
-    fixed = 2 * ns * (h // 2) ** 3 + ns * (h // 4) ** 4
-    warps = min(_MAX_WARPS, (_SMEM_LIMIT // 4 - fixed) // ((ns + 1) * h * h))
+    warps = min(_MAX_WARPS, (_SMEM_LIMIT // 4 - smem_floats(h, 0)) // (2 * h * h))
     if warps < 1:
-        raise ValueError(f"{h} x {h} images with {ns} states exceed a block's shared memory")
+        raise ValueError(f"{h} x {h} images exceed a block's shared memory")
     return warps
 
 
@@ -473,7 +472,7 @@ def myrtle_gram_cuda(x1, x2, prof1, prof2, scales, *, depth: int, act: str):
         err = lib.snngp_myrtle_gram_f32(
             x1.data_ptr(), x2.data_ptr(), prof1.data_ptr(), prof2.data_ptr(),
             scales.data_ptr(), out.data_ptr(), n1, n2, h, c, g0, g1, g2, _ACTS[act],
-            launch_warps(h, 1), stream)
+            launch_warps(h), stream)
     _raise_on(lib, err, "Myrtle Gram kernel")
     LAUNCHES["myrtle"] += 1
     return out
@@ -489,6 +488,9 @@ def myrtle_gram_tangents_cuda(x1, x2, prof1, prof2, dprof1, dprof2, scales, *,
     if same and x1.shape[0] != x2.shape[0]:
         raise ValueError(f"same=True needs one operand twice; got n1 = {x1.shape[0]}, "
                          f"n2 = {x2.shape[0]}")
+    for name, a, b in (("x", x1, x2), ("prof", prof1, prof2), ("dprof", dprof1, dprof2)):
+        if same and (a.data_ptr(), a.shape, a.stride()) != (b.data_ptr(), b.shape, b.stride()):
+            raise ValueError(f"same=True needs one operand twice; {name}2 is not {name}1")
     h = x1.shape[1] if x1.ndim == 4 else 0
     if h > _TANGENT_MAX_H:
         raise ValueError(f"{h} x {h} images: the tangent mode takes h <= {_TANGENT_MAX_H} "
@@ -554,7 +556,7 @@ def _tangents(x1, x2, w, b, last, depth, act, profiles=None, tangents="wb", plai
     """(K, dK/dw, dK/db) (or one tangent) through the tangent mode, with
     the profiles and their tangents computed here unless given as
     ``((p1, d1), (p2, d2))``. ``x2 is x1`` launches the kernel's symmetric
-    mode (each pair of K(x, x) once)."""
+    mode (each pair of K(x, x) once), with x1's profiles on both sides."""
     same = x2 is x1
     if profiles is None:
         groups = MYRTLE_GROUPS[depth]
@@ -563,8 +565,11 @@ def _tangents(x1, x2, w, b, last, depth, act, profiles=None, tangents="wb", plai
     else:
         pr1, pr2 = profiles
     p1, d1 = pack_profiles(pr1[0]), pack_profiles(pr1[1])
-    p2, d2 = (p1, d1) if pr2 is pr1 else (pack_profiles(pr2[0]), pack_profiles(pr2[1]))
-    args = (x1.contiguous(), x2.contiguous(), p1, p2, d1, d2, _scales(x1, w, b, last, True))
+    p2, d2 = (p1, d1) if same or pr2 is pr1 else (pack_profiles(pr2[0]),
+                                                  pack_profiles(pr2[1]))
+    xc1 = x1.contiguous()
+    xc2 = xc1 if same else x2.contiguous()
+    args = (xc1, xc2, p1, p2, d1, d2, _scales(x1, w, b, last, True))
     kw = dict(depth=depth, act=act, tangents=tangents)
     if not _use_kernel(x1, plain):
         return myrtle_gram_tangents_plain(*args, **kw)

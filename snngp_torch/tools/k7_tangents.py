@@ -2,44 +2,29 @@
 """Build and check K7's scale-tangent mode (``csrc/myrtle_gram.cu``,
 ``myrtle_gram_tangents_kernel``) alone, in about a minute on one card.
 
-    python3 snngp_torch/tools/k7_tangents.py [--step] [--repo DIR]
+    python3 snngp_torch/tools/k7_tangents.py [--step]
 
 Prints the card's name and power limit, the ptxas report of every
 instantiation of the tangent kernel (registers, spills), then runs
 ``chip_smoke.py``'s phase-14 tangent cases at 8 x 8 and 16 x 16 and its
-symmetric ones against the plain version with the smoke's gates (1e-5,
-bitwise repeat, bitwise symmetric K and tangents for a symmetric launch),
-and times the head shape (200 x 200 pairs of 32 x 32 x 3, Myrtle-5, relu,
-wb, symmetric) with the kernel alone: one warm-up call, then one timed
-call, beside its bound. It also reports (no gate) how far the kernel and
-the plain version in fp32 each lie from the plain version in float64 on
-the ragged symmetric case with relu, whose same-image pairs meet c = 1.
+symmetric ones against the plain version with the smoke's gates (1e-5, or
+for the relu symmetric case at 16 x 16 within 2x the plain fp32 version's
+error against float64; bitwise repeat; bitwise symmetric K and tangents
+for a symmetric launch), and times the head shape (200 x 200 pairs of
+32 x 32 x 3, Myrtle-5, relu, wb, symmetric) with the kernel alone: one
+warm-up call, then one timed call, beside its bound.
 
 ``--step`` also times one Myrtle-5 SVSP svgp step at the smoke's shape
-(after one untimed step), split by phase. ``--repo DIR`` runs only that
-step, on the ``snngp_torch`` package and ``chip_smoke.py`` of another
-checkout (an unpacked parent commit), so that two trees compare in one
-call. ``--variants`` also builds three edited copies of the source into
-``build/k7_variants/`` (stage 2 skipped, so stages 1 and 3 alone, with
-wrong results; no row split of the short waves; the row loop unrolled by
-2), prints their ptxas spills, and times each beside the source as built
-at the head shape, two rounds in alternating order. Needs nvcc and one
-CUDA card.
+(after one untimed step), split by phase. Needs nvcc and one CUDA card.
 """
 
 import argparse
-import ctypes
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-# The lines of csrc/myrtle_gram.cu that --variants edits.
-_LOOP = "  for (int t = t0; t < ub + G0; ++t) {"
-_STAGE2 = "    if ((di & 1) && m > -r2) {"     # the forward's, then the tangent kernel's
-_PARTS = "      const int parts = pairs >= W ? 1 : W / pairs;"
 
 
 def _card():
@@ -59,67 +44,6 @@ def _ptxas(_build):
                           f"{follow.split(':', 1)[-1].strip()}")
 
 
-def _variant_sources(src):
-    if src.count(_LOOP) != 1 or src.count(_STAGE2) != 2 or src.count(_PARTS) != 1:
-        raise RuntimeError("csrc/myrtle_gram.cu changed; update the lines --variants edits")
-    i = src.rindex(_STAGE2)
-    return {"as built": src,
-            "stages 1 and 3 only": src[:i] + "    if (false) {" + src[i + len(_STAGE2):],
-            "no row split": src.replace(_PARTS, "      const int parts = 1;"),
-            "row loop unrolled by 2": src.replace(_LOOP, "#pragma unroll 2\n" + _LOOP)}
-
-
-def _build_variant(item, out_dir, _build):
-    name, src = item
-    cu = out_dir / f"myrtle_gram_{name.replace(' ', '_')}.cu"
-    cu.write_text(src)
-    so = cu.with_suffix(".so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(proc.stderr)
-    lines = (proc.stdout + proc.stderr).splitlines()
-    spills = sorted({ln.split(":")[-1].strip() for ln in lines
-                     if "spill stores" in ln and " 0 bytes spill stores" not in ln})
-    print(f"[k7] variant {name}: ptxas spills in the tangent kernel: {spills or 'none'}")
-    lib = ctypes.CDLL(str(so))
-    fn = lib.snngp_myrtle_gram_tangents_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.snngp_myrtle_error_string.argtypes = [ctypes.c_int]
-    lib.snngp_myrtle_error_string.restype = ctypes.c_char_p
-    return name, lib
-
-
-def _variants(MG, _build, margs, kw):
-    import torch
-
-    out_dir = REPO / "build" / "k7_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    srcs = _variant_sources((REPO / "snngp_torch" / "csrc" / "myrtle_gram.cu").read_text())
-    with ThreadPoolExecutor(len(srcs)) as pool:
-        libs = dict(pool.map(lambda item: _build_variant(item, out_dir, _build), srcs.items()))
-    real = MG._lib
-    times, outs = {name: [] for name in libs}, {}
-    try:
-        for order in (list(libs), list(libs)[::-1]):
-            for name in order:
-                MG._lib = lambda lib=libs[name]: lib  # noqa: E731
-                outs[name] = MG.myrtle_gram_tangents_cuda(*margs, **kw)
-                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                MG.myrtle_gram_tangents_cuda(*margs, **kw)
-                stop.record()
-                stop.synchronize()
-                times[name].append(start.elapsed_time(stop))
-    finally:
-        MG._lib = real
-    for name, ts in times.items():
-        same = all(torch.equal(a, b) for a, b in zip(outs[name], outs["as built"]))
-        print(f"[k7] variant {name}: head wb " + " ".join(f"{t:.3f}" for t in ts)
-              + f" ms; bitwise equal to the source as built: {same}")
-
-
 def _step(cs):
     x, y, z, num_class = cs._svsp_data()
     cs._svsp_steps("myrtle svgp", "svgp", x, y, z, num_class,
@@ -127,34 +51,11 @@ def _step(cs):
                    network="myrtle", steps=1)
 
 
-def _precision(cs, MG, rng):
-    """The kernel (symmetric launch) and the fp32 plain version against the
-    float64 plain version, on 7 x 7 pairs of 16 x 16 x 3 images, Myrtle-7,
-    relu, wb: max error over all pairs and over the same-image pairs, each
-    relative to max |output|."""
-    x, _ = cs._conv_inputs(rng, 7, 7, 16, 16, 3, True)
-    args = cs._myrtle_args(x, x, 7, "relu", True)
-    kw = dict(depth=7, act="relu", tangents="wb")
-    got = {"kernel": MG.myrtle_gram_tangents_cuda(*args, **kw, same=True),
-           "plain fp32": MG.myrtle_gram_tangents_plain(*args, **kw)}
-    ref = MG.myrtle_gram_tangents_plain(*(a.double() for a in args), **kw)
-    for name, outs in got.items():
-        errs = [(o.double() - r).abs() / r.abs().max() for o, r in zip(outs, ref)]
-        print(f"[k7] relu 7x7 16x16x3 myrtle-7 sym wb, {name} vs float64 (K/dw/db): all "
-              + "/".join(f"{e.max().item():.2e}" for e in errs) + ", same-image pairs "
-              + "/".join(f"{e.diagonal().max().item():.2e}" for e in errs))
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--step", action="store_true", help="also time one Myrtle-5 SVSP step")
-    ap.add_argument("--repo", type=Path, default=None,
-                    help="time only the SVSP step, on this checkout's package")
-    ap.add_argument("--variants", action="store_true",
-                    help="also time edited copies of the source at the head shape")
     args = ap.parse_args(argv)
-    root = (args.repo or REPO).resolve()
-    sys.path.insert(0, str(root))
+    sys.path.insert(0, str(REPO))
 
     import numpy as np
     import torch
@@ -167,11 +68,6 @@ def main(argv=None):
     from snngp_torch.ops import myrtle_gram as MG
 
     _card()
-    if args.repo is not None:
-        print(f"[k7] SVSP step on {root}")
-        _build.load("myrtle_gram")
-        _step(cs)
-        return 0
     t0 = time.perf_counter()
     _build.load("myrtle_gram")
     print(f"[k7] myrtle_gram.cu built in {time.perf_counter() - t0:.1f} s")
@@ -181,16 +77,15 @@ def main(argv=None):
     t0 = time.perf_counter()
     failed = []
     with torch.inference_mode():
-        for label, n1, n2, h, same, depth, act, mode in cs._k7_cases():
+        for label, n1, n2, h, same, depth, act, mode, vs_fp64 in cs._k7_cases():
             if mode and (h <= 16 or same):
                 x1, x2 = cs._conv_inputs(rng, n1, n2, h, h, 3, same)
                 try:
-                    cs._k7_check(label, x1, x2, depth, act, mode)
+                    cs._k7_check(label, x1, x2, depth, act, mode, vs_fp64=vs_fp64)
                 except AssertionError as err:
                     print(f"[k7] FAILED: {err}")
                     failed.append(label)
         print(f"[k7] cases checked in {time.perf_counter() - t0:.1f} s")
-        _precision(cs, MG, rng)
         x = torch.as_tensor(rng.randn(cs.SVSP_NI, 32, 32, 3).astype(np.float32),
                             device="cuda")
         margs = cs._myrtle_args(x, x, 5, "relu", True)
@@ -214,8 +109,6 @@ def main(argv=None):
         if not (repeat and sym == 0.0 and finite):
             raise AssertionError("the head shape's tangent launch is not repeatable, "
                                  "symmetric and finite")
-        if args.variants:
-            _variants(MG, _build, margs, kw)
     if args.step:
         _step(cs)
     if failed:

@@ -250,8 +250,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         MG.myrtle_gram_cuda(t, t, p, p, scales, depth=5, act="relu")
     # The forward's accounting (its tangent mode has its own, below).
-    assert MG.launch_warps(32, 1) == 8
-    assert 4 * MG.smem_floats(32, 1, 8) <= 232_448
+    assert MG.launch_warps(32) == 8
+    assert 4 * MG.smem_floats(32, 8) <= 232_448
     d = MG.pack_profiles(MG.myrtle_profile_tangents(t, depth=5)[1])
     scales6 = torch.tensor([1.0, 0.01, 1.0, 1 / 3, 1.0, 0.1])
     with pytest.raises(ValueError, match="same=True"):
@@ -263,6 +263,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     x64 = torch.zeros(1, 64, 64, 3)
     with pytest.raises(ValueError, match="h <= 32"):
         MG.myrtle_gram_tangents_cuda(x64, x64, p, p, d, d, scales6, depth=5, act="relu")
+
+
+@pytest.mark.parametrize("other", ["x", "prof", "dprof"])
+def test_tangent_wrapper_refuses_same_for_two_operands(other):
+    """same=True mirrors the upper triangle, so the wrapper takes it only
+    when x2, prof2 and dprof2 are x1's, prof1's and dprof1's."""
+    t = torch.as_tensor(_data(2, 1, 8)[0])
+    p = MG.pack_profiles(MG.myrtle_var_profiles(t, (1, 1, 1), "relu", 1.0, 0.1))
+    d = MG.pack_profiles(MG.myrtle_profile_tangents(t, depth=5)[1])
+    args = dict(x=t, prof=p, dprof=d)
+    twice = {k: (v, v.clone() if k == other else v) for k, v in args.items()}
+    scales6 = torch.tensor([1.0, 0.01, 1.0, 1 / 3, 1.0, 0.1])
+    with pytest.raises(ValueError, match=f"same=True.*{other}2 is not {other}1"):
+        MG.myrtle_gram_tangents_cuda(*twice["x"], *twice["prof"], *twice["dprof"], scales6,
+                                     depth=5, act="relu", same=True)
 
 
 @pytest.mark.parametrize("h", [8, 16, 32])
@@ -334,10 +349,24 @@ def test_kernels_match_plain_on_the_card(cuda_device):
     for g, w in zip(got, want):
         assert ((g.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-5
     # The symmetric wb launch on a ragged pair count: bitwise symmetric.
-    x7, _ = _data(7, 1, 16, seed=12)
-    got = MG.myrtle_gram_scale_grads(torch.as_tensor(x7, device=cuda_device), **SG)
-    want = MG.myrtle_gram_scale_grads(torch.as_tensor(x7), **SG)
-    assert MG.LAUNCHES["myrtle_grads"] == before["myrtle_grads"] + 2
-    for g, w in zip(got, want):
-        assert torch.equal(g, g.T)
-        assert ((g.cpu() - w).abs().max() / w.abs().max()).item() <= 1e-5
+    # erf: within 1e-5 of the plain version. relu: its same-image pairs meet
+    # c = 1, where sqrt(1 - c^2) amplifies fp32 round-off, so the kernel is
+    # held against float64: within 2x the plain fp32 version's error (floor
+    # 1e-6), the bar of chip_smoke.py's gradient checks.
+    def rel(a, b):
+        a, b = a.cpu().double(), b.double()
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    x7 = torch.as_tensor(_data(7, 1, 16, seed=12)[0])
+    for act in ("erf", "relu"):
+        kw = dict(SG, act=act)
+        got = MG.myrtle_gram_scale_grads(x7.to(cuda_device), **kw)
+        plain = MG.myrtle_gram_scale_grads(x7, **kw)
+        ref = MG.myrtle_gram_scale_grads(x7.double(), **kw)
+        for g, p, r in zip(got, plain, ref):
+            assert torch.equal(g, g.T)
+            if act == "erf":
+                assert rel(g, p) <= 1e-5
+            else:
+                assert rel(g, r) <= 2.0 * max(rel(p, r), 1e-6)
+    assert MG.LAUNCHES["myrtle_grads"] == before["myrtle_grads"] + 3
