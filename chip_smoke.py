@@ -83,10 +83,10 @@ script exits non-zero:
    in relu; gate: error <= 1e-5 of max|K| (of max|dK| per tangent; the
    relu symmetric case at 16 x 16, whose same-image pairs meet c = 1: its
    error against float64 within 2x the plain fp32 version's), two launches
-   bitwise equal, the tangent mode's symmetric launches bitwise symmetric
-   in K and both tangents; both timed (one call each) at 200 x 200 pairs
-   of 32 x 32 x 3, Myrtle-5, relu, beside their plain versions, their
-   bounds and the bound's share of the kernel's time;
+   bitwise equal, every symmetric launch (``same``, both modes) bitwise
+   symmetric in K and its tangents; both timed (one call each) at 200 x
+   200 pairs of 32 x 32 x 3, Myrtle-5, relu, beside their plain versions,
+   their bounds and the bound's share of the kernel's time;
 15. Myrtle SVSP at full width (synthetic32, 200 frozen inducing images,
    batches of 100, Myrtle-5 relu): the ELBO's gradient against float64
    through K7's plain versions at 20 inducing images and batch 10 (gate:
@@ -331,7 +331,7 @@ def _dual_act_ops(act, partials):
 
 def _pairs(n1, n2, same):
     """Pairs of images the function needs: n (n + 1) / 2 for K(x, x), whose
-    lower triangle mirrors its upper one (no kernel uses that yet), else
+    lower triangle mirrors its upper one (K7 runs only those), else
     n1 n2."""
     return n1 * (n1 + 1) // 2 if same else n1 * n2
 
@@ -1659,12 +1659,13 @@ def _k7_cases():
 def _k7_check(label, x1, x2, depth, act, mode, time_it=False, vs_fp64=False):
     """One K7 (or tangent-mode) call against its plain version; returns the
     row. Gate: max error <= 1e-5 of max |K| (per output: of max |dK| for a
-    tangent), two launches give the same bits, and a symmetric tangent-mode
-    launch (``same``) gives bitwise symmetric K and tangents. ``vs_fp64``
-    (relu on same-image pairs, which meet c = 1, where sqrt(1 - c^2)
-    amplifies fp32 round-off) replaces the 1e-5 gate: per output, the
-    kernel's error against the plain version in float64 within 2x the
-    plain fp32 version's (floor 1e-6), the bar of the gradient checks."""
+    tangent), two launches give the same bits, and a symmetric launch of
+    either mode (``same``: x2 is x1) gives bitwise symmetric K and
+    tangents. ``vs_fp64`` (relu tangents on same-image pairs, which meet c
+    = 1, where sqrt(1 - c^2) amplifies fp32 round-off) replaces the 1e-5
+    gate: per output, the kernel's error against the plain version in
+    float64 within 2x the plain fp32 version's (floor 1e-6), the bar of the
+    gradient checks."""
     import functools
     import torch
     from snngp_torch.ops import myrtle_gram as MG
@@ -1677,7 +1678,7 @@ def _k7_check(label, x1, x2, depth, act, mode, time_it=False, vs_fp64=False):
         plain_fn = MG.myrtle_gram_tangents_plain
     else:
         kw = dict(depth=depth, act=act)
-        cuda_fn = lambda *a, **k: (MG.myrtle_gram_cuda(*a, **k),)  # noqa: E731
+        cuda_fn = lambda *a, **k: (MG.myrtle_gram_cuda(*a, **k, same=same),)  # noqa: E731
         plain_fn = lambda *a, **k: (MG.myrtle_gram_plain(*a, **k),)  # noqa: E731
     # One call each is timed (each takes ~1-30 s at the head shape): the
     # kernel's second call, after the first as its warm-up, and the plain
@@ -1726,12 +1727,12 @@ def _k7_check(label, x1, x2, depth, act, mode, time_it=False, vs_fp64=False):
     print(f"[K7] {act:4s} {label:28s} {mode or 'fwd':3s} rel_err "
           + "/".join(f"{r:.2e}" for r in rels) + f" abs_err {abs_err:.3e}{timing}{fp64}"
           f"  repeat {repeat}  max|K-K^T| {sym:.3e}")
-    symmetric = not (mode and same) or sym == 0.0
+    symmetric = not same or sym == 0.0
     if not finite or not accurate or not repeat or not symmetric:
         bar = "2x the plain fp32 error vs float64" if vs_fp64 else KERNEL_REL_TOL
         raise AssertionError(f"K7 {act} {label} {mode or 'fwd'}: rel_err {rels}{fp64} (tol "
                              f"{bar}), finite={finite}, repeat={repeat}, "
-                             f"max|K-K^T| {sym} (tangent mode: 0)")
+                             f"max|K-K^T| {sym} (symmetric launch: 0)")
     return row
 
 
@@ -1740,9 +1741,8 @@ def phase14_k7_vs_plain():
     act at 8 x 8, 16 x 16 and 32 x 32; the w, b and wb modes), then both
     timed at the main-path shape: 200 x 200 pairs of 32 x 32 x 3 images,
     Myrtle-5, relu (K(Z, Z) of a Myrtle SVSP step). Two launches give the
-    same bits; the tangent mode's symmetric launches give bitwise symmetric
-    K, dK/dw and dK/db (gated); the forward's K(x, x) is not bitwise
-    symmetric (reported, not gated)."""
+    same bits; every symmetric launch of either mode gives bitwise
+    symmetric K (and dK/dw, dK/db), gated."""
     import torch
 
     rng = np.random.RandomState(14)

@@ -4,7 +4,7 @@
 //
 // Replaces snngp/ops/pallas/myrtle_gram.py::_myrtle_kernel (launched by
 // _myrtle_call), both its forward and its `tangents` mode. Per pair (a, b)
-// of [h, h, C] images (h a power of two, >= 8) it runs the Myrtle-5/7/10
+// of [h, h, C] images (h = 8, 16 or 32) it runs the Myrtle-5/7/10
 // recursion on the [h^2, h^2] pixel-pair covariance K[p1, p2]:
 //   K = sum_c x1[a, p1, c] x2[b, p2, c] / C
 //   three groups of g0 / g1 / g2 x [K = T(w2 S(K) + b2; v1[p1], v2[p2])],
@@ -14,10 +14,6 @@
 // K[p1 + d, p2 + d] (zero off the image), T the arccos (ReLU) or arcsin
 // (Erf) dual activation, and the per-sample variance profiles v1, v2 of
 // every conv layer computed outside (O(N h^4) per sample, not per pair).
-// The tangent mode also carries dK/dw_std and/or dK/db_std: the conv adds
-// 2 w S(K) and 2 b, the activation's partials serve every tangent, and the
-// pools and the GAP apply to each state; it writes the tangent Grams
-// themselves (dK/dlast = (2 / last) K needs no kernel).
 //
 // What bounds it on an H100: at 32 x 32 one pair's stage 1 alone is 1M
 // pixel pairs x (the moment's C FMAs, a 9-point stencil, a dual activation
@@ -31,12 +27,11 @@
 // carries over, since a block has 227 KB. Instead the state is cut into
 // Delta-slabs: S keeps the offset Delta = p2 - p1 and the moment and T are
 // pointwise, so inside a conv group slab Delta (an (r - |Di|) x (r - |Dj|)
-// image, at most 4 KB) evolves alone, with its own zero boundary and the
-// profiles of p1 on side a and of p1 + Delta on side b. A 2 x 2 pool sends
-// each entry of slab Delta to exactly one entry of pooled slab floor(D/2)
-// or ceil(D/2) per axis (an entry with even p1 to floor, odd to ceil, for
-// odd D). One block runs one pair; each warp runs whole slabs in its own
-// shared-memory planes (the states and a column-sum plane):
+// image) evolves alone, with its own zero boundary and the profiles of p1
+// on side a and of p1 + Delta on side b. A 2 x 2 pool sends each entry of
+// slab Delta to exactly one entry of pooled slab floor(D/2) or ceil(D/2)
+// per axis (an entry with even p1 to floor, odd to ceil, for odd D). One
+// block of 16 warps runs one pair (tangent_recursion, both modes):
 //   stage 1 (h): slab rows Di ascending; in a row three waves (Dj even,
 //     Dj = 1 mod 4, Dj = 3 mod 4) whose slabs pool into disjoint targets,
 //     so warps add into the pooled slabs without atomics, one barrier a
@@ -46,49 +41,62 @@
 //     place in the ring, pooling into the whole stage-3 (h/4) state;
 //   stage 3 (h/4): every slab, then the GAP, which after the last pool is
 //     the mean over stage 3's entries, accumulated in float64.
-// Each pooled entry receives its partial sums in one fixed order (rows,
-// then waves), so results repeat bitwise; the forward's K(x, x) is not
-// bitwise symmetric (pair (a, b) walks the slabs in another order than
-// (b, a)); the port's Cholesky symmetrizes. Shared memory a forward block at
-// 32 x 32: 112 KB (8 warps, 2 blocks an SM). The plain version
-// (ops/myrtle_gram.py::_PlainRecursion) runs the same order. IEEE acosf /
-// asinf / sqrtf and divides, no fast math.
-//
-// The tangent mode (myrtle_gram_tangents_kernel) has a pair recursion of
-// its own, tangent_recursion; the forward keeps pair_recursion. Its stage 1
-// (94% of a pair's entries at 32 x 32, and all of the moment work) keeps no
-// slab in shared memory: a warp streams a slab's rows top to bottom through
-// registers, one slab column a lane (stream_task). Column sums come by
-// shuffles, row sums from a window of three rows a conv layer, layer l + 1
-// runs one row behind layer l, and the 2 x 2 pool adds rows held in
-// registers and columns by shuffle, then adds into the ring once. The slabs
-// Dj > 0 and Dj - h fill one warp together (h columns, the seam a slab
+// Stage 1 (94% of a pair's entries at 32 x 32, and all of the moment work)
+// keeps no slab in shared memory: a warp streams a slab's rows top to
+// bottom through registers, one slab column a lane (stream_task). Column
+// sums come by shuffles, row sums from a window of three rows a conv layer,
+// layer l + 1 runs one row behind layer l, and the 2 x 2 pool adds rows held
+// in registers and columns by shuffle, then adds into the ring once. The
+// slabs Dj > 0 and Dj - h fill one warp together (h columns, the seam a slab
 // edge; both in the same wave), so a row's waves hold h/2, h/4 and h/4 warp
 // tasks; the tasks of the short waves are split into row parts (a part
 // recomputes G0 rows above its first) so that all 16 warps have work.
-// Every entry sees the forward's operations in the same order, so the plain
-// version serves both. Shared memory is the ring, stage 3 and a (h/2)^2
-// plane a warp for stages 2 and 3 (slab_convs / slab_pool, unchanged): 160
-// KB at 32 x 32 with three states, 16 warps (512 threads) an SM where the
-// shared-memory planes allowed 5. With `same` (x2 is x1) block (a, b), b <
+// Stages 2 and 3 run in shared memory, one (h/2)^2 column-sum plane a warp
+// (slab_convs / slab_pool). Each pooled entry receives its partial sums in
+// one fixed order (rows, then waves), so results repeat bitwise, and every
+// entry sees the operations of the plain version
+// (ops/myrtle_gram.py::_PlainRecursion) in its order. IEEE acosf / asinf /
+// sqrtf and divides, no fast math. With `same` (x2 is x1) block (a, b), b <
 // a, returns at once and block (a, b), b >= a, writes (a, b) and (b, a):
-// half the pairs, and K and both tangents bitwise symmetric.
+// half the pairs, and K(x, x) (and its tangents) bitwise symmetric.
 //
-// What bounds the tangent mode: per entry and conv the IEEE divides,
-// sqrtf and acosf of the partials and the stencil's dependent adds, a chain
-// with one or two loads and shuffles in it, at 4 warps a scheduler; the
-// short waves and the halo rows of split tasks; stage 2 still runs in
-// shared memory with a barrier a wave. Not used: the forward's symmetry
-// (a later change can reuse this design), the pair-independence of the
-// side-a moment and profile loads, and tensor cores: the work is
+// The two modes are instantiations of one recursion, tangent_recursion<ACT,
+// NT, G0> with NT tangents carried and G0 stage-1 convs. The forward
+// (myrtle_gram_kernel, NT = 0) carries one state and differs only where NT
+// says so: it applies dual_act (the plain version's forward T, which for
+// erf rounds otherwise than the partials' t), reads four scales (no w, b),
+// and its block takes a quarter of the shared memory (one state: 64 KB at
+// 32 x 32), so its launch bounds ask for kForwardBlocks blocks an SM. The
+// tangent mode (myrtle_gram_tangents_kernel) carries dK/dw_std and/or
+// dK/db_std: the conv adds 2 w S(K) and 2 b, the activation's partials
+// serve every tangent, and the pools and the GAP apply to each state; it
+// writes the tangent Grams themselves (dK/dlast = (2 / last) K needs no
+// kernel); three states take 160 KB at 32 x 32, one block an SM.
+//
+// What bounds the recursion: per entry and conv the IEEE divides,
+// sqrtf and acosf (and, in the tangent mode, the partials) and the
+// stencil's dependent adds, a chain with one or two loads and shuffles in
+// it; the short waves and the halo rows of split tasks; stage 2 still runs
+// in shared memory with a barrier a wave. Not used: the pair-independence
+// of the side-a moment and profile loads, and tensor cores: the work is
 // transcendental and elementwise, with no matrix product to give wgmma.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxWarps = 8;
 constexpr int kMaxStates = 3;
+constexpr int kTangentWarps = 16;   // warps a block, both modes
+// The forward's blocks an SM (its __launch_bounds__ minimum): one state's
+// 64 KB of shared memory at 32 x 32 lets two 16-warp blocks share an SM,
+// and ptxas fits every forward instantiation in 64 registers without a
+// spill. On an H100 (700 W) at 200 x 200 pairs of 32 x 32 x 3, Myrtle-5,
+// two blocks ran in 341 ms, one (125 registers) in 432 ms
+// (tools/k7.py --forward-min-blocks 1 2).
+#ifndef K7_FORWARD_MIN_BLOCKS
+#define K7_FORWARD_MIN_BLOCKS 2
+#endif
+constexpr int kForwardBlocks = K7_FORWARD_MIN_BLOCKS;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInv2Pi = 0.15915494309189533577f;
 constexpr float kInv4Pi = 0.07957747154594766788f;
@@ -200,7 +208,7 @@ struct Args {
   const float* scales;  // [w^2, b^2, last^2, 1/C(, w, b)]
   float* out;           // [states, n1, n2]
   int n1, n2, h, c, g0, g1, g2, tsel, warps;
-  int same;             // tangent mode: x2 is x1, run only b >= a
+  int same;             // x2 is x1: run only b >= a
 };
 
 // Per-pair pointers and scales, and the tangents carried.
@@ -341,153 +349,10 @@ __device__ void slab_pool(float* const* st, int r, int di, int dj, const Dest& D
   __syncwarp();
 }
 
-template <int ACT, int NT>
-__device__ void pair_recursion(const Args& A, float* smem, double* red) {
-  constexpr int NS = 1 + NT;
-  const int a = blockIdx.y, b = blockIdx.x;
-  const int h = A.h, r2 = h / 2, r3 = h / 4, c = A.c;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nthreads = blockDim.x;
-  const int W = A.warps;
-
-  // Shared memory: the warps' slab planes, the stage-2 ring, stage 3.
-  float* mine = smem + (size_t)warp * (NS + 1) * h * h;
-  float* st[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) st[s] = mine + (size_t)s * h * h;
-  float* tmp = mine + (size_t)NS * h * h;
-  float* ring = smem + (size_t)W * (NS + 1) * h * h;
-  float* buf3 = ring + (size_t)2 * NS * r2 * r2 * r2;
-  const Dest to2{ring, r2, true, NS};
-  const Dest to3{buf3, r3, false, NS};
-
-  Pair<NT> P;
-  const int plen = A.g0 * h * h + A.g1 * r2 * r2 + A.g2 * r3 * r3;
-  P.v1 = A.prof1 + (size_t)a * plen;
-  P.v2 = A.prof2 + (size_t)b * plen;
-  P.w2 = A.scales[0];
-  P.b2 = A.scales[1];
-  P.two_w = 0.0f;
-  P.two_b = 0.0f;
-  if (NT > 0) {
-    P.two_w = 2.0f * A.scales[4];
-    P.two_b = 2.0f * A.scales[5];
-    for (int t = 0; t < NT; ++t) {
-      P.tan[t] = (NT == 2) ? t : A.tsel;
-      P.dv1[t] = A.dprof1 + ((size_t)a * 2 + P.tan[t]) * plen;
-      P.dv2[t] = A.dprof2 + ((size_t)b * 2 + P.tan[t]) * plen;
-    }
-  }
-  const float inv_c = A.scales[3];
-  const float* xa = A.x1 + (size_t)a * h * h * c;
-  const float* xb = A.x2 + (size_t)b * h * h * c;
-
-  for (int e = threadIdx.x; e < NS * r3 * r3 * r3 * r3; e += nthreads) buf3[e] = 0.0f;
-
-  // ---- stage 1 (resolution h), pooling into the ring ----
-  for (int di = -(h - 1); di < h; ++di) {
-    const int m = (di - 1) >> 1;     // for odd di: the pooled rows m, m + 1
-    if (di & 1) {
-      if (m + 1 <= r2 - 1) {           // row m + 1 first receives from di = 2m + 1
-        for (int s = 0; s < NS; ++s) {
-          float* row = to2.row(s, m + 1);
-          for (int e = threadIdx.x; e < r2 * r2 * r2; e += nthreads) row[e] = 0.0f;
-        }
-      }
-      __syncthreads();
-    }
-    const int ni = span(h, di), i0 = lo(di);
-    for (int wave = 0; wave < 3; ++wave) {
-      int rank = 0;
-      for (int dj = -(h - 1); dj < h; ++dj) {
-        if (wave_of(dj) != wave) continue;
-        if (rank++ % W != warp) continue;
-        const int nj = span(h, dj), j0 = lo(dj);
-        const Div div(nj);
-        for (int e = lane; e < ni * nj; e += 32) {
-          const int u = div(e);
-          const int v = e - u * nj;
-          const float* pa = xa + ((size_t)(i0 + u) * h + j0 + v) * c;
-          const float* pb = xb + ((size_t)(i0 + u + di) * h + j0 + v + dj) * c;
-          float acc = 0.0f;
-          for (int ch = 0; ch < c; ++ch) acc = fmaf(__ldg(pa + ch), __ldg(pb + ch), acc);
-          st[0][e] = acc * inv_c;
-#pragma unroll
-          for (int s = 1; s < NS; ++s) st[s][e] = 0.0f;   // the moment has no tangent
-        }
-        __syncwarp();
-        slab_convs<ACT, NT>(A, P, st, tmp, h, di, dj, 0, A.g0, lane);
-        slab_pool<NT>(st, h, di, dj, to2, lane);
-      }
-      __syncthreads();
-    }
-
-    // ---- stage 2 (h/2): pooled row m is complete ----
-    if ((di & 1) && m > -r2) {
-      for (int wave = 0; wave < 3; ++wave) {
-        int rank = 0;
-        for (int pj = -(r2 - 1); pj < r2; ++pj) {
-          if (wave_of(pj) != wave) continue;
-          if (rank++ % W != warp) continue;
-          float* ps[NS];
-          const int off = span(r2, m) * cum(r2, pj);
-#pragma unroll
-          for (int s = 0; s < NS; ++s) ps[s] = to2.row(s, m) + off;
-          slab_convs<ACT, NT>(A, P, ps, tmp, r2, m, pj, A.g0, A.g1, lane);
-          slab_pool<NT>(ps, r2, m, pj, to3, lane);
-        }
-        __syncthreads();
-      }
-    }
-  }
-
-  // ---- stage 3 (h/4) and the GAP, in float64 ----
-  double acc[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) acc[s] = 0.0;
-  int rank = 0;
-  for (int qi = -(r3 - 1); qi < r3; ++qi) {
-    for (int qj = -(r3 - 1); qj < r3; ++qj) {
-      if (rank++ % W != warp) continue;
-      float* ps[NS];
-      const int ni = span(r3, qi), nj = span(r3, qj);
-      const size_t off = (size_t)cum(r3, qi) * r3 * r3 + (size_t)ni * cum(r3, qj);
-#pragma unroll
-      for (int s = 0; s < NS; ++s) ps[s] = buf3 + (size_t)s * r3 * r3 * r3 * r3 + off;
-      slab_convs<ACT, NT>(A, P, ps, tmp, r3, qi, qj, A.g0 + A.g1, A.g2, lane);
-      for (int e = lane; e < ni * nj; e += 32) {
-#pragma unroll
-        for (int s = 0; s < NS; ++s) acc[s] += (double)ps[s][e];
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    double v = acc[s];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) red[warp * kMaxStates + s] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < NS) {
-    double sum = 0.0;
-    for (int wi = 0; wi < W; ++wi) sum += red[wi * kMaxStates + threadIdx.x];
-    const double count = (double)r3 * r3 * r3 * r3;
-    A.out[((size_t)threadIdx.x * A.n1 + a) * A.n2 + b] =
-        (float)(sum * (double)A.scales[2] / count);
-  }
-}
-
-template <int ACT>
-__global__ void __launch_bounds__(32 * kMaxWarps) myrtle_gram_kernel(Args A) {
-  extern __shared__ float smem[];
-  __shared__ double red[kMaxWarps * kMaxStates];
-  pair_recursion<ACT, 0>(A, smem, red);
-}
-
-// ---- the tangent mode: stage 1 streamed through registers ----
+// ---- the pair recursion: stage 1 streamed through registers ----
 
 template <int NT>
-__device__ Pair<NT> tangent_pair(const Args& A, int a, int b) {
+__device__ Pair<NT> pair_of(const Args& A, int a, int b) {
   const int h = A.h, r2 = h / 2, r3 = h / 4;
   const int plen = A.g0 * h * h + A.g1 * r2 * r2 + A.g2 * r3 * r3;
   Pair<NT> P;
@@ -495,12 +360,14 @@ __device__ Pair<NT> tangent_pair(const Args& A, int a, int b) {
   P.v2 = A.prof2 + (size_t)b * plen;
   P.w2 = A.scales[0];
   P.b2 = A.scales[1];
-  P.two_w = 2.0f * A.scales[4];
-  P.two_b = 2.0f * A.scales[5];
-  for (int t = 0; t < NT; ++t) {
-    P.tan[t] = (NT == 2) ? t : A.tsel;
-    P.dv1[t] = A.dprof1 + ((size_t)a * 2 + P.tan[t]) * plen;
-    P.dv2[t] = A.dprof2 + ((size_t)b * 2 + P.tan[t]) * plen;
+  if constexpr (NT > 0) {   // the forward's scales hold four values
+    P.two_w = 2.0f * A.scales[4];
+    P.two_b = 2.0f * A.scales[5];
+    for (int t = 0; t < NT; ++t) {
+      P.tan[t] = (NT == 2) ? t : A.tsel;
+      P.dv1[t] = A.dprof1 + ((size_t)a * 2 + P.tan[t]) * plen;
+      P.dv2[t] = A.dprof2 + ((size_t)b * 2 + P.tan[t]) * plen;
+    }
   }
   return P;
 }
@@ -513,9 +380,10 @@ __device__ Pair<NT> tangent_pair(const Args& A, int a, int b) {
 // enters conv layer 0 at step t, and layer l emits row t - l - 1 from the
 // column sums of its input rows held in registers (cp, cc, and the new
 // row's cn), so the last of the G0 layers emits row t - G0. Each entry sees
-// pair_recursion's operations in its order: column sums (z + left) + right
-// by shuffles, row sums (zc + up) + down, / 9, the partials, and the 2 x 2
-// pool's (row parity, column parity) order, then one += into the ring. A
+// the plain version's operations in its order: column sums (z + left) +
+// right by shuffles, row sums (zc + up) + down, / 9, the dual activation
+// (NT = 0) or its partials, and the 2 x 2 pool's (row parity, column
+// parity) order, then one += into the ring. A
 // task starting below row 0 (ua > 0, a split slab) starts G0 rows early, so
 // that its window holds true rows by row ua, and pools only rows >= ua.
 template <int ACT, int NT, int G0>
@@ -595,13 +463,17 @@ __device__ void stream_task(const Args& A, const Pair<NT>& P, const float* xa, c
             dv2[k] = __ldg(P.dv2[k] + q2);
           }
         }
-        const Partials pa = dual_act_partials<ACT>(P.w2 * sk[0] + P.b2, v1, v2);
+        if constexpr (NT == 0) {
+          in[0] = dual_act<ACT>(P.w2 * sk[0] + P.b2, v1, v2);
+        } else {
+          const Partials pa = dual_act_partials<ACT>(P.w2 * sk[0] + P.b2, v1, v2);
 #pragma unroll
-        for (int k = 0; k < NT; ++k) {
-          const float du = P.w2 * sk[1 + k] + (P.tan[k] == 0 ? P.two_w * sk[0] : P.two_b);
-          in[1 + k] = pa.tk * du + pa.tv1 * dv1[k] + pa.tv2 * dv2[k];
+          for (int k = 0; k < NT; ++k) {
+            const float du = P.w2 * sk[1 + k] + (P.tan[k] == 0 ? P.two_w * sk[0] : P.two_b);
+            in[1 + k] = pa.tk * du + pa.tv1 * dv1[k] + pa.tv2 * dv2[k];
+          }
+          in[0] = pa.t;
         }
-        in[0] = pa.t;
       }
 #pragma unroll
       for (int s = 0; s < NS; ++s) {
@@ -636,12 +508,10 @@ __device__ void stream_task(const Args& A, const Pair<NT>& P, const float* xa, c
   }
 }
 
-constexpr int kTangentWarps = 16;
-
 // One block per pair (a, b); with A.same, only b >= a, written to both
-// (a, b) and (b, a). Stage 1 in registers (stream_task); stages 2 and 3 and
-// the GAP as pair_recursion runs them, with one (h/2)^2 column-sum plane a
-// warp.
+// (a, b) and (b, a). Stage 1 in registers (stream_task); stages 2 and 3 in
+// shared memory, with one (h/2)^2 column-sum plane a warp; the GAP in
+// float64. NT = 0 is the forward, NT = 1 or 2 the tangent mode.
 template <int ACT, int NT, int G0>
 __device__ void tangent_recursion(const Args& A, float* smem, double* red) {
   constexpr int NS = 1 + NT;
@@ -658,7 +528,7 @@ __device__ void tangent_recursion(const Args& A, float* smem, double* red) {
   const Dest to2{ring, r2, true, NS};
   const Dest to3{buf3, r3, false, NS};
 
-  const Pair<NT> P = tangent_pair<NT>(A, a, b);
+  const Pair<NT> P = pair_of<NT>(A, a, b);
   const float* xa = A.x1 + (size_t)a * h * h * c;
   const float* xb = A.x2 + (size_t)b * h * h * c;
 
@@ -753,6 +623,14 @@ __device__ void tangent_recursion(const Args& A, float* smem, double* red) {
   }
 }
 
+template <int ACT, int G0>
+__global__ void __launch_bounds__(32 * kTangentWarps, kForwardBlocks)
+    myrtle_gram_kernel(Args A) {
+  extern __shared__ float smem[];
+  __shared__ double red[kTangentWarps * kMaxStates];
+  tangent_recursion<ACT, 0, G0>(A, smem, red);
+}
+
 template <int ACT, int NT, int G0>
 __global__ void __launch_bounds__(32 * kTangentWarps, 1) myrtle_gram_tangents_kernel(Args A) {
   extern __shared__ float smem[];
@@ -760,15 +638,18 @@ __global__ void __launch_bounds__(32 * kTangentWarps, 1) myrtle_gram_tangents_ke
   tangent_recursion<ACT, NT, G0>(A, smem, red);
 }
 
-size_t tangent_smem_bytes(int h, int ns) {
+size_t smem_bytes(int h, int ns) {
   const size_t r2 = h / 2, r3 = h / 4;
   return sizeof(float) * (2 * ns * r2 * r2 * r2 + ns * r3 * r3 * r3 * r3 +
                           (size_t)kTangentWarps * r2 * r2);
 }
 
-template <typename Kernel>
-cudaError_t launch_tangents(Kernel kernel, const Args& A, int ns, cudaStream_t stream) {
-  const size_t smem = tangent_smem_bytes(A.h, ns);
+template <int ACT, int NT, int G0>
+cudaError_t launch(const Args& A, cudaStream_t stream) {
+  void (*kernel)(Args);
+  if constexpr (NT == 0) kernel = myrtle_gram_kernel<ACT, G0>;
+  else kernel = myrtle_gram_tangents_kernel<ACT, NT, G0>;
+  const size_t smem = smem_bytes(A.h, 1 + NT);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
@@ -777,42 +658,21 @@ cudaError_t launch_tangents(Kernel kernel, const Args& A, int ns, cudaStream_t s
   return cudaGetLastError();
 }
 
-template <int ACT, int NT>
-cudaError_t launch_tangents_g0(const Args& A, cudaStream_t stream) {
+template <int NT>
+cudaError_t launch_act_g0(const Args& A, int act, cudaStream_t stream) {
+  if (act != kRelu && act != kErf) return cudaErrorInvalidValue;
   switch (A.g0) {
-    case 1: return launch_tangents(myrtle_gram_tangents_kernel<ACT, NT, 1>, A, 1 + NT, stream);
-    case 2: return launch_tangents(myrtle_gram_tangents_kernel<ACT, NT, 2>, A, 1 + NT, stream);
-    case 3: return launch_tangents(myrtle_gram_tangents_kernel<ACT, NT, 3>, A, 1 + NT, stream);
+    case 1: return act == kRelu ? launch<kRelu, NT, 1>(A, stream) : launch<kErf, NT, 1>(A, stream);
+    case 2: return act == kRelu ? launch<kRelu, NT, 2>(A, stream) : launch<kErf, NT, 2>(A, stream);
+    case 3: return act == kRelu ? launch<kRelu, NT, 3>(A, stream) : launch<kErf, NT, 3>(A, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-bool valid_tangents(const Args& A) {
+bool valid(const Args& A) {
   return A.n1 >= 1 && A.n2 >= 1 && A.n1 <= 65535 && (A.h == 8 || A.h == 16 || A.h == 32) &&
          A.c >= 1 && A.warps == kTangentWarps && A.g0 >= 1 && A.g0 <= 3 &&
          (!A.same || A.n1 == A.n2);
-}
-
-size_t smem_bytes(int h, int ns, int warps) {
-  const size_t r2 = h / 2, r3 = h / 4;
-  return sizeof(float) * ((size_t)warps * (ns + 1) * h * h + 2 * ns * r2 * r2 * r2 +
-                          ns * r3 * r3 * r3 * r3);
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Args& A, int ns, cudaStream_t stream) {
-  const size_t smem = smem_bytes(A.h, ns, A.warps);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(A.n2, A.n1);
-  kernel<<<grid, 32 * A.warps, smem, stream>>>(A);
-  return cudaGetLastError();
-}
-
-bool valid(const Args& A) {
-  return A.n1 >= 1 && A.n2 >= 1 && A.n1 <= 65535 && A.h >= 8 && (A.h & (A.h - 1)) == 0 &&
-         A.c >= 1 && A.warps >= 1 && A.warps <= kMaxWarps;
 }
 
 }  // namespace
@@ -820,31 +680,25 @@ bool valid(const Args& A) {
 // x1 [n1, h, h, c], x2 [n2, h, h, c], prof1 [n1, P], prof2 [n2, P] (the
 // packed per-layer variance profiles, P = g0 h^2 + g1 (h/2)^2 + g2 (h/4)^2),
 // scales [w^2, b^2, last^2, 1/c], out [n1, n2]: fp32, contiguous, on the
-// device of `stream`. (g0, g1, g2): convs per pooling group; act: 0 relu,
-// 1 erf; warps: warps a block (one pair), whose shared memory the caller
-// checked. Returns the CUDA error code of the launch (0 on success); does
-// not synchronize.
+// device of `stream`. h is 8, 16 or 32; (g0, g1, g2): convs per pooling
+// group, g0 1 to 3; act: 0 relu, 1 erf; same = 1 says x2 is x1 (n1 == n2):
+// each pair b >= a runs once and is written to (a, b) and (b, a). Returns
+// the CUDA error code of the launch (0 on success); does not synchronize.
 extern "C" int snngp_myrtle_gram_f32(const float* x1, const float* x2, const float* prof1,
                                      const float* prof2, const float* scales, float* out,
                                      int n1, int n2, int h, int c, int g0, int g1, int g2,
-                                     int act, int warps, void* stream) {
+                                     int act, int same, void* stream) {
   const Args A{x1, x2, prof1, prof2, nullptr, nullptr, scales, out,
-               n1, n2, h, c, g0, g1, g2, 0, warps};
+               n1, n2, h, c, g0, g1, g2, 0, kTangentWarps, same ? 1 : 0};
   if (!valid(A)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (act == kRelu) err = launch(myrtle_gram_kernel<kRelu>, A, 1, s);
-  else if (act == kErf) err = launch(myrtle_gram_kernel<kErf>, A, 1, s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_act_g0<0>(A, act, static_cast<cudaStream_t>(stream)));
 }
 
 // As snngp_myrtle_gram_f32, plus dprof1 [n1, 2, P] and dprof2 [n2, 2, P]
 // (the profiles' tangents in w_std, b_std), scales [w^2, b^2, last^2, 1/c,
 // w, b], and mode 0 (dK/dw), 1 (dK/db) or 2 (both); out is [states, n1, n2]
-// with states = 2 or 3: K, then the tangents carried. h is 8, 16 or 32,
-// g0 1 to 3, warps 16 (the kernel's own count, which the caller states);
-// same = 1 says x2 is x1 (n1 == n2): each pair b >= a runs once and is
-// written to (a, b) and (b, a).
+// with states = 2 or 3: K, then the tangents carried; warps 16 (the
+// kernel's own count, which the caller states).
 extern "C" int snngp_myrtle_gram_tangents_f32(const float* x1, const float* x2,
                                               const float* prof1, const float* prof2,
                                               const float* dprof1, const float* dprof2,
@@ -854,18 +708,9 @@ extern "C" int snngp_myrtle_gram_tangents_f32(const float* x1, const float* x2,
                                               void* stream) {
   const Args A{x1, x2, prof1, prof2, dprof1, dprof2, scales, out,
                n1, n2, h, c, g0, g1, g2, mode == 1 ? 1 : 0, warps, same ? 1 : 0};
-  if (!valid_tangents(A) || mode < 0 || mode > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(A) || mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (mode == 2) {
-    if (act == kRelu) err = launch_tangents_g0<kRelu, 2>(A, s);
-    else if (act == kErf) err = launch_tangents_g0<kErf, 2>(A, s);
-  } else {
-    if (act == kRelu) err = launch_tangents_g0<kRelu, 1>(A, s);
-    else if (act == kErf) err = launch_tangents_g0<kErf, 1>(A, s);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(mode == 2 ? launch_act_g0<2>(A, act, s) : launch_act_g0<1>(A, act, s));
 }
 
 // cudaGetErrorString for the wrapper's exception message.

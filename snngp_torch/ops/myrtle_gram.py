@@ -37,10 +37,10 @@ last. See ``csrc/myrtle_gram.cu`` for the kernel's side.
   CPU tensor runs and the oracle of the kernels.
 - :func:`myrtle_gram_cuda` (K7, ``myrtle_gram_kernel``),
   :func:`myrtle_gram_tangents_cuda` (its scale-tangent mode,
-  ``myrtle_gram_tangents_kernel``, whose stage 1 streams the slabs through
-  registers; ``same=True`` runs each pair of K(x, x) once): launch the
-  kernels on a CUDA tensor, or raise. ``LAUNCHES`` counts them ("myrtle",
-  "myrtle_grads").
+  ``myrtle_gram_tangents_kernel``): launch the kernels on a CUDA tensor, or
+  raise. Both run one pair recursion, whose stage 1 streams the slabs
+  through registers; ``same=True`` runs each pair of K(x, x) once.
+  ``LAUNCHES`` counts them ("myrtle", "myrtle_grads").
 - :func:`myrtle_gram`: one ``torch.autograd.Function`` with the JAX
   package's ``trainable_inputs`` contract (True: backward by autograd
   through the full tier, x cotangents included; False: zero x cotangents
@@ -75,13 +75,11 @@ MYRTLE_GROUPS = {5: (1, 1, 1), 7: (2, 2, 1), 10: (3, 3, 2)}
 LAUNCHES = {"myrtle": 0, "myrtle_grads": 0}
 
 _TANGENT_MODES = {"w": 0, "b": 1, "wb": 2}
-_SMEM_LIMIT = 232_448 - 3 * 8 * 8   # bytes a block may use, less the reduction scratch
-_MAX_WARPS = 8
-# The tangent kernel's warps a block (csrc/myrtle_gram.cu kTangentWarps;
-# the launch refuses another count) and the largest image side it takes
-# (one slab column a lane).
+# The kernels' warps a block (csrc/myrtle_gram.cu kTangentWarps, both
+# modes; the tangent launch refuses another count) and the largest image
+# side they take (one slab column a lane).
 TANGENT_WARPS = 16
-_TANGENT_MAX_H = 32
+_MAX_H = 32
 _MAX_C = 8
 # Pooled-state bytes one chunk of the plain versions may hold: the card's
 # 80 GB take larger chunks, and so fewer passes of small launches.
@@ -374,7 +372,12 @@ def myrtle_gram_tangents_plain(x1, x2, prof1, prof2, dprof1, dprof2, scales, *,
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("myrtle_gram")
+    return _bind(_build.load("myrtle_gram"))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a library built from
+    ``csrc/myrtle_gram.cu``."""
     fn = lib.snngp_myrtle_gram_f32
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -386,36 +389,35 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def smem_floats(h, warps):
-    """Shared-memory floats of one forward block (one state): each warp's
-    slab plane and column-sum plane (h^2 each), two rows of pooled stage-2
-    slabs (2 (h/2)^3) and the whole stage-3 state ((h/4)^4)."""
-    return warps * 2 * h * h + 2 * (h // 2) ** 3 + (h // 4) ** 4
-
-
-def launch_warps(h):
-    """Warps a forward block (one pair) runs with: as many as fit the
-    block's shared memory, at most 8."""
-    warps = min(_MAX_WARPS, (_SMEM_LIMIT // 4 - smem_floats(h, 0)) // (2 * h * h))
-    if warps < 1:
-        raise ValueError(f"{h} x {h} images exceed a block's shared memory")
-    return warps
-
-
 def tangent_smem_floats(h, ns):
-    """Shared-memory floats of one tangent-mode block (TANGENT_WARPS warps):
-    the stage-2 ring and the stage-3 state as in the forward, and one
-    (h/2)^2 column-sum plane a warp for stages 2 and 3; stage 1 streams its
-    slabs through registers."""
+    """Shared-memory floats of one block (TANGENT_WARPS warps) carrying ns
+    states (1 in the forward, 2 or 3 in the tangent mode): two rows of
+    pooled stage-2 slabs (2 (h/2)^3 a state), the whole stage-3 state
+    ((h/4)^4 a state), and one (h/2)^2 column-sum plane a warp for stages 2
+    and 3; stage 1 streams its slabs through registers."""
     return 2 * ns * (h // 2) ** 3 + ns * (h // 4) ** 4 + TANGENT_WARPS * (h // 2) ** 2
 
 
-def _check_cuda_inputs(tensors, depth, act, p):
+def _check_cuda_inputs(tensors, depth, act, p, same):
+    """Check what both kernels take; ``same=True`` (mirror the upper
+    triangle) only where every second operand is its first."""
+    x1, x2 = tensors["x1"], tensors["x2"]
+    if same and x1.shape[0] != x2.shape[0]:
+        raise ValueError(f"same=True needs one operand twice; got n1 = {x1.shape[0]}, "
+                         f"n2 = {x2.shape[0]}")
+    for name in ("x", "prof", "dprof") if same else ():
+        a, b = tensors.get(name + "1"), tensors.get(name + "2")
+        if a is not None and (a.data_ptr(), a.shape, a.stride()) != (b.data_ptr(), b.shape,
+                                                                     b.stride()):
+            raise ValueError(f"same=True needs one operand twice; {name}2 is not {name}1")
+    h = x1.shape[1] if x1.ndim == 4 else 0
+    if h > _MAX_H:
+        raise ValueError(f"{h} x {h} images: the Myrtle kernels take h <= {_MAX_H} "
+                         "(one slab column a lane)")
     if act not in _ACTS:
         raise KeyError(f"unsupported act '{act}'")
     if depth not in MYRTLE_GROUPS:
         raise ValueError(f"depth {depth} is not a Myrtle depth (5, 7, 10)")
-    x1, x2 = tensors["x1"], tensors["x2"]
     for name, t in tensors.items():
         if t.device != x1.device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the Myrtle kernels need every "
@@ -453,13 +455,16 @@ def _raise_on(lib, err, what):
                            f"({lib.snngp_myrtle_error_string(err).decode()})")
 
 
-def myrtle_gram_cuda(x1, x2, prof1, prof2, scales, *, depth: int, act: str):
+def myrtle_gram_cuda(x1, x2, prof1, prof2, scales, *, depth: int, act: str,
+                     same: bool = False):
     """Launch K7 (``csrc/myrtle_gram.cu``) on the current stream; same inputs
-    and result as :func:`myrtle_gram_plain`."""
+    and result as :func:`myrtle_gram_plain`. ``same=True`` says that x2 (and
+    its profiles) are x1's: the kernel runs each pair b >= a once and
+    mirrors it, so K comes out bitwise symmetric."""
     h = x1.shape[1] if x1.ndim == 4 else 0
     n1, n2, h, c = _check_cuda_inputs(dict(x1=x1, x2=x2, prof1=prof1, prof2=prof2,
                                            scales=scales), depth, act,
-                                      _profile_len(h, depth))
+                                      _profile_len(h, depth), same)
     if prof1.shape != (n1, prof1.shape[-1]) or prof2.shape != (n2, prof2.shape[-1]):
         raise ValueError("profiles must be [N, P]")
     if scales.shape != (4,):
@@ -472,7 +477,7 @@ def myrtle_gram_cuda(x1, x2, prof1, prof2, scales, *, depth: int, act: str):
         err = lib.snngp_myrtle_gram_f32(
             x1.data_ptr(), x2.data_ptr(), prof1.data_ptr(), prof2.data_ptr(),
             scales.data_ptr(), out.data_ptr(), n1, n2, h, c, g0, g1, g2, _ACTS[act],
-            launch_warps(h), stream)
+            int(same), stream)
     _raise_on(lib, err, "Myrtle Gram kernel")
     LAUNCHES["myrtle"] += 1
     return out
@@ -485,19 +490,10 @@ def myrtle_gram_tangents_cuda(x1, x2, prof1, prof2, dprof1, dprof2, scales, *,
     ``same=True`` says that x2 (and its profiles) are x1's: the kernel runs
     each pair b >= a once and mirrors it, so K and both tangents come out
     bitwise symmetric."""
-    if same and x1.shape[0] != x2.shape[0]:
-        raise ValueError(f"same=True needs one operand twice; got n1 = {x1.shape[0]}, "
-                         f"n2 = {x2.shape[0]}")
-    for name, a, b in (("x", x1, x2), ("prof", prof1, prof2), ("dprof", dprof1, dprof2)):
-        if same and (a.data_ptr(), a.shape, a.stride()) != (b.data_ptr(), b.shape, b.stride()):
-            raise ValueError(f"same=True needs one operand twice; {name}2 is not {name}1")
     h = x1.shape[1] if x1.ndim == 4 else 0
-    if h > _TANGENT_MAX_H:
-        raise ValueError(f"{h} x {h} images: the tangent mode takes h <= {_TANGENT_MAX_H} "
-                         "(one slab column a lane)")
     n1, n2, h, c = _check_cuda_inputs(
         dict(x1=x1, x2=x2, prof1=prof1, prof2=prof2, dprof1=dprof1, dprof2=dprof2,
-             scales=scales), depth, act, _profile_len(h, depth))
+             scales=scales), depth, act, _profile_len(h, depth), same)
     p = prof1.shape[-1]
     if dprof1.shape != (n1, 2, p) or dprof2.shape != (n2, 2, p):
         raise ValueError(f"profile tangents {tuple(dprof1.shape)}, {tuple(dprof2.shape)} "
@@ -546,10 +542,12 @@ def _forward(x1, x2, w, b, last, depth, act, same, plain=False):
     groups = MYRTLE_GROUPS[depth]
     p1 = pack_profiles(myrtle_var_profiles(x1, groups, act, w, b))
     p2 = p1 if same else pack_profiles(myrtle_var_profiles(x2, groups, act, w, b))
-    args = (x1.contiguous(), x2.contiguous(), p1, p2, _scales(x1, w, b, last, False))
+    xc1 = x1.contiguous()
+    xc2 = xc1 if same else x2.contiguous()
+    args = (xc1, xc2, p1, p2, _scales(x1, w, b, last, False))
     if not _use_kernel(x1, plain):
         return myrtle_gram_plain(*args, depth=depth, act=act)
-    return myrtle_gram_cuda(*args, depth=depth, act=act)
+    return myrtle_gram_cuda(*args, depth=depth, act=act, same=same)
 
 
 def _tangents(x1, x2, w, b, last, depth, act, profiles=None, tangents="wb", plain=False):
@@ -741,8 +739,12 @@ def myrtle_gram_tiled(x1, x2=None, *, depth: int = 5, act: str = "relu", w_std=1
         for t, (i, j) in enumerate(todo):
             if done is not None and done[t]:
                 continue
-            dev = myrtle_gram(x1[i:i + block], x2e[j:j + block], depth=depth, act=act,
-                              w_std=w_std, b_std=b_std, last_w_std=last_w_std, dtype=dtype)
+            # A diagonal block of K(x, x) is K(x_i, x_i): one operand, so the
+            # kernel's symmetric launch.
+            diag = symmetric and i == j
+            dev = myrtle_gram(x1[i:i + block], None if diag else x2e[j:j + block],
+                              depth=depth, act=act, w_std=w_std, b_std=b_std,
+                              last_w_std=last_w_std, dtype=dtype)
             if pending is not None:
                 commit(*pending)
             pending = (t, i, j, dev)

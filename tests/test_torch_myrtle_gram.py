@@ -249,9 +249,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     scales = torch.tensor([1.0, 0.01, 1.0, 1 / 3])
     with pytest.raises(ValueError, match="CUDA"):
         MG.myrtle_gram_cuda(t, t, p, p, scales, depth=5, act="relu")
-    # The forward's accounting (its tangent mode has its own, below).
-    assert MG.launch_warps(32) == 8
-    assert 4 * MG.smem_floats(32, 8) <= 232_448
+    # One slab column a lane: both modes take h <= 32.
+    x64 = torch.zeros(1, 64, 64, 3)
+    with pytest.raises(ValueError, match="h <= 32"):
+        MG.myrtle_gram_cuda(x64, x64, p, p, scales, depth=5, act="relu")
+    with pytest.raises(ValueError, match="same=True"):
+        MG.myrtle_gram_cuda(t, t[:1], p, p[:1], scales, depth=5, act="relu", same=True)
     d = MG.pack_profiles(MG.myrtle_profile_tangents(t, depth=5)[1])
     scales6 = torch.tensor([1.0, 0.01, 1.0, 1 / 3, 1.0, 0.1])
     with pytest.raises(ValueError, match="same=True"):
@@ -260,37 +263,46 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         MG.myrtle_gram_tangents_cuda(t, t, p, p, d, d, scales6, depth=5, act="relu",
                                      same=True)
-    x64 = torch.zeros(1, 64, 64, 3)
     with pytest.raises(ValueError, match="h <= 32"):
         MG.myrtle_gram_tangents_cuda(x64, x64, p, p, d, d, scales6, depth=5, act="relu")
 
 
-@pytest.mark.parametrize("other", ["x", "prof", "dprof"])
-def test_tangent_wrapper_refuses_same_for_two_operands(other):
-    """same=True mirrors the upper triangle, so the wrapper takes it only
-    when x2, prof2 and dprof2 are x1's, prof1's and dprof1's."""
+@pytest.mark.parametrize("wrapper,other", [("tangents", "x"), ("tangents", "prof"),
+                                           ("tangents", "dprof"), ("forward", "x"),
+                                           ("forward", "prof")])
+def test_tangent_wrapper_refuses_same_for_two_operands(wrapper, other):
+    """same=True mirrors the upper triangle, so both wrappers take it only
+    when x2, prof2 (and dprof2) are x1's, prof1's (and dprof1's)."""
     t = torch.as_tensor(_data(2, 1, 8)[0])
     p = MG.pack_profiles(MG.myrtle_var_profiles(t, (1, 1, 1), "relu", 1.0, 0.1))
     d = MG.pack_profiles(MG.myrtle_profile_tangents(t, depth=5)[1])
     args = dict(x=t, prof=p, dprof=d)
     twice = {k: (v, v.clone() if k == other else v) for k, v in args.items()}
-    scales6 = torch.tensor([1.0, 0.01, 1.0, 1 / 3, 1.0, 0.1])
     with pytest.raises(ValueError, match=f"same=True.*{other}2 is not {other}1"):
-        MG.myrtle_gram_tangents_cuda(*twice["x"], *twice["prof"], *twice["dprof"], scales6,
-                                     depth=5, act="relu", same=True)
+        if wrapper == "forward":
+            MG.myrtle_gram_cuda(*twice["x"], *twice["prof"], torch.tensor([1.0, 0.01, 1.0, 1 / 3]),
+                                depth=5, act="relu", same=True)
+        else:
+            MG.myrtle_gram_tangents_cuda(*twice["x"], *twice["prof"], *twice["dprof"],
+                                         torch.tensor([1.0, 0.01, 1.0, 1 / 3, 1.0, 0.1]),
+                                         depth=5, act="relu", same=True)
 
 
 @pytest.mark.parametrize("h", [8, 16, 32])
-@pytest.mark.parametrize("ns", [2, 3])
+@pytest.mark.parametrize("ns", [1, 2, 3])
 def test_tangent_block_fits_shared_memory(h, ns):
-    """The tangent kernel runs TANGENT_WARPS (16) warps a block at every
-    image size it takes: the ring, the stage-3 state, a column-sum plane a
-    warp and the float64 reduction scratch fit a block's 232,448 bytes,
-    with stage 1 in registers (no per-warp slab planes)."""
+    """Both modes run TANGENT_WARPS (16) warps a block at every image size
+    they take: the ring, the stage-3 state, a column-sum plane a warp and
+    the float64 reduction scratch fit a block's 232,448 bytes, with stage 1
+    in registers (no per-warp slab planes). The forward (ns = 1) fits two
+    blocks in an SM's 228 KB (each block also holds 1 KB for the system)."""
     assert MG.TANGENT_WARPS == 16
     floats = MG.tangent_smem_floats(h, ns)
     assert floats == 2 * ns * (h // 2) ** 3 + ns * (h // 4) ** 4 + 16 * (h // 2) ** 2
-    assert 4 * floats + 8 * 3 * MG.TANGENT_WARPS <= 232_448
+    block = 4 * floats + 8 * 3 * MG.TANGENT_WARPS
+    assert block <= 232_448
+    if ns == 1:
+        assert 2 * (block + 1024) <= 228 * 1024
 
 
 def test_tangent_mode_asks_for_same_exactly_for_one_operand(monkeypatch):
@@ -308,7 +320,8 @@ def test_tangent_mode_asks_for_same_exactly_for_one_operand(monkeypatch):
 
     monkeypatch.setattr(MG, "_use_kernel", lambda x, plain: not plain)
     monkeypatch.setattr(MG, "myrtle_gram_tangents_cuda", tangents_spy)
-    monkeypatch.setattr(MG, "myrtle_gram_cuda", MG.myrtle_gram_plain)
+    monkeypatch.setattr(MG, "myrtle_gram_cuda",
+                        lambda *a, same=False, **kw: MG.myrtle_gram_plain(*a, **kw))
     x1, x2 = _t(*_data(3, 3, 8, seed=12))
     w, b, last = (torch.tensor(v) for v in (1.2, 0.25, 0.9))
     MG._tangents(x1, x1, w, b, last, 5, "relu")
@@ -338,6 +351,50 @@ def test_tangent_mode_asks_for_same_exactly_for_one_operand(monkeypatch):
         np.testing.assert_array_equal(to_numpy(g), to_numpy(r))
 
 
+def test_forward_asks_for_same_exactly_for_one_operand(monkeypatch):
+    """_forward, myrtle_gram, the kernel_fn of nn.arch and the diagonal
+    blocks of myrtle_gram_tiled ask K7 for its symmetric launch exactly when
+    both operands are one tensor. The device dispatch is patched to take the
+    kernels' path, whose wrapper runs the plain version here."""
+    from snngp_torch.nn import arch
+    seen = []
+
+    def forward_spy(*args, same=False, **kw):
+        seen.append(same)
+        if same:
+            assert args[1] is args[0] and args[3] is args[2]
+        return MG.myrtle_gram_plain(*args, **kw)
+
+    monkeypatch.setattr(MG, "_use_kernel", lambda x, plain: not plain)
+    monkeypatch.setattr(MG, "myrtle_gram_cuda", forward_spy)
+    x1, x2 = _t(*_data(3, 3, 8, seed=12))
+    w, b, last = (torch.tensor(v) for v in (1.2, 0.25, 0.9))
+    MG._forward(x1, x1, w, b, last, 5, "relu", True)
+    MG._forward(x1, x2, w, b, last, 5, "relu", False)
+    assert seen == [True, False]
+    seen.clear()
+    kfn = arch.get_myrtle_kernel(5, 1, "relu", w_std=1.2)
+    for y in (None, x1, x1.clone(), x2):
+        MG.myrtle_gram(x1, y, **SG)
+        kfn(x1) if y is None else kfn(x1, y)
+    assert seen == [True, True, True, True, False, False, False, False]
+    # Tiled: 5 images in blocks of 2 -> blocks (0, 0), (0, 2), (0, 4), (2, 2),
+    # (2, 4), (4, 4), whose diagonal ones launch symmetrically; a rectangular
+    # Gram has no diagonal block.
+    x5 = torch.as_tensor(_data(5, 1, 8, seed=4)[0])
+    seen.clear()
+    sym = MG.myrtle_gram_tiled(x5, block=2, **SG)
+    assert seen == [True, False, False, True, False, True]
+    seen.clear()
+    MG.myrtle_gram_tiled(x5, x5, block=2, **SG)
+    assert seen == [False] * 9
+    # The symmetric launches do not change the values the plain path gives.
+    monkeypatch.setattr(MG, "_use_kernel", lambda x, plain: False)
+    np.testing.assert_array_equal(sym, MG.myrtle_gram_tiled(x5, block=2, **SG))
+    np.testing.assert_array_equal(to_numpy(MG.myrtle_gram(x1, **SG)),
+                                  to_numpy(MG.myrtle_gram(x1, x1.clone(), **SG)))
+
+
 def test_kernels_match_plain_on_the_card(cuda_device):
     x1, x2 = _data(3, 5, 16, seed=11)
     a, b = (torch.as_tensor(v, device=cuda_device) for v in (x1, x2))
@@ -358,6 +415,13 @@ def test_kernels_match_plain_on_the_card(cuda_device):
         return ((a - b).abs().max() / b.abs().max()).item()
 
     x7 = torch.as_tensor(_data(7, 1, 16, seed=12)[0])
+    # The symmetric forward: bitwise symmetric, within 1e-5 of the plain
+    # version (relu's forward is well conditioned at c = 1).
+    k7 = MG.myrtle_gram(x7.to(cuda_device), **HP)
+    plain = MG.myrtle_gram(x7, **HP)
+    assert torch.equal(k7, k7.T)
+    assert rel(k7, plain) <= 1e-5
+    assert MG.LAUNCHES["myrtle"] == before["myrtle"] + 2
     for act in ("erf", "relu"):
         kw = dict(SG, act=act)
         got = MG.myrtle_gram_scale_grads(x7.to(cuda_device), **kw)
