@@ -86,17 +86,13 @@
 namespace {
 
 constexpr int kMaxStates = 3;
-constexpr int kTangentWarps = 16;   // warps a block, both modes
+constexpr int kWarps = 16;   // warps a block, both modes
 // The forward's blocks an SM (its __launch_bounds__ minimum): one state's
 // 64 KB of shared memory at 32 x 32 lets two 16-warp blocks share an SM,
 // and ptxas fits every forward instantiation in 64 registers without a
 // spill. On an H100 (700 W) at 200 x 200 pairs of 32 x 32 x 3, Myrtle-5,
-// two blocks ran in 341 ms, one (125 registers) in 432 ms
-// (tools/k7.py --forward-min-blocks 1 2).
-#ifndef K7_FORWARD_MIN_BLOCKS
-#define K7_FORWARD_MIN_BLOCKS 2
-#endif
-constexpr int kForwardBlocks = K7_FORWARD_MIN_BLOCKS;
+// two blocks ran in 341 ms, one (125 registers) in 432 ms.
+constexpr int kForwardBlocks = 2;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInv2Pi = 0.15915494309189533577f;
 constexpr float kInv4Pi = 0.07957747154594766788f;
@@ -207,7 +203,7 @@ struct Args {
   const float* dprof2;  // [n2, 2, P] or null
   const float* scales;  // [w^2, b^2, last^2, 1/C(, w, b)]
   float* out;           // [states, n1, n2]
-  int n1, n2, h, c, g0, g1, g2, tsel, warps;
+  int n1, n2, h, c, g0, g1, g2, tsel;
   int same;             // x2 is x1: run only b >= a
 };
 
@@ -515,7 +511,7 @@ __device__ void stream_task(const Args& A, const Pair<NT>& P, const float* xa, c
 template <int ACT, int NT, int G0>
 __device__ void tangent_recursion(const Args& A, float* smem, double* red) {
   constexpr int NS = 1 + NT;
-  constexpr int W = kTangentWarps;
+  constexpr int W = kWarps;
   const int a = blockIdx.y, b = blockIdx.x;
   if (A.same && b < a) return;
   const int h = A.h, r2 = h / 2, r3 = h / 4, c = A.c;
@@ -624,24 +620,24 @@ __device__ void tangent_recursion(const Args& A, float* smem, double* red) {
 }
 
 template <int ACT, int G0>
-__global__ void __launch_bounds__(32 * kTangentWarps, kForwardBlocks)
+__global__ void __launch_bounds__(32 * kWarps, kForwardBlocks)
     myrtle_gram_kernel(Args A) {
   extern __shared__ float smem[];
-  __shared__ double red[kTangentWarps * kMaxStates];
+  __shared__ double red[kWarps * kMaxStates];
   tangent_recursion<ACT, 0, G0>(A, smem, red);
 }
 
 template <int ACT, int NT, int G0>
-__global__ void __launch_bounds__(32 * kTangentWarps, 1) myrtle_gram_tangents_kernel(Args A) {
+__global__ void __launch_bounds__(32 * kWarps, 1) myrtle_gram_tangents_kernel(Args A) {
   extern __shared__ float smem[];
-  __shared__ double red[kTangentWarps * kMaxStates];
+  __shared__ double red[kWarps * kMaxStates];
   tangent_recursion<ACT, NT, G0>(A, smem, red);
 }
 
 size_t smem_bytes(int h, int ns) {
   const size_t r2 = h / 2, r3 = h / 4;
   return sizeof(float) * (2 * ns * r2 * r2 * r2 + ns * r3 * r3 * r3 * r3 +
-                          (size_t)kTangentWarps * r2 * r2);
+                          (size_t)kWarps * r2 * r2);
 }
 
 template <int ACT, int NT, int G0>
@@ -654,7 +650,7 @@ cudaError_t launch(const Args& A, cudaStream_t stream) {
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(A.n2, A.n1);
-  kernel<<<grid, 32 * kTangentWarps, smem, stream>>>(A);
+  kernel<<<grid, 32 * kWarps, smem, stream>>>(A);
   return cudaGetLastError();
 }
 
@@ -671,8 +667,7 @@ cudaError_t launch_act_g0(const Args& A, int act, cudaStream_t stream) {
 
 bool valid(const Args& A) {
   return A.n1 >= 1 && A.n2 >= 1 && A.n1 <= 65535 && (A.h == 8 || A.h == 16 || A.h == 32) &&
-         A.c >= 1 && A.warps == kTangentWarps && A.g0 >= 1 && A.g0 <= 3 &&
-         (!A.same || A.n1 == A.n2);
+         A.c >= 1 && A.g0 >= 1 && A.g0 <= 3 && (!A.same || A.n1 == A.n2);
 }
 
 }  // namespace
@@ -689,7 +684,7 @@ extern "C" int snngp_myrtle_gram_f32(const float* x1, const float* x2, const flo
                                      int n1, int n2, int h, int c, int g0, int g1, int g2,
                                      int act, int same, void* stream) {
   const Args A{x1, x2, prof1, prof2, nullptr, nullptr, scales, out,
-               n1, n2, h, c, g0, g1, g2, 0, kTangentWarps, same ? 1 : 0};
+               n1, n2, h, c, g0, g1, g2, 0, same ? 1 : 0};
   if (!valid(A)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_act_g0<0>(A, act, static_cast<cudaStream_t>(stream)));
 }
@@ -697,17 +692,15 @@ extern "C" int snngp_myrtle_gram_f32(const float* x1, const float* x2, const flo
 // As snngp_myrtle_gram_f32, plus dprof1 [n1, 2, P] and dprof2 [n2, 2, P]
 // (the profiles' tangents in w_std, b_std), scales [w^2, b^2, last^2, 1/c,
 // w, b], and mode 0 (dK/dw), 1 (dK/db) or 2 (both); out is [states, n1, n2]
-// with states = 2 or 3: K, then the tangents carried; warps 16 (the
-// kernel's own count, which the caller states).
+// with states = 2 or 3: K, then the tangents carried.
 extern "C" int snngp_myrtle_gram_tangents_f32(const float* x1, const float* x2,
                                               const float* prof1, const float* prof2,
                                               const float* dprof1, const float* dprof2,
                                               const float* scales, float* out, int n1,
                                               int n2, int h, int c, int g0, int g1, int g2,
-                                              int act, int mode, int warps, int same,
-                                              void* stream) {
+                                              int act, int mode, int same, void* stream) {
   const Args A{x1, x2, prof1, prof2, dprof1, dprof2, scales, out,
-               n1, n2, h, c, g0, g1, g2, mode == 1 ? 1 : 0, warps, same ? 1 : 0};
+               n1, n2, h, c, g0, g1, g2, mode == 1 ? 1 : 0, same ? 1 : 0};
   if (!valid(A) || mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(mode == 2 ? launch_act_g0<2>(A, act, s) : launch_act_g0<1>(A, act, s));

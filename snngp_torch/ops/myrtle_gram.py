@@ -75,10 +75,9 @@ MYRTLE_GROUPS = {5: (1, 1, 1), 7: (2, 2, 1), 10: (3, 3, 2)}
 LAUNCHES = {"myrtle": 0, "myrtle_grads": 0}
 
 _TANGENT_MODES = {"w": 0, "b": 1, "wb": 2}
-# The kernels' warps a block (csrc/myrtle_gram.cu kTangentWarps, both
-# modes; the tangent launch refuses another count) and the largest image
-# side they take (one slab column a lane).
-TANGENT_WARPS = 16
+# The kernels' warps a block (csrc/myrtle_gram.cu kWarps, both modes) and
+# the largest image side they take (one slab column a lane).
+WARPS = 16
 _MAX_H = 32
 _MAX_C = 8
 # Pooled-state bytes one chunk of the plain versions may hold: the card's
@@ -372,17 +371,12 @@ def myrtle_gram_tangents_plain(x1, x2, prof1, prof2, dprof1, dprof2, scales, *,
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    return _bind(_build.load("myrtle_gram"))
-
-
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of a library built from
-    ``csrc/myrtle_gram.cu``."""
+    lib = _build.load("myrtle_gram")
     fn = lib.snngp_myrtle_gram_f32
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.snngp_myrtle_gram_tangents_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.snngp_myrtle_error_string.argtypes = [ctypes.c_int]
     lib.snngp_myrtle_error_string.restype = ctypes.c_char_p
@@ -390,12 +384,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def tangent_smem_floats(h, ns):
-    """Shared-memory floats of one block (TANGENT_WARPS warps) carrying ns
+    """Shared-memory floats of one block (WARPS warps) carrying ns
     states (1 in the forward, 2 or 3 in the tangent mode): two rows of
     pooled stage-2 slabs (2 (h/2)^3 a state), the whole stage-3 state
     ((h/4)^4 a state), and one (h/2)^2 column-sum plane a warp for stages 2
     and 3; stage 1 streams its slabs through registers."""
-    return 2 * ns * (h // 2) ** 3 + ns * (h // 4) ** 4 + TANGENT_WARPS * (h // 2) ** 2
+    return 2 * ns * (h // 2) ** 3 + ns * (h // 4) ** 4 + WARPS * (h // 2) ** 2
 
 
 def _check_cuda_inputs(tensors, depth, act, p, same):
@@ -510,7 +504,7 @@ def myrtle_gram_tangents_cuda(x1, x2, prof1, prof2, dprof1, dprof2, scales, *,
         err = lib.snngp_myrtle_gram_tangents_f32(
             x1.data_ptr(), x2.data_ptr(), prof1.data_ptr(), prof2.data_ptr(),
             dprof1.data_ptr(), dprof2.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            n1, n2, h, c, g0, g1, g2, _ACTS[act], mode, TANGENT_WARPS, int(same), stream)
+            n1, n2, h, c, g0, g1, g2, _ACTS[act], mode, int(same), stream)
     _raise_on(lib, err, "Myrtle Gram tangent kernel")
     LAUNCHES["myrtle_grads"] += 1
     return tuple(out.unbind())

@@ -3,7 +3,7 @@
 ``myrtle_gram_kernel``, and the scale-tangent mode,
 ``myrtle_gram_tangents_kernel``) alone, in about two minutes on one card.
 
-    python3 snngp_torch/tools/k7.py [--step] [--forward-min-blocks 1 2]
+    python3 snngp_torch/tools/k7.py [--step]
 
 Prints the card's name and power limit and the ptxas report of every
 instantiation of both kernels (registers, spills), then runs
@@ -17,16 +17,10 @@ tangent mode) with the kernel alone: one warm-up call, then one timed
 call, each beside its bound.
 
 ``--step`` also times one Myrtle-5 SVSP svgp step at the smoke's shape
-(after one untimed step), split by phase. ``--forward-min-blocks N ...``
-also builds the source once per N with the forward's ``__launch_bounds__``
-minimum set to N blocks an SM (``-DK7_FORWARD_MIN_BLOCKS=N``, into
-``build/k7_min_blocks/``), prints each build's forward ptxas report, and
-times the head forward with each in turns (the list, then reversed),
-checking that every build gives the same bits. Needs nvcc and one CUDA card.
+(after one untimed step), split by phase. Needs nvcc and one CUDA card.
 """
 
 import argparse
-import ctypes
 import re
 import subprocess
 import sys
@@ -42,14 +36,14 @@ def _card():
     print(smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed")
 
 
-def _ptxas(log, forward_only=False):
+def _ptxas(log):
     """K7's lines of a ptxas report, one per kernel instantiation: the
     forward's template arguments are (act, g0), the tangent mode's (act,
     tangents, g0); act 0 is relu, 1 erf."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
         m = re.search(r"(myrtle_gram(?:_tangents)?_kernel)I((?:Li\d+E)+)E", line)
-        if "Compiling entry" not in line or not m or (forward_only and "tangents" in m[1]):
+        if "Compiling entry" not in line or not m:
             continue
         targs = ", ".join(re.findall(r"Li(\d+)E", m[2]))
         for follow in lines[i + 1:i + 4]:
@@ -92,49 +86,11 @@ def _head(cs, MG, margs, mode):
     if not (repeat and sym == 0.0 and finite):
         raise AssertionError(f"the head shape's {mode or 'forward'} launch is not "
                              "repeatable, symmetric and finite")
-    return first[0], ms
-
-
-def _min_blocks(cs, MG, _build, margs, counts):
-    """The forward built with each __launch_bounds__ minimum, timed in
-    turns at the head shape."""
-    import torch
-
-    out_dir = REPO / "build" / "k7_min_blocks"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {}
-    for n in counts:
-        so = out_dir / f"libmyrtle_gram-min{n}.so"
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-DK7_FORWARD_MIN_BLOCKS={n}",
-                               "-o", str(so), str(_build.CSRC / "myrtle_gram.cu")],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(proc.stderr)
-        print(f"[k7] forward built with K7_FORWARD_MIN_BLOCKS={n}:")
-        _ptxas(proc.stdout + proc.stderr, forward_only=True)
-        libs[n] = MG._bind(ctypes.CDLL(str(so)))
-    default = MG._lib
-    grams, times = {}, {n: [] for n in counts}
-    try:
-        for n in list(counts) + list(counts)[::-1]:
-            MG._lib = lambda lib=libs[n]: lib  # noqa: E731
-            grams[n], ms = _head(cs, MG, margs, "")
-            times[n].append(ms)
-    finally:
-        MG._lib = default
-    same = all(torch.equal(g, grams[counts[0]]) for g in grams.values())
-    print("[k7] forward by min blocks an SM: " + "  ".join(
-        f"{n}: {' / '.join(f'{t:.3f}' for t in ts)} ms" for n, ts in times.items())
-        + f"  bitwise equal: {same}")
-    if not same:
-        raise AssertionError("the launch bounds changed the forward's bits")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--step", action="store_true", help="also time one Myrtle-5 SVSP step")
-    ap.add_argument("--forward-min-blocks", type=int, nargs="+", default=[],
-                    help="also time the forward built with each launch-bounds minimum")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(REPO))
 
@@ -171,9 +127,6 @@ def main(argv=None):
                             device="cuda")
         _head(cs, MG, cs._myrtle_args(x, x, 5, "relu", False), "")
         _head(cs, MG, cs._myrtle_args(x, x, 5, "relu", True), "wb")
-        if args.forward_min_blocks:
-            _min_blocks(cs, MG, _build, cs._myrtle_args(x, x, 5, "relu", False),
-                        args.forward_min_blocks)
     if args.step:
         _step(cs)
     if failed:

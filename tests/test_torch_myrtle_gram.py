@@ -291,15 +291,15 @@ def test_tangent_wrapper_refuses_same_for_two_operands(wrapper, other):
 @pytest.mark.parametrize("h", [8, 16, 32])
 @pytest.mark.parametrize("ns", [1, 2, 3])
 def test_tangent_block_fits_shared_memory(h, ns):
-    """Both modes run TANGENT_WARPS (16) warps a block at every image size
+    """Both modes run WARPS (16) warps a block at every image size
     they take: the ring, the stage-3 state, a column-sum plane a warp and
     the float64 reduction scratch fit a block's 232,448 bytes, with stage 1
     in registers (no per-warp slab planes). The forward (ns = 1) fits two
     blocks in an SM's 228 KB (each block also holds 1 KB for the system)."""
-    assert MG.TANGENT_WARPS == 16
+    assert MG.WARPS == 16
     floats = MG.tangent_smem_floats(h, ns)
     assert floats == 2 * ns * (h // 2) ** 3 + ns * (h // 4) ** 4 + 16 * (h // 2) ** 2
-    block = 4 * floats + 8 * 3 * MG.TANGENT_WARPS
+    block = 4 * floats + 8 * 3 * MG.WARPS
     assert block <= 232_448
     if ns == 1:
         assert 2 * (block + 1024) <= 228 * 1024
