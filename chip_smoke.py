@@ -40,8 +40,10 @@ script exits non-zero:
    NLLs of CUDA and CPU agree;
 7. the fused CNN Gram kernel (K3) against its plain version: the three
    Gram blocks of an SVSP step at 32 x 32 x 3 (100 x 200, 200 x 200 and
-   100 x 100), relu / erf on distinct and on identical operands, 28 x 28 x
-   1, 8 x 8 x 1, depths 1 and 10; gate: relative error <= 1e-5 of max|K|,
+   100 x 100), relu / erf on distinct and on identical operands (the
+   latter a symmetric launch, ``same=True``), 28 x 28 x 1, 8 x 8 x 1, an
+   8 x 100 image (wider than 32: streamed transposed), depths 1 and 10;
+   gate: relative error <= 1e-5 of max|K|, a second launch bitwise equal,
    and K(x, x) bitwise symmetric;
 8. its scalar-tangent backward (K4) against its plain version at phase 7's
    cases on a random cotangent (gate: each sum within 1e-5 of sum |g dK|,
@@ -63,10 +65,12 @@ script exits non-zero:
    ``FittedSVSP`` request of 100 images at 10,000 samples;
 11. the WideResNet kernels against their plain versions: the residual tail
    (K5) on the three Gram blocks of an SVSP step at 32 x 32 x 3 (four blocks,
-   the first with a conv shortcut), three blocks at 16 x 16, 8 x 8 and
-   4 x 4, erf, a ragged 7 x 7; the stride-2 block (K6) at 32 -> 16,
-   16 -> 8, 8 -> 4, 7 x 7 and 6 x 10; gate: relative error <= 1e-5 of
-   max|K|, and K(x, x) bitwise symmetric;
+   the first with a conv shortcut; K(x, x) a symmetric launch), three
+   blocks at 16 x 16, 8 x 8 and 4 x 4, erf, a ragged 7 x 7, a 5 x 64
+   state (wider than 32: streamed transposed); the stride-2 block (K6) at
+   32 -> 16, 16 -> 8, 8 -> 4, 7 x 7 and 6 x 10; gate: relative error <=
+   1e-5 of max|K|, a second launch bitwise equal, and K(x, x) bitwise
+   symmetric;
 12. WideResNet SVSP at full width (the CIFAR shape of phase 9, ``-n
    resnet``): the svgp ELBO's gradient on one batch against float64 on the
    card through the plain layer tier (gate: within 2x the plain fp32
@@ -118,6 +122,7 @@ Exits non-zero without a result when CUDA is not available or the
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import runpy
@@ -517,21 +522,23 @@ def _conv_cases():
     """(label, n1, n2, h, w, c, same, depth): the three Gram blocks of one
     SVSP step at the CIFAR shape (K(x_b, Z), K(Z, Z), K(x_b, x_b)), both
     acts on distinct and on identical operands, MNIST's 28 x 28 x 1, the
-    synthetic set's 8 x 8 x 1, and depths 1 and 10."""
+    synthetic set's 8 x 8 x 1, an image wider than 32 (streamed
+    transposed), and depths 1 and 10."""
     return [("100x200 32x32x3", 100, 200, 32, 32, 3, False, SVSP_DEPTH),
             ("200x200 32x32x3 sym", 200, 200, 32, 32, 3, True, SVSP_DEPTH),
             ("100x100 32x32x3 sym", 100, 100, 32, 32, 3, True, SVSP_DEPTH),
             ("100x100 32x32x3", 100, 100, 32, 32, 3, False, SVSP_DEPTH),
             ("64x96 28x28x1", 64, 96, 28, 28, 1, False, SVSP_DEPTH),
             ("300x300 8x8x1 sym", 300, 300, 8, 8, 1, True, SVSP_DEPTH),
+            ("64x96 8x100x1", 64, 96, 8, 100, 1, False, SVSP_DEPTH),
             ("40x50 32x32x3 depth 1", 40, 50, 32, 32, 3, False, 1),
             ("40x50 32x32x3 depth 10", 40, 50, 32, 32, 3, False, 10)]
 
 
 def phase7_k3_vs_plain():
     """K3 against its plain version on the same inputs; gate: max|K_kernel -
-    K_plain| / max|K_plain| <= 1e-5; identical operands give a bitwise
-    symmetric K."""
+    K_plain| / max|K_plain| <= 1e-5; a second launch gives the same bits;
+    identical operands (a symmetric launch) give a bitwise symmetric K."""
     import torch
     from snngp_torch.ops import conv_gram as CG
 
@@ -542,23 +549,25 @@ def phase7_k3_vs_plain():
         for act in ("relu", "erf"):
             args = _conv_stacks(x1, x2, depth, act, tangents=False)
             kw = dict(depth=depth, act=act)
-            k_kernel = CG.conv_gram_cuda(*args, **kw)
+            k_kernel = CG.conv_gram_cuda(*args, **kw, same=same)
+            repeat = torch.equal(k_kernel, CG.conv_gram_cuda(*args, **kw, same=same))
             k_plain = CG.conv_gram_plain(*args, **kw)
             _sync()
             abs_err = (k_kernel - k_plain).abs().max().item()
             rel_err = abs_err / k_plain.abs().max().item()
             finite = bool(torch.isfinite(k_kernel).all())
             sym = (k_kernel - k_kernel.T).abs().max().item() if same else float("nan")
-            ms = _time_ms(lambda: CG.conv_gram_cuda(*args, **kw))
+            ms = _time_ms(lambda: CG.conv_gram_cuda(*args, **kw, same=same))
             plain_ms = _time_ms(lambda: CG.conv_gram_plain(*args, **kw), reps=2)
             nbytes = sum(t.numel() * 4 for t in {id(t): t for t in args}.values()) + n1 * n2 * 4
             bound, by = bound_ms(nbytes, k3_ops(n1, n2, h * w, c, depth, act, same))
             print(f"[K3] {act:4s} {label:24s} rel_err {rel_err:.3e} abs_err {abs_err:.3e}  "
-                  f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({by})"
-                  f"  max|K-K^T| {sym:.3e}")
-            if not finite or not rel_err <= KERNEL_REL_TOL:
+                  f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({by}, "
+                  f"{100 * bound / ms:.2f}%)  repeat {repeat}  max|K-K^T| {sym:.3e}")
+            if not finite or not rel_err <= KERNEL_REL_TOL or not repeat:
                 raise AssertionError(f"K3 {act} at {label}: rel_err {rel_err:.3e} "
-                                     f"(tol {KERNEL_REL_TOL}), finite={finite}")
+                                     f"(tol {KERNEL_REL_TOL}), finite={finite}, "
+                                     f"repeat={repeat}")
             if same and sym != 0.0:
                 raise AssertionError(f"K3 {act} at {label}: K(x, x) not symmetric ({sym})")
             worst_abs = max(worst_abs, abs_err)
@@ -1411,8 +1420,8 @@ def _resnet_cases():
     """The K5 and K6 comparisons: (kernel, label, n1, n2, h, w, same,
     nblocks, mismatch, act). K5 on the three Gram blocks of an SVSP step at
     32 x 32 (group 1: four blocks, the first with a conv shortcut), three
-    blocks at 16 x 16, 8 x 8 and 4 x 4 (groups 2-4), erf, and a ragged
-    7 x 7; K6 at each group boundary (32 -> 16, 16 -> 8, 8 -> 4), erf and
+    blocks at 16 x 16, 8 x 8 and 4 x 4 (groups 2-4), erf, a ragged 7 x 7
+    and a state wider than 32 (streamed transposed); K6 at each group boundary (32 -> 16, 16 -> 8, 8 -> 4), erf and
     the odd and rectangular 7 x 7 and 6 x 10."""
     k5 = [("100x200 32x32 4 blocks+sc", 100, 200, 32, 32, False, 4, True, "relu"),
           ("200x200 32x32 4 blocks+sc sym", 200, 200, 32, 32, True, 4, True, "relu"),
@@ -1422,7 +1431,8 @@ def _resnet_cases():
           ("100x200 16x16 3 blocks", 100, 200, 16, 16, False, 3, False, "erf"),
           ("200x200 8x8 3 blocks sym", 200, 200, 8, 8, True, 3, False, "relu"),
           ("200x200 4x4 3 blocks sym", 200, 200, 4, 4, True, 3, False, "relu"),
-          ("64x96 7x7 2 blocks+sc", 64, 96, 7, 7, False, 2, True, "relu")]
+          ("64x96 7x7 2 blocks+sc", 64, 96, 7, 7, False, 2, True, "relu"),
+          ("40x50 5x64 2 blocks+sc", 40, 50, 5, 64, False, 2, True, "relu")]
     k6 = [("200x200 32->16 sym", 200, 200, 32, 32, True, "relu"),
           ("100x200 32->16", 100, 200, 32, 32, False, "relu"),
           ("200x200 32->16 sym", 200, 200, 32, 32, True, "erf"),
@@ -1468,8 +1478,9 @@ def _resnet_kernel_args(kernel, k, v1, v2, same, nblocks, mismatch, act):
 
 def phase11_k5_k6_vs_plain():
     """K5 and K6 against their plain versions on the same inputs; gate:
-    max|K_kernel - K_plain| / max|K_plain| <= 1e-5; identical operands
-    give a bitwise symmetric K."""
+    max|K_kernel - K_plain| / max|K_plain| <= 1e-5; a second launch gives
+    the same bits; identical operands (for K5 a symmetric launch) give a
+    bitwise symmetric K."""
     import torch
     from snngp_torch.ops import resnet_conv_gram as RG
 
@@ -1479,9 +1490,11 @@ def phase11_k5_k6_vs_plain():
     for kernel, label, n1, n2, h, w, same, nblocks, mismatch, act in _resnet_cases():
         k, v1, v2 = _resnet_inputs(rng, n1, n2, h, w, same)
         args, kw = _resnet_kernel_args(kernel, k, v1, v2, same, nblocks, mismatch, act)
-        cuda_fn, plain_fn = ((RG.resnet_tail_cuda, RG.resnet_tail_plain) if kernel == "K5"
+        cuda_fn, plain_fn = ((functools.partial(RG.resnet_tail_cuda, same=same),
+                              RG.resnet_tail_plain) if kernel == "K5"
                              else (RG.strided_cuda, RG.strided_block_plain))
         k_kernel = cuda_fn(*args, **kw)
+        repeat = torch.equal(k_kernel, cuda_fn(*args, **kw))
         k_plain = plain_fn(*args, **kw)
         _sync()
         abs_err = (k_kernel - k_plain).abs().max().item()
@@ -1498,11 +1511,11 @@ def phase11_k5_k6_vs_plain():
                else k6_ops(n1, n2, h, w, act, same))
         bound, by = bound_ms(nbytes, ops)
         print(f"[{kernel}] {act:4s} {label:30s} rel_err {rel_err:.3e} abs_err {abs_err:.3e}  "
-              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({by})"
-              f"  max|K-K^T| {sym:.3e}")
-        if not finite or not rel_err <= KERNEL_REL_TOL:
+              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({by}, "
+              f"{100 * bound / ms:.2f}%)  repeat {repeat}  max|K-K^T| {sym:.3e}")
+        if not finite or not rel_err <= KERNEL_REL_TOL or not repeat:
             raise AssertionError(f"{kernel} {act} at {label}: rel_err {rel_err:.3e} "
-                                 f"(tol {KERNEL_REL_TOL}), finite={finite}")
+                                 f"(tol {KERNEL_REL_TOL}), finite={finite}, repeat={repeat}")
         if same and sym != 0.0:
             raise AssertionError(f"{kernel} {act} at {label}: K(x, x) not symmetric ({sym})")
         worst[kernel] = max(worst[kernel], abs_err)
@@ -1666,7 +1679,6 @@ def _k7_check(label, x1, x2, depth, act, mode, time_it=False, vs_fp64=False):
     gate: per output, the kernel's error against the plain version in
     float64 within 2x the plain fp32 version's (floor 1e-6), the bar of the
     gradient checks."""
-    import functools
     import torch
     from snngp_torch.ops import myrtle_gram as MG
 
@@ -1965,14 +1977,17 @@ def main() -> int:
                        "snngp_torch/csrc/gram.cu", "snngp/ops/pallas/gram.py:249",
                        training["gram_grads"], k2_rows, f"mlp/relu/{HEAD_SHAPE}/random",
                        max(r["abs_err"] for r in k2_rows.values()))
-    k3 = _kernel_entry("conv_gram (K3, fused CNN NNGP Gram)", "snngp_torch/csrc/conv_gram.cu",
+    k3 = _kernel_entry("conv_gram (K3, fused CNN NNGP Gram; one warp streams a pair's rows "
+                       "through registers, symmetric launch for K(x, x))",
+                       "snngp_torch/csrc/conv_gram.cu",
                        "snngp/ops/pallas/conv_gram.py:64", classify["conv_gram"], k3_rows,
                        K34_HEAD, k3_abs)
     k4 = _kernel_entry("conv_gram_grads (K4, scalar-tangent CNN Gram backward, fused "
                        "contraction)", "snngp_torch/csrc/conv_gram.cu",
                        "snngp/ops/pallas/conv_gram.py:180", classify["conv_gram_grads"],
                        k4_rows, K34_HEAD, max(r["abs_err"] for r in k4_rows.values()))
-    k5 = _kernel_entry("resnet_tail (K5, fused WideResNet stride-1 residual blocks)",
+    k5 = _kernel_entry("resnet_tail (K5, fused WideResNet stride-1 residual blocks; one warp "
+                       "streams a pair's rows through registers, symmetric launch for K(x, x))",
                        "snngp_torch/csrc/resnet_conv_gram.cu",
                        "snngp/ops/pallas/resnet_conv_gram.py:130", resnet["resnet_tail"],
                        k56_rows["K5"], K5_HEAD, k56_abs["K5"])

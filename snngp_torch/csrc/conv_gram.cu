@@ -28,39 +28,69 @@
 // What bounds them on an H100: at the CIFAR shape (32 x 32 x 3, depth 4)
 // each pair runs 1,024 pixels x depth x (a 3 x 3 stencil of 4 adds and an
 // IEEE divide, one acosf or asinf, two sqrtf, one divide, ~12 FMA) and
-// writes one float: the FP32 and SFU pipes bound them, not memory (the
-// inputs are a few MB and stay in L2). K4 does about three times K3's work
-// per pixel. The TPU kernel read a precomputed k0 [N1, N2, HW] from HBM;
-// here the input moment (C <= 3 FMAs a pixel) is fused, which saves an
-// N1 N2 HW x 4-byte pass (287 MB over the three Gram blocks of one SVSP
-// step at the CIFAR shape).
+// writes one float: the FP32 and SFU pipes, that is the instructions a warp
+// issues, bound them, not memory (the inputs are a few MB and stay in L2).
+// K4 does about three times K3's work per pixel. The TPU kernel read a
+// precomputed k0 [N1, N2, HW] from HBM; here the input moment (C <= 3 FMAs
+// a pixel) is fused, which saves an N1 N2 HW x 4-byte pass (287 MB over the
+// three Gram blocks of one SVSP step at the CIFAR shape).
 //
-// Design (simple first). None of the TPU layout carries over (the 128-lane
-// HW padding, the wide / narrow tiles, the rolls with lane masks). Each
-// pair's state is a whole image (HW floats, 4 KB at 32 x 32), and the
-// stencil needs all of it between layers, so a block keeps the states of a
-// tile of ti x tj pairs in shared memory, with a second plane per state for
-// the separable stencil's column sums: pass 1 writes the column sums
-// (z + left) + right, pass 2 reads the row neighbours of those,
-// (zc + up) + down, divides by 9 and applies the Dense step and the dual
-// activation in place, one barrier after each pass. The neighbours are
-// read with row / column edge tests, so ragged H and W (28 x 28, 6 x 5,
-// 1 x 1) need no padding. The tile's variance rows of the current layer
-// (and K4's tangent rows) are staged in shared memory too, and each is
-// read by tj (or ti) pairs. The wrapper chooses the tile from HW at launch
-// (about 4,096 pair-pixels a block for K3 and 2,048 for K4: 2 x 2 pairs at
-// 32 x 32, 8 x 8 at 8 x 8), so small images still fill a block's 256
-// threads. The readout sums each pair's pixels in a fixed order (one warp
-// per pair), so results repeat and K(x, x) is bitwise symmetric. IEEE
-// acosf / asinf / sqrtf and divides, no fast math: the parity bar is fp32.
-// Not yet used: the symmetry of K(x, x), register tiling of the stencil.
+// K3's design: one warp streams a pair's rows through registers. Lane c of
+// a segment owns column c of the state; each lane forms its pixel's input
+// moment (the channel-order fmaf, times 1/C, so K(x, x) stays symmetric),
+// and each conv layer's stencil takes its column sum (z + left) + right by
+// two shuffles and its row sum (zc + up) + down from a window of three rows
+// of column sums in registers, then / 9, the Dense FMA and the dual
+// activation: the plain version's order (ops/conv_gram.py::_stencil). The
+// layers are pipelined, layer l emitting row t - l - 1 at step t from the
+// row layer l - 1 emitted in the same step; each lane adds the last layer's
+// rows of its column, and a fixed-order shuffle tree gives the pair's sum,
+// times last2 / HW. kStages layers run in registers a pass; a deeper
+// network streams the state through a per-warp plane of shared memory
+// between passes ([rows][32] floats, read and written by its own lane, no
+// barrier). No shared memory holds the state otherwise, no barrier runs,
+// and the row loop's addresses advance by a stride: no integer division in
+// it. Narrow images: a segment is seg = 2^lg >= the image's columns lanes
+// wide and a warp holds 32 / seg pairs (8 x 8: four), the shuffles taking
+// `width` seg. An image wider than 32 columns (h w <= 1,024 gives h <= 32
+// then) streams transposed: the wrapper swaps the strides (rstride,
+// cstride), which only changes the stencil's summation order. With `same`
+// (K(x, x)) a launch enumerates the n (n + 1) / 2 pairs j <= i, runs each
+// once and writes (i, j) and (j, i). IEEE acosf / asinf / sqrtf and
+// divides, no fast math: the parity bar is fp32.
+//
+// K4's design (simple first). None of the TPU layout carries over (the
+// 128-lane HW padding, the wide / narrow tiles, the rolls with lane masks).
+// Each pair's state is a whole image (HW floats, 4 KB at 32 x 32), and a
+// block keeps the states of a tile of ti x tj pairs in shared memory, with
+// a second plane per state for the separable stencil's column sums: pass 1
+// writes the column sums (z + left) + right, pass 2 reads the row
+// neighbours of those, (zc + up) + down, divides by 9 and applies the Dense
+// step and the dual activation's partials in place, one barrier after each
+// pass. The neighbours are read with row / column edge tests, so ragged H
+// and W (28 x 28, 6 x 5, 1 x 1) need no padding. The tile's variance rows
+// of the current layer and their tangents are staged in shared memory too,
+// and each is read by tj (or ti) pairs. The wrapper chooses the tile from
+// HW at launch (about 2,048 pair-pixels a block: 1 x 2 pairs at 32 x 32,
+// 5 x 6 at 8 x 8). The readout sums each pair's pixels in a fixed order
+// (one warp per pair), so results repeat.
 
 #include <cuda_runtime.h>
+
+#include "stream.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// K3: conv layers a pass keeps in registers (a deeper network takes more
+// passes), and its blocks an SM (the __launch_bounds__ minimum): 5 x 256
+// threads leave each thread 48 registers, and ptxas fits both
+// instantiations without a spill. On an H100 (700 W) at 200 x 200 pairs
+// of 32 x 32 x 3, depth 4, relu, symmetric: 4 blocks (64 registers) 0.472
+// ms, 5 blocks 0.464 ms, 6 blocks (40 registers) 0.468 ms.
+constexpr int kStages = 4;
+constexpr int kConvBlocksPerSM = 5;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInv2Pi = 0.15915494309189533577f;
 constexpr float kInv4Pi = 0.07957747154594766788f;
@@ -196,56 +226,93 @@ __device__ __forceinline__ float pair_sum(const float* plane, int hw, int lane) 
   return s;
 }
 
-// K3. Shared memory: k and its column sums [ti * tj][hw], then the layer's
-// variance rows v1 [ti][hw] and v2 [tj][hw]. scales = [w^2, b^2, last^2, 1/C].
+// K3, streamed (see the header). x1 [n1, hw, c], x2 [n2, hw, c]; v1 [depth
+// + 1, n1, hw], v2 [depth + 1, n2, hw]; scales = [w^2, b^2, last^2, 1/C].
+// Dynamic shared memory: with depth > kStages, one [rows][32] plane a warp.
 template <int ACT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kConvBlocksPerSM)
 conv_gram_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
                  const float* __restrict__ v1, const float* __restrict__ v2,
-                 const float* __restrict__ scales, float* __restrict__ out, int n1,
-                 int n2, int h, int w, int c, int depth, int ti, int tj) {
-  extern __shared__ float smem[];
-  const Tile t(h, w, ti, tj);
-  float* kpl = smem;
-  float* spl = kpl + t.elems;
-  float* vr1 = spl + t.elems;
-  float* vr2 = vr1 + ti * t.hw;
-
+                 const float* __restrict__ scales, float* __restrict__ out, int n1, int n2,
+                 Geo G, int c, int depth, int same) {
+  extern __shared__ float planes[];
+  const StreamLane L(G, n1, n2, same);
+  const int seg = 1 << G.lg;
+  const int rows = G.rows;
+  const int rs = G.rstride;
   const float w2 = scales[0];
   const float b2 = scales[1];
-  const float last2 = scales[2];
+  const float inv_c = scales[3];
+  const int pix = L.c * G.cstride;
+  const float* xa = x1 + ((size_t)L.i * G.hw + pix) * c;
+  const float* xb = x2 + ((size_t)L.j * G.hw + pix) * c;
+  const int rsc = rs * c;
+  const int o1 = L.i * G.hw + pix;   // in one variance layer
+  const int o2 = L.j * G.hw + pix;
+  const int s1 = n1 * G.hw;          // between variance layers
+  const int s2 = n2 * G.hw;
+  float* plane = planes + (threadIdx.x >> 5) * 32 * rows + (threadIdx.x & 31);
 
-  input_moment(t, x1, x2, n1, n2, c, scales[3], kpl);
-  __syncthreads();
-  for (int l = 1; l <= depth; ++l) {
-    // Variance 1 off the edge keeps the masked pairs finite.
-    stage_rows(v1, l, n1, t.i0, ti, t.hw, 1.0f, vr1);
-    stage_rows(v2, l, n2, t.j0, tj, t.hw, 1.0f, vr2);
-    for (int e = threadIdx.x; e < t.elems; e += kThreads) {
-      const int q = e / t.hw;
-      const int p = e - q * t.hw;
-      spl[e] = col_sum(kpl + q * t.hw, p, p % w, w);
+  float acc = 0.0f;
+  for (int l0 = 0;; l0 += kStages) {
+    const int g = min(kStages, depth - l0);   // this pass's layers, l0 + 1 .. l0 + g
+    const bool first = l0 == 0;
+    const bool last = l0 + g == depth;
+    float cp[kStages], cc[kStages];
+#pragma unroll
+    for (int l = 0; l < kStages; ++l) cp[l] = cc[l] = 0.0f;
+    for (int t = 0; t < rows + g; ++t) {
+      float z = 0.0f;            // row t entering the pass
+      if (L.active && t < rows) {
+        if (first) {
+          const float* a = xa + t * rsc;
+          const float* b = xb + t * rsc;
+          float m = 0.0f;
+          for (int ch = 0; ch < c; ++ch) m = fmaf(__ldg(a + ch), __ldg(b + ch), m);
+          z = m * inv_c;
+        } else {
+          z = plane[t * 32];
+        }
+      }
+#pragma unroll
+      for (int l = 0; l < kStages; ++l) {
+        if (l < g) {
+          const float cn = lane_col_sum(z, L, seg);   // row t - l's column sums
+          const int u = t - l - 1;                     // the row layer l emits
+          z = 0.0f;
+          if (u >= 0 && u < rows) {
+            const float sk = ((cc[l] + cp[l]) + cn) / 9.0f;
+            const int layer = l0 + l + 1;
+            float va = 1.0f, vb = 1.0f;
+            if (L.active) {
+              va = __ldg(v1 + (layer * s1 + o1 + u * rs));
+              vb = __ldg(v2 + (layer * s2 + o2 + u * rs));
+            }
+            z = dual_act<ACT>(w2 * sk + b2, va, vb);   // Conv 3x3 SAME, act
+          }
+          cp[l] = cc[l];
+          cc[l] = cn;
+        }
+      }
+      const int u = t - g;       // the row leaving the pass
+      if (L.active && u >= 0) {
+        if (last)
+          acc += z;
+        else
+          plane[u * 32] = z;
+      }
     }
-    __syncthreads();
-    for (int e = threadIdx.x; e < t.elems; e += kThreads) {
-      const int q = e / t.hw;
-      const int p = e - q * t.hw;
-      const float sk = row_sum(spl + q * t.hw, p, p / w, h, w) / 9.0f;
-      kpl[e] = dual_act<ACT>(w2 * sk + b2, vr1[(q / tj) * t.hw + p],
-                             vr2[(q % tj) * t.hw + p]);   // Conv 3x3 SAME, act
-    }
-    __syncthreads();
+    if (last) break;
   }
 
-  // Flatten (spatial mean) + final Dense, one warp per pair.
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const float scale = last2 / (float)t.hw;
-  for (int q = warp; q < t.pairs; q += kWarps) {
-    const float s = pair_sum(kpl + q * t.hw, t.hw, lane);
-    const int i = t.i0 + q / tj;
-    const int j = t.j0 + q % tj;
-    if (lane == 0 && i < n1 && j < n2) out[(size_t)i * n2 + j] = scale * s;
+  // Flatten (spatial mean) + final Dense: the segment's column sums in a
+  // fixed order.
+  for (int off = seg >> 1; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off, seg);
+  if (L.c == 0 && L.pair_ok) {
+    const float k = scales[2] / (float)G.hw * acc;
+    out[(size_t)L.i * n2 + L.j] = k;
+    if (same && L.i != L.j) out[(size_t)L.j * n2 + L.i] = k;
   }
 }
 
@@ -375,14 +442,16 @@ size_t smem_bytes(int hw, int ti, int tj, int planes, int row_planes) {
 
 template <int ACT>
 cudaError_t launch(const float* x1, const float* x2, const float* v1, const float* v2,
-                   const float* scales, float* out, int n1, int n2, int h, int w, int c,
-                   int depth, int ti, int tj, cudaStream_t stream) {
-  const dim3 grid((n2 + tj - 1) / tj, (n1 + ti - 1) / ti);
-  const size_t smem = smem_bytes(h * w, ti, tj, 2, 1);
+                   const float* scales, float* out, int n1, int n2, const Geo& G, int c,
+                   int depth, int same, int warps, int smem, cudaStream_t stream) {
+  const long long pairs = same ? (long long)n1 * (n1 + 1) / 2 : (long long)n1 * n2;
+  const long long lane_warps = (pairs + (32 >> G.lg) - 1) / (32 >> G.lg);
+  const long long blocks = (lane_warps + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const cudaError_t err = allow_smem(conv_gram_kernel<ACT>, smem);
   if (err != cudaSuccess) return err;
-  conv_gram_kernel<ACT><<<grid, kThreads, smem, stream>>>(x1, x2, v1, v2, scales, out,
-                                                          n1, n2, h, w, c, depth, ti, tj);
+  conv_gram_kernel<ACT><<<(unsigned)blocks, 32 * warps, smem, stream>>>(
+      x1, x2, v1, v2, scales, out, n1, n2, G, c, depth, same);
   return cudaGetLastError();
 }
 
@@ -405,20 +474,32 @@ cudaError_t launch_grads(const float* x1, const float* x2, const float* v1,
 
 // x1 [n1, h, w, c], x2 [n2, h, w, c], v1 [depth+1, n1, h*w], v2 [depth+1, n2,
 // h*w], scales [w^2, b^2, last^2, 1/c], out [n1, n2]: all fp32, contiguous, on
-// the device of `stream`. act: 0 relu, 1 erf. (ti, tj): the pairs of one
-// block's tile, ti <= n1, tj <= n2; the caller checks that the tile's shared
-// memory fits. Returns the CUDA error code of the launch (0 on success);
-// does not synchronize.
+// the device of `stream`. The images stream `rows` rows of `lanes` <= 32
+// columns (lanes * rows = h * w) in segments of 2^lg >= lanes lanes, pixel
+// (r, col) at r * rstride + col * cstride. act: 0 relu, 1 erf; same = 1: x2
+// is x1 and v2 is v1 (n1 == n2), so each pair j <= i runs once and writes
+// (i, j) and (j, i). `warps` a block (1 to 8) and `smem` bytes of dynamic
+// shared memory: warps * rows * 128 when depth > 4, else 0. The caller
+// checks that every variance index fits an int. Returns the CUDA error
+// code of the launch (0 on success); does not synchronize.
 extern "C" int snngp_conv_gram_f32(const float* x1, const float* x2, const float* v1,
                                    const float* v2, const float* scales, float* out,
-                                   int n1, int n2, int h, int w, int c, int depth, int act,
-                                   int ti, int tj, void* stream) {
+                                   int n1, int n2, int lanes, int rows, int lg, int rstride,
+                                   int cstride, int c, int depth, int act, int same,
+                                   int warps, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Geo G{lanes, rows, lg, rstride, cstride, lanes * rows};
+  const int want = depth > kStages ? warps * rows * 32 * (int)sizeof(float) : 0;
+  if (lanes < 1 || lg > 5 || lanes > (1 << lg) || rows < 1 || c < 1 || depth < 0 ||
+      warps < 1 || warps > kWarps || smem != want || (same && n1 != n2))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (act == kRelu)
-    err = launch<kRelu>(x1, x2, v1, v2, scales, out, n1, n2, h, w, c, depth, ti, tj, s);
+    err = launch<kRelu>(x1, x2, v1, v2, scales, out, n1, n2, G, c, depth, same, warps, smem,
+                        s);
   else if (act == kErf)
-    err = launch<kErf>(x1, x2, v1, v2, scales, out, n1, n2, h, w, c, depth, ti, tj, s);
+    err = launch<kErf>(x1, x2, v1, v2, scales, out, n1, n2, G, c, depth, same, warps, smem,
+                       s);
   return static_cast<int>(err);
 }
 

@@ -30,34 +30,61 @@
 // What bounds them on an H100: per pixel and block each runs two dual
 // activations (an IEEE acosf or asinf, two sqrtf and divides), two or three
 // stencils of 4 adds and an IEEE divide, and a few FMAs, on a state that
-// enters and leaves once (4 KB a pair at 32 x 32): the FP32 and SFU pipes
-// bound them, not memory, as K3 (csrc/conv_gram.cu).
+// enters and leaves once (4 KB a pair at 32 x 32): the FP32 and SFU pipes,
+// that is the instructions a warp issues, bound them, not memory.
 //
-// Design (simple first, as K3). None of the TPU layout carries over (the
-// 128-lane HW padding, the rolls with lane masks, the "ones off the
-// lattice"). A block keeps a tile of ti x tj pairs in shared memory, the
-// wrapper choosing the tile from HW at launch (about 4,096 pair-pixels a
-// block: 2 x 2 pairs at 32 x 32, 8 x 8 at 8 x 8). K5 holds three planes a
-// pair (the carry k, a working plane, the column sums: 12 KB at 32 x 32);
-// K6 holds k and t1 at full resolution and the column sums of each at the
-// lattice columns (12 KB at 32 x 32). The separable stencil writes the
-// column sums (z + left) + right in one pass and reads their row
-// neighbours, (zc + up) + down, then / 9, in the next, one barrier after
-// each pass; neighbours are read with row / column edge tests, so ragged
-// H, W need no padding. The TPU kernel staged all 2 nblocks variance rows
-// of a tile at once (128 KB at 32 x 32 with four blocks and 2 x 2 pairs);
-// here each pass reads the one row it needs through the read-only cache
-// (each row is read by tj or ti pairs of the tile and stays in L1 / L2), so
-// shared memory holds only the pair states. IEEE acosf / asinf / sqrtf and
-// divides, no fast math: the parity bar is fp32. The dual activation
-// multiplies v1 v2 in one order for (i, j) and (j, i), so K(x, x) stays
-// bitwise symmetric.
+// K5's design: one warp streams a pair's rows through registers. Lane c of
+// a segment owns column c of the state; a stencil's column sum (z + left) +
+// right takes two shuffles, its row sum (zc + up) + down comes from a window
+// of three rows of column sums held in registers, then / 9, the order of
+// the plain version (ops/conv_gram.py::_stencil). The 2 NB stencils of a
+// launch's NB residual blocks are pipelined: at step t block b receives row
+// t - 2b of its input k_b, its first stencil emits row t - 2b - 1 of S(t1)
+// and its second row t - 2b - 2 of S(t2), which with the carry k_b held two
+// steps (and, for the conv shortcut of block 0 with `mismatch`, S(k) of the
+// old k from a third window, held one step) gives row t - 2b - 2 of
+// k_{b+1}. No shared memory holds the state, no barrier runs, and the row
+// loop's addresses advance by a stride: no integer division in it. NB is a
+// template argument (1 to 4) and the wrapper chains launches for a deeper
+// tail, the fp32 state between launches being the state within one.
+// Narrow images: a segment is seg = 2^lg >= the state's columns lanes wide
+// and a warp holds 32 / seg pairs (16 x 16: two, 4 x 4: eight), the
+// shuffles taking `width` seg. An image wider than 32 columns (h w <= 1,024
+// gives h <= 32 then) streams transposed: the wrapper swaps the strides
+// (rstride, cstride), which only changes the stencil's summation order. The
+// variance rows are read through the read-only cache (each is read by every
+// pair of its image). IEEE acosf / asinf / sqrtf and divides, no fast math:
+// the parity bar is fp32. The dual activation multiplies v1 v2 in one order
+// for (i, j) and (j, i), and with `same` (K(x, x)) a launch enumerates the
+// n (n + 1) / 2 pairs j <= i, runs each once and writes (i, j) and (j, i).
+//
+// K6 (simple first). None of the TPU layout carries over (the 128-lane HW
+// padding, the rolls with lane masks, the "ones off the lattice"). A block
+// keeps a tile of ti x tj pairs in shared memory, the wrapper choosing the
+// tile from HW at launch (about 4,096 pair-pixels a block: 2 x 2 pairs at
+// 32 x 32, 8 x 8 at 8 x 8): k and t1 at full resolution and the column sums
+// of each at the lattice columns (12 KB a pair at 32 x 32). The separable
+// stencil writes the column sums (z + left) + right in one pass and reads
+// their row neighbours, (zc + up) + down, then / 9, in the next, one
+// barrier after each pass; neighbours are read with row / column edge
+// tests, so ragged H, W need no padding.
 
 #include <cuda_runtime.h>
+
+#include "stream.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// K5: at most this many residual blocks a launch (the wrapper chains
+// launches for a deeper tail), and its blocks an SM (the __launch_bounds__
+// minimum): 4 x 256 threads leave each thread 64 registers, and ptxas
+// spills 48-56 bytes in the four-block instantiations. On an H100 (700 W)
+// at 200 x 200 pairs of 32 x 32 states, four blocks with the conv
+// shortcut, relu, symmetric: 3 blocks an SM (80 registers, no spill)
+// 1.112 ms, 4 blocks 0.913 ms, 5 blocks 0.937 ms, 6 blocks 0.943 ms.
+constexpr int kMaxTailBlocks = 4;
+constexpr int kTailBlocksPerSM = 4;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInv2Pi = 0.15915494309189533577f;
 constexpr float kTwoOverPi = 0.63661977236758134308f;
@@ -116,98 +143,94 @@ __device__ __forceinline__ float var_at(const float* __restrict__ v, int img, in
   return (img < n) ? __ldg(v + (size_t)img * len + p) : 1.0f;
 }
 
-// K5. Shared memory: k, the working plane and the column sums, three
-// [ti * tj][hw] planes. v1 [2 nblocks, n1, hw], v2 [2 nblocks, n2, hw];
-// scales = [w^2, b^2].
-template <int ACT>
-__global__ void __launch_bounds__(kThreads)
+// K5: NB residual blocks, streamed (see the header). v1 [2 NB, n1, hw] and
+// v2 [2 NB, n2, hw]: the launch's variance rows; scales = [w^2, b^2]; MIS:
+// block 0 takes the conv shortcut. Per block b the registers hold the two
+// stencils' windows (cpA, ccA: S(t1); cpB, ccB: S(t2)) and the carry k_b of
+// the last two rows (kc1, kc2).
+template <int ACT, int NB, bool MIS>
+__global__ void __launch_bounds__(kThreads, kTailBlocksPerSM)
 resnet_tail_kernel(const float* __restrict__ k_in, const float* __restrict__ v1,
                    const float* __restrict__ v2, const float* __restrict__ scales,
-                   float* __restrict__ k_out, int n1, int n2, int h, int w, int nblocks,
-                   int mismatch, int ti, int tj) {
-  extern __shared__ float smem[];
-  const Tile t(ti, tj);
-  const int hw = h * w;
-  const int elems = t.pairs * hw;
-  float* kpl = smem;           // the residual carry k
-  float* work = kpl + elems;   // t1, then t2, then S(k)'s column sums
-  float* col = work + elems;   // column sums
+                   float* __restrict__ k_out, int n1, int n2, Geo G, int same) {
+  const StreamLane L(G, n1, n2, same);
+  const int seg = 1 << G.lg;
+  const int rows = G.rows;
+  const int rs = G.rstride;
   const float w2 = scales[0];
   const float b2 = scales[1];
+  const int pix = L.c * G.cstride;
+  const float* kp = k_in + ((size_t)L.i * n2 + L.j) * G.hw + pix;
+  float* out1 = k_out + ((size_t)L.i * n2 + L.j) * G.hw + pix;
+  float* out2 = k_out + ((size_t)L.j * n2 + L.i) * G.hw + pix;
+  const bool mirror = same && L.i != L.j;
+  const int o1 = L.i * G.hw + pix;   // in one variance row block
+  const int o2 = L.j * G.hw + pix;
+  const int s1 = n1 * G.hw;          // between variance row blocks
+  const int s2 = n2 * G.hw;
 
-  for (int e = threadIdx.x; e < elems; e += kThreads) {
-    const int q = e / hw;
-    const int p = e - q * hw;
-    const int i = t.i(q);
-    const int j = t.j(q);
-    kpl[e] = (i < n1 && j < n2) ? k_in[((size_t)i * n2 + j) * hw + p] : 0.0f;
-  }
-  __syncthreads();
+  float cpA[NB], ccA[NB], cpB[NB], ccB[NB], kc1[NB], kc2[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) cpA[b] = ccA[b] = cpB[b] = ccB[b] = kc1[b] = kc2[b] = 0.0f;
+  float cpK = 0.0f, ccK = 0.0f, sk_held = 0.0f;   // MIS: S(k)'s window, S(k) held a step
 
-  for (int blk = 0; blk < nblocks; ++blk) {
-    const float* va1 = v1 + (size_t)(2 * blk) * n1 * hw;   // rows entering act 1
-    const float* va2 = v2 + (size_t)(2 * blk) * n2 * hw;
-    const float* vb1 = va1 + (size_t)n1 * hw;              // rows entering act 2
-    const float* vb2 = va2 + (size_t)n2 * hw;
-    for (int e = threadIdx.x; e < elems; e += kThreads) {  // t1 = T(k)
-      const int q = e / hw;
-      const int p = e - q * hw;
-      work[e] = dual_act<ACT>(kpl[e], var_at(va1, t.i(q), n1, hw, p),
-                              var_at(va2, t.j(q), n2, hw, p));
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < elems; e += kThreads) {
-      const int q = e / hw;
-      const int p = e - q * hw;
-      col[e] = col_sum(work + q * hw, p, p % w, w);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < elems; e += kThreads) {  // c1 = w2 S(t1) + b2; t2 = T(c1)
-      const int q = e / hw;
-      const int p = e - q * hw;
-      const float c1 = w2 * (row_sum(col + q * hw, p, p / w, h, w) / 9.0f) + b2;
-      work[e] = dual_act<ACT>(c1, var_at(vb1, t.i(q), n1, hw, p),
-                              var_at(vb2, t.j(q), n2, hw, p));
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < elems; e += kThreads) {
-      const int q = e / hw;
-      const int p = e - q * hw;
-      col[e] = col_sum(work + q * hw, p, p % w, w);
-    }
-    __syncthreads();
-    const bool conv_shortcut = mismatch && blk == 0;
-    if (conv_shortcut) {
-      // S(k)'s column sums, from the old k before it is overwritten; t2 is
-      // no longer needed, so they take its plane.
-      for (int e = threadIdx.x; e < elems; e += kThreads) {
-        const int q = e / hw;
-        const int p = e - q * hw;
-        work[e] = col_sum(kpl + q * hw, p, p % w, w);
+  for (int t = 0; t < rows + 2 * NB; ++t) {
+    float z = (L.active && t < rows) ? kp[t * rs] : 0.0f;   // k_0, row t
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int r = t - 2 * b;   // the row of k_b entering block b; z holds it
+      float t1 = 0.0f;           // T(k_b), 0 off the image
+      if (r >= 0 && r < rows) {
+        float va = 1.0f, vb = 1.0f;
+        if (L.active) {
+          va = __ldg(v1 + (2 * b * s1 + o1 + r * rs));
+          vb = __ldg(v2 + (2 * b * s2 + o2 + r * rs));
+        }
+        t1 = dual_act<ACT>(z, va, vb);
       }
-      __syncthreads();
-    }
-    for (int e = threadIdx.x; e < elems; e += kThreads) {
-      const int q = e / hw;
-      const int p = e - q * hw;
-      const int row = p / w;
-      const float s2 = row_sum(col + q * hw, p, row, h, w) / 9.0f;
-      if (conv_shortcut) {
-        const float sk = row_sum(work + q * hw, p, row, h, w) / 9.0f;
-        kpl[e] = (w2 * s2 + b2) + (w2 * sk + b2);
-      } else {
-        kpl[e] = kpl[e] + w2 * s2 + b2;
+      const float cs_a = lane_col_sum(t1, L, seg);
+      float sk = 0.0f;
+      if (MIS && b == 0) {        // S(k) of the old k at row r - 1
+        const float cs_k = lane_col_sum(z, L, seg);
+        sk = ((ccK + cpK) + cs_k) / 9.0f;
+        cpK = ccK;
+        ccK = cs_k;
       }
+      float t2 = 0.0f;           // t2 = T(c1) at row r - 1
+      const int ua = r - 1;
+      if (ua >= 0 && ua < rows) {
+        const float c1 = w2 * (((ccA[b] + cpA[b]) + cs_a) / 9.0f) + b2;
+        float va = 1.0f, vb = 1.0f;
+        if (L.active) {
+          va = __ldg(v1 + ((2 * b + 1) * s1 + o1 + ua * rs));
+          vb = __ldg(v2 + ((2 * b + 1) * s2 + o2 + ua * rs));
+        }
+        t2 = dual_act<ACT>(c1, va, vb);
+      }
+      cpA[b] = ccA[b];
+      ccA[b] = cs_a;
+      const float cs_b = lane_col_sum(t2, L, seg);
+      float next = 0.0f;         // k_{b+1} at row r - 2
+      const int ub = r - 2;
+      if (ub >= 0 && ub < rows) {
+        const float s2v = ((ccB[b] + cpB[b]) + cs_b) / 9.0f;
+        if (MIS && b == 0)
+          next = (w2 * s2v + b2) + (w2 * sk_held + b2);
+        else
+          next = kc2[b] + w2 * s2v + b2;
+      }
+      cpB[b] = ccB[b];
+      ccB[b] = cs_b;
+      kc2[b] = kc1[b];
+      kc1[b] = z;
+      if (MIS && b == 0) sk_held = sk;
+      z = next;
     }
-    __syncthreads();
-  }
-
-  for (int e = threadIdx.x; e < elems; e += kThreads) {
-    const int q = e / hw;
-    const int p = e - q * hw;
-    const int i = t.i(q);
-    const int j = t.j(q);
-    if (i < n1 && j < n2) k_out[((size_t)i * n2 + j) * hw + p] = kpl[e];
+    const int u = t - 2 * NB;    // the row of k_NB that z holds
+    if (L.active && u >= 0) {
+      out1[u * rs] = z;
+      if (mirror) out2[u * rs] = z;
+    }
   }
 }
 
@@ -296,17 +319,39 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+template <int ACT, int NB, bool MIS>
+cudaError_t launch_tail_nb(const float* k, const float* v1, const float* v2,
+                           const float* scales, float* out, int n1, int n2, const Geo& G,
+                           int same, cudaStream_t stream) {
+  const long long pairs = same ? (long long)n1 * (n1 + 1) / 2 : (long long)n1 * n2;
+  const long long warps = (pairs + (32 >> G.lg) - 1) / (32 >> G.lg);
+  const long long blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  resnet_tail_kernel<ACT, NB, MIS><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      k, v1, v2, scales, out, n1, n2, G, same);
+  return cudaGetLastError();
+}
+
+template <int ACT, bool MIS>
+cudaError_t launch_tail_mis(const float* k, const float* v1, const float* v2,
+                            const float* scales, float* out, int n1, int n2, const Geo& G,
+                            int nblocks, int same, cudaStream_t stream) {
+  switch (nblocks) {
+    case 1: return launch_tail_nb<ACT, 1, MIS>(k, v1, v2, scales, out, n1, n2, G, same, stream);
+    case 2: return launch_tail_nb<ACT, 2, MIS>(k, v1, v2, scales, out, n1, n2, G, same, stream);
+    case 3: return launch_tail_nb<ACT, 3, MIS>(k, v1, v2, scales, out, n1, n2, G, same, stream);
+    case 4: return launch_tail_nb<ACT, 4, MIS>(k, v1, v2, scales, out, n1, n2, G, same, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <int ACT>
 cudaError_t launch_tail(const float* k, const float* v1, const float* v2,
-                        const float* scales, float* out, int n1, int n2, int h, int w,
-                        int nblocks, int mismatch, int ti, int tj, cudaStream_t stream) {
-  const dim3 grid((n2 + tj - 1) / tj, (n1 + ti - 1) / ti);
-  const size_t smem = sizeof(float) * 3 * (size_t)h * w * ti * tj;
-  const cudaError_t err = allow_smem(resnet_tail_kernel<ACT>, smem);
-  if (err != cudaSuccess) return err;
-  resnet_tail_kernel<ACT><<<grid, kThreads, smem, stream>>>(
-      k, v1, v2, scales, out, n1, n2, h, w, nblocks, mismatch, ti, tj);
-  return cudaGetLastError();
+                        const float* scales, float* out, int n1, int n2, const Geo& G,
+                        int nblocks, int mismatch, int same, cudaStream_t stream) {
+  if (mismatch)
+    return launch_tail_mis<ACT, true>(k, v1, v2, scales, out, n1, n2, G, nblocks, same, stream);
+  return launch_tail_mis<ACT, false>(k, v1, v2, scales, out, n1, n2, G, nblocks, same, stream);
 }
 
 template <int ACT>
@@ -326,24 +371,31 @@ cudaError_t launch_strided(const float* k, const float* v1, const float* v2,
 
 }  // namespace
 
-// k, out [n1, n2, h*w]; v1 [2*nblocks, n1, h*w], v2 [2*nblocks, n2, h*w];
-// scales [w^2, b^2]: all fp32, contiguous, on the device of `stream`.
-// mismatch: block 0 takes the conv shortcut. act: 0 relu, 1 erf. (ti, tj):
-// the pairs of one block's tile, ti <= n1, tj <= n2; the caller checks that
-// the tile's shared memory fits. Returns the CUDA error code of the launch
-// (0 on success); does not synchronize.
+// k, out [n1, n2, lanes * rows]; v1 [2 * nblocks, n1, lanes * rows], v2
+// [2 * nblocks, n2, lanes * rows]; scales [w^2, b^2]: all fp32, contiguous,
+// on the device of `stream`. The state streams `rows` rows of `lanes` <= 32
+// columns in segments of 2^lg >= lanes lanes, element (r, c) at pixel r *
+// rstride + c * cstride. nblocks: 1 to 4 residual blocks; mismatch: block 0
+// takes the conv shortcut; act: 0 relu, 1 erf; same = 1: k is K(x, x)'s
+// state (bitwise symmetric, n1 == n2, v2 is v1), so each pair j <= i runs
+// once and writes (i, j) and (j, i). The caller checks that every variance
+// index fits an int. Returns the CUDA error code of the launch (0 on
+// success); does not synchronize.
 extern "C" int snngp_resnet_tail_f32(const float* k, const float* v1, const float* v2,
                                      const float* scales, float* out, int n1, int n2,
-                                     int h, int w, int nblocks, int mismatch, int act,
-                                     int ti, int tj, void* stream) {
+                                     int lanes, int rows, int lg, int rstride, int cstride,
+                                     int nblocks, int mismatch, int act, int same,
+                                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Geo G{lanes, rows, lg, rstride, cstride, lanes * rows};
+  if (lanes < 1 || lg > 5 || lanes > (1 << lg) || rows < 1 || nblocks < 1 ||
+      nblocks > kMaxTailBlocks || (same && n1 != n2))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (act == kRelu)
-    err = launch_tail<kRelu>(k, v1, v2, scales, out, n1, n2, h, w, nblocks, mismatch, ti,
-                             tj, s);
+    err = launch_tail<kRelu>(k, v1, v2, scales, out, n1, n2, G, nblocks, mismatch, same, s);
   else if (act == kErf)
-    err = launch_tail<kErf>(k, v1, v2, scales, out, n1, n2, h, w, nblocks, mismatch, ti,
-                            tj, s);
+    err = launch_tail<kErf>(k, v1, v2, scales, out, n1, n2, G, nblocks, mismatch, same, s);
   return static_cast<int>(err);
 }
 

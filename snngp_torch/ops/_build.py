@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers) and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under the
-repository's ``build/kernels/`` directory, keyed by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads at once.
+repository's ``build/kernels/`` directory, keyed by a hash of the source, the
+``csrc/*.cuh`` headers and the flags, so an edited source or header rebuilds
+and an unchanged one loads at once.
 ``nvcc``'s output (including ``-Xptxas -v``: registers, shared memory and
 spills per kernel) is kept beside the library as ``.log``.
 
@@ -46,8 +47,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, for its current source and flags."""
+    """Where ``csrc/<name>.cu`` builds to, for its current source, the
+    headers beside it and the flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

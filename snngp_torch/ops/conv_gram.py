@@ -19,7 +19,8 @@ devices, with the JAX package's ``trainable_inputs`` contract (as
 :mod:`snngp_torch.ops.gram` does for the MLP Gram):
 
 - forward: K3 (``csrc/conv_gram.cu``, :func:`conv_gram_cuda`) for a CUDA
-  tensor, :func:`conv_gram_plain` for a CPU tensor;
+  tensor, with ``same=True`` for K(x, x), :func:`conv_gram_plain` for a
+  CPU tensor;
 - backward with ``trainable_inputs=False`` (only the three scales are
   trained): the variance maps and their tangents (``torch.func.jvp``), then
   K4 (:func:`conv_gram_grads_cuda`) for a CUDA tensor or its plain version
@@ -48,7 +49,7 @@ from snngp_torch.ops.gram import _ACT_T, _ACT_T_PARTIALS, _ACTS, _post_act_var
 
 __all__ = ["cnn_gram", "conv_var_stack", "conv_gram_plain", "conv_gram_cuda",
            "conv_gram_tangents_plain", "conv_gram_grads_plain", "conv_gram_grads_cuda",
-           "MAX_HW", "LAUNCHES"]
+           "stream_geometry", "stream_warps", "MAX_HW", "LAUNCHES"]
 
 # Launches of each CUDA kernel in this process; the wrappers add one per
 # launch. "conv_gram" is K3, "conv_gram_grads" is K4.
@@ -56,10 +57,17 @@ LAUNCHES = {"conv_gram": 0, "conv_gram_grads": 0}
 
 MAX_HW = 1024          # the route's gate (arch.get_cnn_kernel), as in the JAX package
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
-# Pair-pixel elements one block keeps in flight: K3 holds two planes per
-# pair (k and the column sums), K4 six (k, dk/dw, dk/db and their sums).
-_K3_ELEMS, _K4_ELEMS = 4096, 2048
+# Pair-pixel elements one block of K4 keeps in flight: six planes per pair
+# (k, dk/dw, dk/db and their column sums).
+_K4_ELEMS = 2048
 _MAX_ROW_TILES = 65535  # grid.y limit
+# K3: conv layers a pass keeps in registers (kStages in csrc/conv_gram.cu),
+# warps a block, and the shared memory the per-warp planes of a deeper
+# network may take a block.
+STAGES = 4
+_WARPS = 8
+_PLANE_BUDGET = 64 * 1024
+_INT_MAX = 2**31 - 1
 
 
 def conv_var_stack(x: torch.Tensor, depth: int, act: str, w_std, b_std) -> torch.Tensor:
@@ -154,6 +162,45 @@ def conv_gram_grads_plain(x1, x2, v1s, v2s, dv1s, dv2s, scales, g, *, depth: int
 
 # -- the CUDA kernels -----------------------------------------------------------
 
+def stream_geometry(h: int, w: int):
+    """The streamed kernels' layout of an [h, w] state (K3, K5): (lanes,
+    rows, lg, rstride, cstride). Lane c of a segment of 2^lg >= lanes lanes
+    owns column c, so a warp holds 32 / 2^lg pairs, and the rows stream;
+    element (r, c) is pixel r * rstride + c * cstride. An image wider than
+    32 runs transposed (h w <= 1,024 keeps its h <= 32): its columns
+    stream and its rows take the lanes, which changes only the order of
+    the stencil's sums."""
+    if w > 32:
+        lanes, rows, strides = h, w, (1, w)
+    else:
+        lanes, rows, strides = w, h, (w, 1)
+    if not 1 <= lanes <= 32:
+        raise ValueError(f"{h} x {w}: the streamed kernels need a side of at most 32")
+    return lanes, rows, (lanes - 1).bit_length(), *strides
+
+
+def stream_warps(rows: int, depth: int):
+    """K3's block: (warps, dynamic shared bytes). A network deeper than
+    ``STAGES`` layers streams its state through one [rows][32] fp32 plane a
+    warp between passes, and the block takes as many warps as
+    ``_PLANE_BUDGET`` holds (at least one)."""
+    if depth <= STAGES:
+        return _WARPS, 0
+    plane = 4 * 32 * rows
+    warps = max(1, min(_WARPS, _PLANE_BUDGET // plane))
+    return warps, warps * plane
+
+
+def _check_same(same, pairs):
+    """``same=True`` (run the pairs j <= i and mirror them) only where each
+    second operand is its first: ``pairs`` maps a name to (first, second)."""
+    if not same:
+        return
+    for name, (a, b) in pairs.items():
+        if (a.data_ptr(), a.shape, a.stride()) != (b.data_ptr(), b.shape, b.stride()):
+            raise ValueError(f"same=True needs one operand twice; {name}2 is not {name}1")
+
+
 def tile_shape(hw: int, n1: int, n2: int, elems: int):
     """(ti, tj): the block's tile of ti x tj pairs, chosen at launch from the
     image size so that a block keeps about ``elems`` pair-pixels in flight
@@ -173,7 +220,7 @@ def _smem_bytes(hw, ti, tj, planes, row_planes):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv_gram")
     fn = lib.snngp_conv_gram_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.snngp_conv_gram_grads_f32
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
@@ -231,22 +278,29 @@ def _raise_on(lib, err, what):
                            f"({lib.snngp_conv_error_string(err).decode()})")
 
 
-def conv_gram_cuda(x1, x2, v1s, v2s, scales, *, depth: int, act: str):
+def conv_gram_cuda(x1, x2, v1s, v2s, scales, *, depth: int, act: str, same: bool = False):
     """Launch K3 (``csrc/conv_gram.cu``) on the current stream; same inputs
-    and result as :func:`conv_gram_plain`."""
+    and result as :func:`conv_gram_plain`. ``same=True`` says that x2 and
+    v2s are x1 and v1s: the kernel runs each pair j <= i once and writes
+    both entries, so K(x, x) is bitwise symmetric."""
+    _check_same(same, dict(x=(x1, x2), v=(v1s, v2s)))
     n1, n2, h, w, c = _check_cuda_inputs(dict(x1=x1, x2=x2, v1s=v1s, v2s=v2s,
                                               scales=scales), depth, act)
     if scales.shape != (4,):
         raise ValueError(f"scales must be [4]; got {tuple(scales.shape)}")
-    ti, tj = _launch_geometry(n1, n2, h * w, _K3_ELEMS, planes=2, row_planes=1)
+    if (depth + 1) * max(n1, n2) * h * w > _INT_MAX:
+        raise ValueError(f"{depth + 1} x {max(n1, n2)} variance maps of {h * w} pixels "
+                         "exceed the kernel's int indices")
+    lanes, rows, lg, rstride, cstride = stream_geometry(h, w)
+    warps, smem = stream_warps(rows, depth)
     lib = _lib()
     out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.snngp_conv_gram_f32(
             x1.data_ptr(), x2.data_ptr(), v1s.data_ptr(), v2s.data_ptr(),
-            scales.data_ptr(), out.data_ptr(), n1, n2, h, w, c, depth,
-            _ACTS[act], ti, tj, stream)
+            scales.data_ptr(), out.data_ptr(), n1, n2, lanes, rows, lg, rstride, cstride,
+            c, depth, _ACTS[act], int(same), warps, smem, stream)
     _raise_on(lib, err, "conv Gram kernel")
     LAUNCHES["conv_gram"] += 1
     return out
@@ -326,8 +380,9 @@ class _ConvGram(torch.autograd.Function):
         ctx.conf = (depth, act, trainable_inputs, same)
         if x1.device.type == "cpu":
             return conv_gram_plain(x1, x2, v1s, v2s, scales, depth=depth, act=act)
-        return conv_gram_cuda(x1.contiguous(), x2.contiguous(), v1s.contiguous(),
-                              v2s.contiguous(), scales, depth=depth, act=act)
+        a, v = x1.contiguous(), v1s.contiguous()
+        b, u = (a, v) if same else (x2.contiguous(), v2s.contiguous())
+        return conv_gram_cuda(a, b, v, u, scales, depth=depth, act=act, same=same)
 
     @staticmethod
     def backward(ctx, g):

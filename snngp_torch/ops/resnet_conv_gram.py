@@ -10,10 +10,11 @@ JAX package does:
 
 - the input moment and the initial conv in plain PyTorch (XLA in the JAX
   package);
-- group 1 (stride 1): one K5 launch over all its blocks, the first with a
-  conv shortcut (``mismatch``);
-- groups 2-4: one K6 launch for the leading stride-2 block, then one K5
-  launch over the remaining ``depth - 1`` blocks;
+- group 1 (stride 1): K5 over all its blocks, the first with a conv
+  shortcut (``mismatch``): one launch for up to four blocks, more chained
+  (:func:`tail_chunks`);
+- groups 2-4: one K6 launch for the leading stride-2 block, then K5 over
+  the remaining ``depth - 1`` blocks;
 - the readout ``last^2 mean_p k``.
 
 The variance maps (the diagonal recursion, O(N HW depth)) run outside the
@@ -21,6 +22,9 @@ kernels (:func:`tail_var_stack`, :func:`strided_var_pieces`). K6 computes
 its block at the reduced resolution directly: the stride-2 stencils are
 evaluated only at the (oh, ow) lattice points (:func:`_stride2_offsets`),
 where the TPU kernel ran at full resolution and XLA subsampled afterwards.
+For K(x, x) every K5 launch takes ``same=True``: the state entering each
+tail is bitwise symmetric, so the kernel runs the pairs j <= i and mirrors
+them.
 
 :func:`conv_resnet_gram` goes through one ``torch.autograd.Function``:
 the kernels for CUDA tensors, :func:`resnet_tail_plain` /
@@ -42,20 +46,24 @@ import functools
 import torch
 
 from snngp_torch.ops import _build
-from snngp_torch.ops.conv_gram import _MAX_ROW_TILES, _SMEM_LIMIT, _stencil, tile_shape
+from snngp_torch.ops.conv_gram import (_INT_MAX, _MAX_ROW_TILES, _SMEM_LIMIT, _check_same,
+                                       _stencil, stream_geometry, tile_shape)
 from snngp_torch.ops.gram import _ACT_T, _ACTS, _post_act_var
 
 __all__ = ["conv_resnet_gram", "tail_var_stack", "strided_var_pieces",
            "resnet_tail_plain", "strided_block_plain", "resnet_tail_cuda",
-           "strided_cuda", "MAX_HW", "LAUNCHES"]
+           "strided_cuda", "tail_chunks", "MAX_HW", "LAUNCHES"]
 
 # Launches of each CUDA kernel in this process; the wrappers add one per
 # launch. "resnet_tail" is K5, "resnet_strided" is K6.
 LAUNCHES = {"resnet_tail": 0, "resnet_strided": 0}
 
 MAX_HW = 1024     # the route's gate (arch.get_conv_resnet_kernel), as in the JAX package
-# Pair-pixels one block keeps in flight (K3's budget): 2 x 2 pairs at 32 x 32.
+# Pair-pixels one block of K6 keeps in flight: 2 x 2 pairs at 32 x 32.
 _ELEMS = 4096
+# Residual blocks one K5 launch pipelines (kMaxTailBlocks in
+# csrc/resnet_conv_gram.cu).
+MAX_TAIL_BLOCKS = 4
 
 
 def _stride2_offsets(h: int, w: int):
@@ -174,10 +182,12 @@ def strided_block_plain(k, v1s, v2s, scales, *, act: str, h: int, w: int):
 
 # -- the CUDA kernels -----------------------------------------------------------------
 
-def _tail_pair_floats(h, w):
-    """Shared floats per pair of K5: the carry k, a working plane and the
-    column sums."""
-    return 3 * h * w
+def tail_chunks(nblocks: int, mismatch: bool = False):
+    """K5's launches for a tail of ``nblocks`` blocks: (first block, blocks,
+    conv shortcut) each, at most ``MAX_TAIL_BLOCKS`` blocks a launch, in
+    order; only the first launch takes the conv shortcut."""
+    return [(first, min(MAX_TAIL_BLOCKS, nblocks - first), mismatch and first == 0)
+            for first in range(0, nblocks, MAX_TAIL_BLOCKS)]
 
 
 def _strided_pair_floats(h, w):
@@ -190,7 +200,7 @@ def _strided_pair_floats(h, w):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("resnet_conv_gram")
     fn = lib.snngp_resnet_tail_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.snngp_resnet_strided_f32
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -240,27 +250,38 @@ def _raise_on(lib, err, what):
 
 
 def resnet_tail_cuda(k, v1s, v2s, scales, *, nblocks: int, act: str, h: int, w: int,
-                     mismatch: bool = False):
-    """Launch K5 (``csrc/resnet_conv_gram.cu``) on the current stream; same
-    inputs and result as :func:`resnet_tail_plain`."""
+                     mismatch: bool = False, same: bool = False):
+    """Launch K5 (``csrc/resnet_conv_gram.cu``) on the current stream, one
+    launch per :func:`tail_chunks` entry; same inputs and result as
+    :func:`resnet_tail_plain`. ``same=True`` says that k is K(x, x)'s state
+    (bitwise symmetric) and v2s is v1s: the kernel runs each pair j <= i
+    once and writes both entries."""
+    _check_same(same, dict(v=(v1s, v2s)))
+    if same and (k.ndim != 3 or k.shape[0] != k.shape[1]):
+        raise ValueError(f"same=True needs K(x, x)'s state; got k {tuple(k.shape)}")
     n1, n2 = _check_cuda_inputs(dict(k=k, v1s=v1s, v2s=v2s, scales=scales), act, h, w)
     if nblocks < 1:
         raise ValueError(f"nblocks {nblocks} < 1")
     if v1s.shape != (2 * nblocks, n1, h * w) or v2s.shape != (2 * nblocks, n2, h * w):
         raise ValueError(f"variance rows {tuple(v1s.shape)}, {tuple(v2s.shape)} do not "
                          f"match {nblocks} blocks, n = ({n1}, {n2}) and HW = {h * w}")
-    ti, tj = _launch_geometry(n1, n2, h * w, _tail_pair_floats(h, w))
+    if 2 * MAX_TAIL_BLOCKS * max(n1, n2) * h * w > _INT_MAX:
+        raise ValueError(f"{max(n1, n2)} variance rows of {h * w} pixels exceed the "
+                         "kernel's int indices")
+    lanes, rows, lg, rstride, cstride = stream_geometry(h, w)
     lib = _lib()
-    out = torch.empty_like(k)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.snngp_resnet_tail_f32(
-            k.data_ptr(), v1s.data_ptr(), v2s.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), n1, n2, h, w, nblocks, int(mismatch), _ACTS[act], ti, tj,
-            stream)
-    _raise_on(lib, err, "resnet tail kernel")
-    LAUNCHES["resnet_tail"] += 1
-    return out
+        for first, count, shortcut in tail_chunks(nblocks, mismatch):
+            out = torch.empty_like(k)
+            err = lib.snngp_resnet_tail_f32(
+                k.data_ptr(), v1s[2 * first].data_ptr(), v2s[2 * first].data_ptr(),
+                scales.data_ptr(), out.data_ptr(), n1, n2, lanes, rows, lg, rstride,
+                cstride, count, int(shortcut), _ACTS[act], int(same), stream)
+            _raise_on(lib, err, "resnet tail kernel")
+            LAUNCHES["resnet_tail"] += 1
+            k = out
+    return k
 
 
 def strided_cuda(k, v1s, v2s, scales, *, act: str, h: int, w: int):
@@ -313,9 +334,11 @@ def _front(x1, x2, w2, b2, same):
 
 def _resnet_forward(x1, x2, w, b, last, depth, act, same):
     """The Gram through K5 / K6 on CUDA tensors, their plain versions on
-    CPU tensors (``_conv_resnet_gram`` in the JAX package)."""
+    CPU tensors (``_conv_resnet_gram`` in the JAX package); K(x, x) takes
+    K5's symmetric launch."""
     plain = x1.device.type == "cpu"
-    tail_fn = resnet_tail_plain if plain else resnet_tail_cuda
+    tail_fn = (resnet_tail_plain if plain
+               else functools.partial(resnet_tail_cuda, same=same))
     strided_fn = strided_block_plain if plain else strided_cuda
     w2, b2 = w * w, b * b
     scales = torch.stack([w2, b2])

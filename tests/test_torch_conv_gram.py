@@ -18,6 +18,8 @@ tests/test_pallas.py does). Tolerances:
   atol of 1e-6 of the largest entry, the bar of tests/test_torch_grad.py.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,13 +162,141 @@ def test_get_cnn_kernel_routes_by_image_size(monkeypatch):
 
 
 def test_tile_shape_follows_the_image_size():
-    assert TCG.tile_shape(1024, 100, 200, TCG._K3_ELEMS) == (2, 2)
-    assert TCG.tile_shape(64, 300, 300, TCG._K3_ELEMS) == (8, 8)
+    # 4,096 pair-pixels a block (K6's budget), 2,048 (K4's).
+    assert TCG.tile_shape(1024, 100, 200, 4096) == (2, 2)
+    assert TCG.tile_shape(64, 300, 300, 4096) == (8, 8)
     assert TCG.tile_shape(1024, 100, 200, TCG._K4_ELEMS) == (1, 2)
-    assert TCG.tile_shape(1, 3, 500, TCG._K3_ELEMS) == (3, 64)   # cut to n1
+    assert TCG.tile_shape(1, 3, 500, 4096) == (3, 64)   # cut to n1
     for hw in (1, 30, 64, 784, 1024):
         ti, tj = TCG.tile_shape(hw, 10_000, 10_000, TCG._K4_ELEMS)
         assert TCG._smem_bytes(hw, ti, tj, 6, 3) <= TCG._SMEM_LIMIT
+
+
+# -- K3's streamed launch (pure Python: what the wrapper passes) -------------------
+
+# (h, w) -> (lanes, rows, lg, rstride, cstride): the widths of the CIFAR,
+# MNIST and synthetic images and of the WideResNet's groups, and images
+# wider than 32, which stream transposed.
+GEOMETRY = {(32, 32): (32, 32, 5, 32, 1), (28, 28): (28, 28, 5, 28, 1),
+            (16, 16): (16, 16, 4, 16, 1), (8, 8): (8, 8, 3, 8, 1), (7, 7): (7, 7, 3, 7, 1),
+            (4, 4): (4, 4, 2, 4, 1), (6, 5): (5, 6, 3, 5, 1), (5, 40): (5, 40, 3, 1, 40),
+            (8, 100): (8, 100, 3, 1, 100), (1, 1024): (1, 1024, 0, 1, 1024),
+            (1024, 1): (1, 1024, 0, 1, 1)}
+
+
+@pytest.mark.parametrize("hw", list(GEOMETRY), ids=[f"{h}x{w}" for h, w in GEOMETRY])
+def test_stream_geometry_segments_and_transposes(hw):
+    lanes, rows, lg, rs, cs = TCG.stream_geometry(*hw)
+    assert (lanes, rows, lg, rs, cs) == GEOMETRY[hw]
+    assert lanes <= 2 ** lg < 2 * lanes
+    assert lanes * rows == hw[0] * hw[1]
+    # Element (r, c) of the streamed state is pixel r * rs + c * cs: each
+    # pixel once.
+    pix = sorted(r * rs + c * cs for r in range(rows) for c in range(lanes))
+    assert pix == list(range(hw[0] * hw[1]))
+
+
+def _tri_pair(p):
+    """Pair p of a symmetric launch, as ``tri_pair`` in csrc/stream.cuh
+    decodes it: the n (n + 1) / 2 pairs (i, j), j <= i, in row order,
+    p = i (i + 1) / 2 + j (the double root, then exact fix-ups)."""
+    r = int((math.sqrt(8.0 * p + 1.0) - 1.0) * 0.5)
+    while r * (r + 1) // 2 > p:
+        r -= 1
+    while (r + 1) * (r + 2) // 2 <= p:
+        r += 1
+    return r, p - r * (r + 1) // 2
+
+
+def _lane_map(n1, n2, lanes, lg, same, warps=8):
+    """(pair i, pair j, column) of every active lane of a launch, as
+    ``StreamLane`` in csrc/stream.cuh maps them."""
+    pairs = n1 * (n1 + 1) // 2 if same else n1 * n2
+    per_warp = 32 >> lg
+    blocks = -(-(-(-pairs // per_warp)) // warps)
+    out = []
+    for warp in range(blocks * warps):
+        for lane in range(32):
+            c, p = lane & ((1 << lg) - 1), warp * per_warp + (lane >> lg)
+            if p < pairs and c < lanes:
+                i, j = _tri_pair(p) if same else divmod(p, n2)
+                out.append((i, j, c))
+    return out
+
+
+@pytest.mark.parametrize("same", [False, True], ids=["x1,x2", "x,x"])
+@pytest.mark.parametrize("hw", [(32, 32), (7, 7), (4, 4), (5, 40), (1, 1024)],
+                         ids=["32x32", "7x7", "4x4", "5x40", "1x1024"])
+def test_streamed_lanes_cover_each_pair_and_column_once(hw, same):
+    lanes, _, lg, _, _ = TCG.stream_geometry(*hw)
+    n1, n2 = (13, 13) if same else (13, 5)
+    got = _lane_map(n1, n2, lanes, lg, same)
+    want = [(i, j, c) for i in range(n1) for j in range(i + 1 if same else n2)
+            for c in range(lanes)]
+    assert sorted(got) == sorted(want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 17, 200])
+def test_tri_pair_enumerates_the_lower_triangle_once(n):
+    got = [_tri_pair(p) for p in range(n * (n + 1) // 2)]
+    assert got == [(i, j) for i in range(n) for j in range(i + 1)]
+
+
+def test_tri_pair_is_exact_at_large_pair_indices():
+    for n in (46_341, 100_000, 1_000_000):
+        last = n * (n + 1) // 2 - 1
+        for p in (last, last - n + 1, last - n, (n // 2) * (n // 2 + 1) // 2):
+            i, j = _tri_pair(p)
+            assert 0 <= j <= i < n and i * (i + 1) // 2 + j == p
+
+
+def test_stream_warps_take_a_plane_only_for_deep_networks():
+    assert TCG.stream_warps(32, 1) == (8, 0)
+    assert TCG.stream_warps(32, TCG.STAGES) == (8, 0)
+    assert TCG.stream_warps(32, TCG.STAGES + 1) == (8, 8 * 32 * 32 * 4)
+    assert TCG.stream_warps(1024, 10) == (1, 32 * 1024 * 4)
+    for rows in (1, 7, 32, 100, 1024):
+        warps, smem = TCG.stream_warps(rows, 10)
+        assert 1 <= warps <= 8 and smem == warps * rows * 128 <= TCG._SMEM_LIMIT
+
+
+def _transposed(x, v, h, w):
+    """Images [N, H, W, C] and variance maps [L, N, H W] of the transposed
+    images."""
+    t = v.reshape(v.shape[:2] + (h, w)).transpose(-1, -2)
+    return x.transpose(1, 2).contiguous(), t.reshape(v.shape).contiguous()
+
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("hw", [(9, 7), (5, 40)], ids=["9x7", "5x40"])
+def test_conv_gram_plain_is_unchanged_by_transposing_the_images(hw, act):
+    # The identity the wide-image launch rests on: the 3 x 3 SAME mean
+    # commutes with transposition, only its sums' order changes (1e-6 of
+    # max|K|).
+    h, w = hw
+    x1, x2 = to_torch(*randn(21, (4, h, w, 2), (3, h, w, 2)))
+    wt, bt = torch.tensor(1.3), torch.tensor(0.2)
+    v1 = TCG._flat_stack(x1, 3, act, wt, bt)
+    v2 = TCG._flat_stack(x2, 3, act, wt, bt)
+    scales = torch.tensor([1.69, 0.04, 0.81, 0.5])
+    want = TCG.conv_gram_plain(x1, x2, v1, v2, scales, depth=3, act=act)
+    t1, u1 = _transposed(x1, v1, h, w)
+    t2, u2 = _transposed(x2, v2, h, w)
+    got = TCG.conv_gram_plain(t1, t2, u1, u2, scales, depth=3, act=act)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.parametrize("other", ["x", "v"])
+def test_conv_gram_cuda_refuses_same_for_two_operands(other):
+    """same=True mirrors the lower triangle, so the wrapper takes it only
+    when x2 and v2s are x1's and v1s."""
+    x1, _ = _images(9, "8x8x1")
+    a = to_torch(x1)
+    v = TCG._flat_stack(a, 2, "relu", torch.tensor(1.3), torch.tensor(0.2))
+    args = dict(x=(a, a.clone() if other == "x" else a), v=(v, v.clone() if other == "v" else v))
+    with pytest.raises(ValueError, match=f"same=True.*{other}2 is not {other}1"):
+        TCG.conv_gram_cuda(*args["x"], *args["v"], torch.ones(4), depth=2, act="relu",
+                           same=True)
 
 
 def test_cuda_wrappers_reject_cpu_tensors_and_count_no_launch():
@@ -292,3 +422,35 @@ def test_cuda_kernels_match_plain_versions(cuda_device, act):
         _, *tangents = TCG.conv_gram_tangents_plain(*args[:-1], depth=3, act=act)
         scale = torch.stack([(gt.double().abs() * t.double().abs()).sum() for t in tangents])
         assert bool(((sums - want).abs() <= 1e-5 * scale).all())
+
+
+# (h, w, c, depth): the widths of the synthetic, MNIST and CIFAR images and
+# of narrow states (4, 7, 8, 16, 28), an image wider than 32 (transposed),
+# and depths that take one pass and three.
+STREAMED_CASES = [(4, 4, 1, 3), (7, 7, 2, 4), (8, 8, 1, 4), (16, 16, 3, 2), (28, 28, 1, 4),
+                  (5, 40, 1, 3), (6, 5, 2, 10)]
+
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("h,w,c,depth", STREAMED_CASES,
+                         ids=[f"{h}x{w}x{c}-d{d}" for h, w, c, d in STREAMED_CASES])
+def test_cuda_streamed_k3_is_symmetric_repeatable_and_matches_plain(cuda_device, act, h, w,
+                                                                    c, depth):
+    # K3 within 1e-5 of max|K| of its plain version on two operands and on
+    # one (same=True), a symmetric launch bitwise symmetric, a second launch
+    # bitwise equal. Runs only on a CUDA card.
+    x1, x2 = randn(22, (19, h, w, c), (11, h, w, c))
+    with torch.inference_mode():
+        a, b = (t.to(cuda_device) for t in to_torch(x1, x2))
+        wt, bt = (torch.tensor(v, device=cuda_device) for v in (1.3, 0.2))
+        v1 = TCG._flat_stack(a, depth, act, wt, bt).contiguous()
+        v2 = TCG._flat_stack(b, depth, act, wt, bt).contiguous()
+        s4 = torch.tensor([1.69, 0.04, 0.81, 1.0 / c], device=cuda_device)
+        for args, same in (((a, b, v1, v2), False), ((a, a, v1, v1), True)):
+            k = TCG.conv_gram_cuda(*args, s4, depth=depth, act=act, same=same)
+            again = TCG.conv_gram_cuda(*args, s4, depth=depth, act=act, same=same)
+            want = TCG.conv_gram_plain(*args, s4, depth=depth, act=act)
+            assert (k - want).abs().max() <= 1e-5 * want.abs().max()
+            assert torch.equal(k, again)
+            if same:
+                assert torch.equal(k, k.T)

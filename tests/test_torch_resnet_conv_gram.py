@@ -327,12 +327,65 @@ def test_get_conv_resnet_kernel_routes_by_image_size(monkeypatch):
 
 
 def test_launch_geometry_fits_shared_memory():
-    # 2 x 2 pairs at 32 x 32, as K3; every image size up to 1,024 pixels fits.
-    assert TRG._launch_geometry(200, 200, 1024, TRG._tail_pair_floats(32, 32)) == (2, 2)
+    # K6: 2 x 2 pairs at 32 x 32; every image size up to 1,024 pixels fits.
+    # K5 keeps no shared memory: its streamed layout takes every such size.
+    assert TRG._launch_geometry(200, 200, 1024, TRG._strided_pair_floats(32, 32)) == (2, 2)
     assert TRG._launch_geometry(200, 200, 64, TRG._strided_pair_floats(8, 8)) == (8, 8)
     for h, w in [(32, 32), (7, 7), (6, 10), (1, 1024), (1024, 1), (4, 4)]:
-        for floats in (TRG._tail_pair_floats(h, w), TRG._strided_pair_floats(h, w)):
-            TRG._launch_geometry(10_000, 10_000, h * w, floats)
+        TRG._launch_geometry(10_000, 10_000, h * w, TRG._strided_pair_floats(h, w))
+        lanes, rows, _, _, _ = TRG.stream_geometry(h, w)
+        assert lanes <= 32 and lanes * rows == h * w
+
+
+@pytest.mark.parametrize("nblocks", range(1, 10))
+@pytest.mark.parametrize("mismatch", [True, False])
+def test_tail_chunks_chain_the_blocks(nblocks, mismatch):
+    # At most four blocks a K5 launch, in order, the conv shortcut in the
+    # first launch only; SVSP's depth 4 (group 1) and 3 (groups 2-4) take one.
+    chunks = TRG.tail_chunks(nblocks, mismatch)
+    assert [b for first, count, _ in chunks for b in range(first, first + count)] == \
+        list(range(nblocks))
+    assert all(1 <= count <= TRG.MAX_TAIL_BLOCKS for _, count, _ in chunks)
+    assert [sc for _, _, sc in chunks] == [mismatch] + [False] * (len(chunks) - 1)
+    assert len(chunks) == (1 if nblocks <= 4 else -(-nblocks // 4))
+
+
+def _transposed_rows(z, h, w):
+    """[..., H W] -> [..., W H]: the state of the transposed images."""
+    return z.reshape(z.shape[:-1] + (h, w)).transpose(-1, -2).reshape(z.shape).contiguous()
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("hw", [(9, 7), (5, 40)], ids=["9x7", "5x40"])
+def test_resnet_tail_plain_is_unchanged_by_transposing_the_state(hw, act):
+    # The identity the wide-image launch rests on: the 3 x 3 SAME mean
+    # commutes with transposition, only its sums' order changes (1e-6 of
+    # max|K|).
+    h, w = hw
+    k, v1, v2 = _state(23, 4, 3, h, w)
+    tv1, tv2 = to_torch(v1, v2)
+    s1, _ = TRG.tail_var_stack(tv1, 2, act, torch.tensor(W), torch.tensor(B), True)
+    s2, _ = TRG.tail_var_stack(tv2, 2, act, torch.tensor(W), torch.tensor(B), True)
+    args = (to_torch(k).reshape(4, 3, h * w), TRG._flat(s1), TRG._flat(s2))
+    kw = dict(nblocks=2, act=act, mismatch=True)
+    want = TRG.resnet_tail_plain(*args, _scales(), h=h, w=w, **kw)
+    got = TRG.resnet_tail_plain(*(_transposed_rows(z, h, w) for z in args), _scales(), h=w,
+                                w=h, **kw)
+    assert (_transposed_rows(got, w, h) - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def test_resnet_tail_cuda_refuses_same_for_two_operands():
+    """same=True mirrors the lower triangle, so the wrapper takes it only
+    for K(x, x)'s state with v2s v1s."""
+    k, _, _ = _state(24, 3, 3, 4, 4)
+    kt = to_torch(k).reshape(3, 3, 16)
+    rows = torch.ones(2, 3, 16)
+    with pytest.raises(ValueError, match="same=True.*v2 is not v1"):
+        TRG.resnet_tail_cuda(kt, rows, rows.clone(), _scales(), nblocks=1, act="relu", h=4,
+                             w=4, same=True)
+    with pytest.raises(ValueError, match="same=True"):
+        TRG.resnet_tail_cuda(kt[:, :2].contiguous(), rows, rows, _scales(), nblocks=1,
+                             act="relu", h=4, w=4, same=True)
 
 
 def test_cuda_wrappers_reject_cpu_tensors_and_count_no_launch():
@@ -378,3 +431,40 @@ def test_cuda_kernels_match_plain_versions(cuda_device, act):
         want = TRG.strided_block_plain(*args, act=act, h=9, w=7)
         assert got.shape == (37, 21, 20)
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+# (h, w, nblocks, mismatch): the widths of the WideResNet's groups and of
+# narrow states (4, 7, 8, 16, 28), an image wider than 32 (transposed), and
+# a tail of five blocks, chained over two launches.
+STREAMED_CASES = [(4, 4, 3, False), (7, 7, 2, True), (8, 8, 3, False), (16, 16, 3, False),
+                  (28, 28, 4, True), (5, 40, 2, True), (6, 10, 5, True)]
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("h,w,nblocks,mismatch", STREAMED_CASES,
+                         ids=[f"{h}x{w}-{n}{'+sc' if m else ''}"
+                              for h, w, n, m in STREAMED_CASES])
+def test_cuda_streamed_k5_is_symmetric_repeatable_and_matches_plain(cuda_device, act, h, w,
+                                                                    nblocks, mismatch):
+    # K5 within 1e-5 of max|K| of its plain version on a cross state and on
+    # K(x, x)'s (same=True), a symmetric launch bitwise symmetric, a second
+    # launch bitwise equal. Runs only on a CUDA card.
+    x1, x2 = _images(25, (h, w), n1=17, n2=9)
+    with torch.inference_mode():
+        a, b = (t.to(cuda_device) for t in to_torch(x1, x2))
+        wt, bt = (torch.tensor(v, device=cuda_device) for v in (W, B))
+        scales = torch.stack([wt * wt, bt * bt])
+        kw = dict(nblocks=nblocks, act=act, h=h, w=w, mismatch=mismatch)
+        for x, y, same in ((a, b, False), (a, a, True)):
+            k, v1, v2 = TRG._front(x, y, wt * wt, bt * bt, same)
+            s1, _ = TRG.tail_var_stack(v1, nblocks, act, wt, bt, mismatch)
+            s2 = s1 if same else TRG.tail_var_stack(v2, nblocks, act, wt, bt, mismatch)[0]
+            args = (k.reshape(k.shape[0], k.shape[1], h * w).contiguous(), TRG._flat(s1),
+                    TRG._flat(s2), scales)
+            got = TRG.resnet_tail_cuda(*args, **kw, same=same)
+            again = TRG.resnet_tail_cuda(*args, **kw, same=same)
+            want = TRG.resnet_tail_plain(*args, **kw)
+            assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+            assert torch.equal(got, again)
+            if same:
+                assert torch.equal(got, got.transpose(0, 1))
