@@ -240,15 +240,21 @@ def _read_launches(path, kernels):
     return counts
 
 
+def card():
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+
+
 def phase0_setup():
     import torch
     from snngp_torch.ops import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
-    print(card)
+    name_and_limit = card()
+    print(name_and_limit)
     print(f"[setup] torch {torch.__version__}  CUDA {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
     # One nvcc per source, all started together.
@@ -262,13 +268,9 @@ def phase0_setup():
     for name in sources:
         print(f"[setup] {name}.cu {'loaded (cached build)' if built[name] else 'built'}; "
               f"all builds {build_s:.2f} s")
-        log = _build.library_path(name).with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if ("Function properties" in line or "registers" in line
-                        or "spill" in line or "Compiling entry" in line):
-                    print(f"[setup] ptxas {name}: {line.strip()}")
-    return card
+        for line in _build.ptxas_report(name):
+            print(f"[setup] ptxas {name}: {line}")
+    return name_and_limit
 
 
 def phase1_kernel_vs_plain():
@@ -310,7 +312,7 @@ def phase1_kernel_vs_plain():
                         f"K1 {mode}/{act} at {shape_name}: rel_err {rel_err:.3e} "
                         f"(tol {KERNEL_REL_TOL}), finite={finite}")
                 worst_abs = max(worst_abs, abs_err)
-                nbytes = sum(t.numel() * 4 for t in {id(t): t for t in args}.values())
+                nbytes = _read_bytes(args)
                 bound, by = bound_ms(nbytes + n1 * x2.shape[0] * 4,
                                      k1_ops(n1, x2.shape[0], d, DEPTH, act, mode, x2 is x1))
                 rows[f"{mode}/{act}/{shape_name}"] = dict(
@@ -339,6 +341,13 @@ def _pairs(n1, n2, same):
     lower triangle mirrors its upper one (K7 runs only those), else
     n1 n2."""
     return n1 * (n1 + 1) // 2 if same else n1 * n2
+
+
+def _read_bytes(tensors):
+    """Bytes of ``tensors`` read once each: views of one storage (K(x, x)'s
+    second operand) count once."""
+    seen = {(t.data_ptr(), t.numel()): t for t in tensors}
+    return sum(t.numel() * t.element_size() for t in seen.values())
 
 
 def k1_ops(n1, n2, d, depth, act, mode, same):
@@ -404,7 +413,7 @@ def _k2_check(args, g, kw, label):
         raise AssertionError(f"K2 {label}: rel_err {rel:.3e} (tol {K2_REL_TOL}), "
                              f"finite={finite}")
     n1, n2 = g.shape
-    nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in args}.values())
+    nbytes = (_read_bytes(args)
               + g.numel() * 4 + 3 * (-(-n1 // 64)) * (-(-n2 // 64)) * 8)
     bound, by = bound_ms(nbytes, *k2_ops(n1, n2, args[0].shape[1], kw["depth"],
                                           kw["act"], kw["mode"], args[1] is args[0]))
@@ -559,7 +568,7 @@ def phase7_k3_vs_plain():
             sym = (k_kernel - k_kernel.T).abs().max().item() if same else float("nan")
             ms = _time_ms(lambda: CG.conv_gram_cuda(*args, **kw, same=same))
             plain_ms = _time_ms(lambda: CG.conv_gram_plain(*args, **kw), reps=2)
-            nbytes = sum(t.numel() * 4 for t in {id(t): t for t in args}.values()) + n1 * n2 * 4
+            nbytes = _read_bytes(args) + n1 * n2 * 4
             bound, by = bound_ms(nbytes, k3_ops(n1, n2, h * w, c, depth, act, same))
             print(f"[K3] {act:4s} {label:24s} rel_err {rel_err:.3e} abs_err {abs_err:.3e}  "
                   f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound {bound:.3f} ms ({by}, "
@@ -620,7 +629,7 @@ def _k4_cases():
             ms = _time_ms(lambda: CG.conv_gram_grads_cuda(*args, g, **kw))
             plain_ms = _time_ms(lambda: CG.conv_gram_grads_plain(*args, g, **kw), reps=2)
             blocks = CG.tile_shape(h * w, n1, n2, CG._K4_ELEMS)
-            nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in args}.values())
+            nbytes = (_read_bytes(args)
                       + g.numel() * 4
                       + 3 * 8 * (-(-n1 // blocks[0])) * (-(-n2 // blocks[1])))
             bound, by = bound_ms(nbytes, *k4_ops(n1, n2, h * w, c, depth, act, same))
@@ -1504,9 +1513,10 @@ def phase11_k5_k6_vs_plain():
                else float("nan"))
         ms = _time_ms(lambda: cuda_fn(*args, **kw))
         plain_ms = _time_ms(lambda: plain_fn(*args, **kw), reps=2)
-        tensors = [args[0], *args[1:3]] if kernel == "K5" else [args[0], *args[1], *args[2]]
-        nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in tensors}.values())
-                  + k_kernel.numel() * 4 + 8)
+        # The state: K(x, x)'s function needs one triangle of it.
+        rows_in = list(args[1:3]) if kernel == "K5" else [*args[1], *args[2]]
+        nbytes = (_pairs(n1, n2, same) * h * w * 4 + _read_bytes([*rows_in, args[3]])
+                  + k_kernel.numel() * 4)
         ops = (k5_ops(n1, n2, h * w, nblocks, act, mismatch, same) if kernel == "K5"
                else k6_ops(n1, n2, h, w, act, same))
         bound, by = bound_ms(nbytes, ops)
@@ -1715,7 +1725,7 @@ def _k7_check(label, x1, x2, depth, act, mode, time_it=False, vs_fp64=False):
         row["ms"] = events[0].elapsed_time(events[1])
         row["plain_ms"] = events[2].elapsed_time(events[3])
         n1, n2, h, c = x1.shape[0], x2.shape[0], x1.shape[1], x1.shape[3]
-        nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in args}.values())
+        nbytes = (_read_bytes(args)
                   + 4 * sum(g.numel() for g in got))
         row["bound_ms"], row["bound_by"] = bound_ms(
             nbytes, *k7_ops(n1, n2, h, c, depth, act, same, len(mode)))

@@ -48,9 +48,10 @@
 // times last2 / HW. kStages layers run in registers a pass; a deeper
 // network streams the state through a per-warp plane of shared memory
 // between passes ([rows][32] floats, read and written by its own lane, no
-// barrier). No shared memory holds the state otherwise, no barrier runs,
-// and the row loop's addresses advance by a stride: no integer division in
-// it. Narrow images: a segment is seg = 2^lg >= the image's columns lanes
+// barrier), the launch sizing its block to what kPlaneBudget holds. No
+// shared memory holds the state otherwise, no barrier runs, and the row
+// loop's addresses advance by a stride: no integer division in it. Narrow
+// images: a segment is seg = 2^lg >= the image's columns lanes
 // wide and a warp holds 32 / seg pairs (8 x 8: four), the shuffles taking
 // `width` seg. An image wider than 32 columns (h w <= 1,024 gives h <= 32
 // then) streams transposed: the wrapper swaps the strides (rstride,
@@ -91,6 +92,11 @@ constexpr int kWarps = kThreads / 32;
 // ms, 5 blocks 0.464 ms, 6 blocks (40 registers) 0.468 ms.
 constexpr int kStages = 4;
 constexpr int kConvBlocksPerSM = 5;
+// K3 deeper than kStages layers: the per-warp planes may take this many
+// bytes of shared memory a block (at least one warp's plane), and no block
+// may take more than Hopper's opt-in limit.
+constexpr int kPlaneBudget = 64 * 1024;
+constexpr int kSmemLimit = 232448;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInv2Pi = 0.15915494309189533577f;
 constexpr float kInv4Pi = 0.07957747154594766788f;
@@ -440,10 +446,17 @@ size_t smem_bytes(int hw, int ti, int tj, int planes, int row_planes) {
   return sizeof(float) * (size_t)hw * ((size_t)planes * ti * tj + (size_t)row_planes * (ti + tj));
 }
 
+// K3's launch: kWarps warps a block; deeper than kStages layers, as many
+// warps as kPlaneBudget bytes of [rows][32]-float planes hold (at least
+// one), with one plane a warp.
 template <int ACT>
 cudaError_t launch(const float* x1, const float* x2, const float* v1, const float* v2,
                    const float* scales, float* out, int n1, int n2, const Geo& G, int c,
-                   int depth, int same, int warps, int smem, cudaStream_t stream) {
+                   int depth, int same, cudaStream_t stream) {
+  const int plane = depth > kStages ? G.rows * 32 * (int)sizeof(float) : 0;
+  const int warps = plane > 0 ? max(1, min(kWarps, kPlaneBudget / plane)) : kWarps;
+  const int smem = warps * plane;
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
   const long long pairs = same ? (long long)n1 * (n1 + 1) / 2 : (long long)n1 * n2;
   const long long lane_warps = (pairs + (32 >> G.lg) - 1) / (32 >> G.lg);
   const long long blocks = (lane_warps + warps - 1) / warps;
@@ -478,28 +491,24 @@ cudaError_t launch_grads(const float* x1, const float* x2, const float* v1,
 // columns (lanes * rows = h * w) in segments of 2^lg >= lanes lanes, pixel
 // (r, col) at r * rstride + col * cstride. act: 0 relu, 1 erf; same = 1: x2
 // is x1 and v2 is v1 (n1 == n2), so each pair j <= i runs once and writes
-// (i, j) and (j, i). `warps` a block (1 to 8) and `smem` bytes of dynamic
-// shared memory: warps * rows * 128 when depth > 4, else 0. The caller
-// checks that every variance index fits an int. Returns the CUDA error
-// code of the launch (0 on success); does not synchronize.
+// (i, j) and (j, i). The caller checks that every variance index fits an
+// int. Returns the CUDA error code of the launch (0 on success); does not
+// synchronize.
 extern "C" int snngp_conv_gram_f32(const float* x1, const float* x2, const float* v1,
                                    const float* v2, const float* scales, float* out,
                                    int n1, int n2, int lanes, int rows, int lg, int rstride,
                                    int cstride, int c, int depth, int act, int same,
-                                   int warps, int smem, void* stream) {
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo G{lanes, rows, lg, rstride, cstride, lanes * rows};
-  const int want = depth > kStages ? warps * rows * 32 * (int)sizeof(float) : 0;
   if (lanes < 1 || lg > 5 || lanes > (1 << lg) || rows < 1 || c < 1 || depth < 0 ||
-      warps < 1 || warps > kWarps || smem != want || (same && n1 != n2))
+      (same && n1 != n2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (act == kRelu)
-    err = launch<kRelu>(x1, x2, v1, v2, scales, out, n1, n2, G, c, depth, same, warps, smem,
-                        s);
+    err = launch<kRelu>(x1, x2, v1, v2, scales, out, n1, n2, G, c, depth, same, s);
   else if (act == kErf)
-    err = launch<kErf>(x1, x2, v1, v2, scales, out, n1, n2, G, c, depth, same, warps, smem,
-                       s);
+    err = launch<kErf>(x1, x2, v1, v2, scales, out, n1, n2, G, c, depth, same, s);
   return static_cast<int>(err);
 }
 

@@ -76,12 +76,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-// K5: at most this many residual blocks a launch (the wrapper chains
-// launches for a deeper tail), and its blocks an SM (the __launch_bounds__
-// minimum): 4 x 256 threads leave each thread 64 registers, and ptxas
-// spills 48-56 bytes in the four-block instantiations. On an H100 (700 W)
-// at 200 x 200 pairs of 32 x 32 states, four blocks with the conv
-// shortcut, relu, symmetric: 3 blocks an SM (80 registers, no spill)
+// K5: at most this many residual blocks a launch (the wrapper reads it
+// through snngp_resnet_tail_max_blocks and chains launches for a deeper
+// tail), and its blocks an SM (the __launch_bounds__ minimum): 4 x 256
+// threads leave each thread 64 registers, and ptxas spills (stores / loads)
+// 48 / 104 bytes at four blocks, 56 / 112 at four with the conv shortcut
+// and 4 / 24 at three with it. On an H100 (700 W) at 200 x 200 pairs of
+// 32 x 32 states, four blocks with the conv shortcut, relu, symmetric: 3
+// blocks an SM (80 registers; this relu instantiation spills 4 bytes)
 // 1.112 ms, 4 blocks 0.913 ms, 5 blocks 0.937 ms, 6 blocks 0.943 ms.
 constexpr int kMaxTailBlocks = 4;
 constexpr int kTailBlocksPerSM = 4;
@@ -416,6 +418,9 @@ extern "C" int snngp_resnet_strided_f32(const float* k, const float* v1, const f
     err = launch_strided<kErf>(k, v1, v2, v1m, v2m, scales, out, n1, n2, h, w, ti, tj, s);
   return static_cast<int>(err);
 }
+
+// The most residual blocks one snngp_resnet_tail_f32 call takes.
+extern "C" int snngp_resnet_tail_max_blocks() { return kMaxTailBlocks; }
 
 // cudaGetErrorString for the wrapper's exception message.
 extern "C" const char* snngp_resnet_error_string(int code) {

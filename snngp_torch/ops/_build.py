@@ -6,7 +6,8 @@ repository's ``build/kernels/`` directory, keyed by a hash of the source, the
 ``csrc/*.cuh`` headers and the flags, so an edited source or header rebuilds
 and an unchanged one loads at once.
 ``nvcc``'s output (including ``-Xptxas -v``: registers, shared memory and
-spills per kernel) is kept beside the library as ``.log``.
+spills per kernel) is kept beside the library as ``.log``;
+:func:`ptxas_report` reads it.
 
 Nothing here runs at import: a machine without ``nvcc`` imports the port and
 uses the plain PyTorch versions on CPU tensors.
@@ -18,12 +19,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load", "library_path", "NVCC_FLAGS"]
+__all__ = ["load", "library_path", "ptxas_report", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -72,3 +74,24 @@ def load(name: str) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return ctypes.CDLL(str(out))
+
+
+def ptxas_report(name: str) -> list:
+    """One line per kernel instantiation of ``csrc/<name>.cu``'s build, from
+    the ``.log`` beside its library: the kernel with its template arguments
+    if it has any (ints, and bools as 0 / 1), then ptxas's spill and
+    register lines, e.g. ``conv_gram_kernel<0>: 0 bytes stack frame, ...;
+    Used 48 registers, ...``. Empty if the library has no log."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    entries = {}   # kernel<targs> -> its lines, in the log's order
+    facts = None
+    for line in log.read_text().splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"([a-z_]+_kernel)(?:I((?:L\w\d+E)+)E)?", line)
+            targs = f"<{', '.join(re.findall(r'L\w(\d+)E', m[2]))}>" if m and m[2] else ""
+            facts = entries.setdefault(m[1] + targs, []) if m else None
+        elif facts is not None and ("registers" in line or "spill" in line):
+            facts.append(line.split(":", 1)[-1].strip())
+    return [f"{entry}: {'; '.join(facts)}" for entry, facts in entries.items()]

@@ -49,7 +49,7 @@ from snngp_torch.ops.gram import _ACT_T, _ACT_T_PARTIALS, _ACTS, _post_act_var
 
 __all__ = ["cnn_gram", "conv_var_stack", "conv_gram_plain", "conv_gram_cuda",
            "conv_gram_tangents_plain", "conv_gram_grads_plain", "conv_gram_grads_cuda",
-           "stream_geometry", "stream_warps", "MAX_HW", "LAUNCHES"]
+           "stream_geometry", "MAX_HW", "LAUNCHES"]
 
 # Launches of each CUDA kernel in this process; the wrappers add one per
 # launch. "conv_gram" is K3, "conv_gram_grads" is K4.
@@ -61,12 +61,6 @@ _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 # (k, dk/dw, dk/db and their column sums).
 _K4_ELEMS = 2048
 _MAX_ROW_TILES = 65535  # grid.y limit
-# K3: conv layers a pass keeps in registers (kStages in csrc/conv_gram.cu),
-# warps a block, and the shared memory the per-warp planes of a deeper
-# network may take a block.
-STAGES = 4
-_WARPS = 8
-_PLANE_BUDGET = 64 * 1024
 _INT_MAX = 2**31 - 1
 
 
@@ -179,18 +173,6 @@ def stream_geometry(h: int, w: int):
     return lanes, rows, (lanes - 1).bit_length(), *strides
 
 
-def stream_warps(rows: int, depth: int):
-    """K3's block: (warps, dynamic shared bytes). A network deeper than
-    ``STAGES`` layers streams its state through one [rows][32] fp32 plane a
-    warp between passes, and the block takes as many warps as
-    ``_PLANE_BUDGET`` holds (at least one)."""
-    if depth <= STAGES:
-        return _WARPS, 0
-    plane = 4 * 32 * rows
-    warps = max(1, min(_WARPS, _PLANE_BUDGET // plane))
-    return warps, warps * plane
-
-
 def _check_same(same, pairs):
     """``same=True`` (run the pairs j <= i and mirror them) only where each
     second operand is its first: ``pairs`` maps a name to (first, second)."""
@@ -220,7 +202,7 @@ def _smem_bytes(hw, ti, tj, planes, row_planes):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv_gram")
     fn = lib.snngp_conv_gram_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.snngp_conv_gram_grads_f32
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
@@ -292,7 +274,6 @@ def conv_gram_cuda(x1, x2, v1s, v2s, scales, *, depth: int, act: str, same: bool
         raise ValueError(f"{depth + 1} x {max(n1, n2)} variance maps of {h * w} pixels "
                          "exceed the kernel's int indices")
     lanes, rows, lg, rstride, cstride = stream_geometry(h, w)
-    warps, smem = stream_warps(rows, depth)
     lib = _lib()
     out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
     with torch.cuda.device(x1.device):
@@ -300,7 +281,7 @@ def conv_gram_cuda(x1, x2, v1s, v2s, scales, *, depth: int, act: str, same: bool
         err = lib.snngp_conv_gram_f32(
             x1.data_ptr(), x2.data_ptr(), v1s.data_ptr(), v2s.data_ptr(),
             scales.data_ptr(), out.data_ptr(), n1, n2, lanes, rows, lg, rstride, cstride,
-            c, depth, _ACTS[act], int(same), warps, smem, stream)
+            c, depth, _ACTS[act], int(same), stream)
     _raise_on(lib, err, "conv Gram kernel")
     LAUNCHES["conv_gram"] += 1
     return out

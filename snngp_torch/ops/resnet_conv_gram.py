@@ -11,8 +11,8 @@ JAX package does:
 - the input moment and the initial conv in plain PyTorch (XLA in the JAX
   package);
 - group 1 (stride 1): K5 over all its blocks, the first with a conv
-  shortcut (``mismatch``): one launch for up to four blocks, more chained
-  (:func:`tail_chunks`);
+  shortcut (``mismatch``): one launch for up to four blocks (the kernel's
+  limit), more chained (:func:`tail_chunks`);
 - groups 2-4: one K6 launch for the leading stride-2 block, then K5 over
   the remaining ``depth - 1`` blocks;
 - the readout ``last^2 mean_p k``.
@@ -61,9 +61,6 @@ LAUNCHES = {"resnet_tail": 0, "resnet_strided": 0}
 MAX_HW = 1024     # the route's gate (arch.get_conv_resnet_kernel), as in the JAX package
 # Pair-pixels one block of K6 keeps in flight: 2 x 2 pairs at 32 x 32.
 _ELEMS = 4096
-# Residual blocks one K5 launch pipelines (kMaxTailBlocks in
-# csrc/resnet_conv_gram.cu).
-MAX_TAIL_BLOCKS = 4
 
 
 def _stride2_offsets(h: int, w: int):
@@ -182,12 +179,13 @@ def strided_block_plain(k, v1s, v2s, scales, *, act: str, h: int, w: int):
 
 # -- the CUDA kernels -----------------------------------------------------------------
 
-def tail_chunks(nblocks: int, mismatch: bool = False):
+def tail_chunks(nblocks: int, mismatch: bool, per_launch: int):
     """K5's launches for a tail of ``nblocks`` blocks: (first block, blocks,
-    conv shortcut) each, at most ``MAX_TAIL_BLOCKS`` blocks a launch, in
-    order; only the first launch takes the conv shortcut."""
-    return [(first, min(MAX_TAIL_BLOCKS, nblocks - first), mismatch and first == 0)
-            for first in range(0, nblocks, MAX_TAIL_BLOCKS)]
+    conv shortcut) each, at most ``per_launch`` blocks a launch (the
+    kernel's ``snngp_resnet_tail_max_blocks``), in order; only the first
+    launch takes the conv shortcut."""
+    return [(first, min(per_launch, nblocks - first), mismatch and first == 0)
+            for first in range(0, nblocks, per_launch)]
 
 
 def _strided_pair_floats(h, w):
@@ -202,6 +200,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.snngp_resnet_tail_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.snngp_resnet_tail_max_blocks.argtypes = []
+    lib.snngp_resnet_tail_max_blocks.restype = ctypes.c_int
     fn = lib.snngp_resnet_strided_f32
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -265,14 +265,15 @@ def resnet_tail_cuda(k, v1s, v2s, scales, *, nblocks: int, act: str, h: int, w: 
     if v1s.shape != (2 * nblocks, n1, h * w) or v2s.shape != (2 * nblocks, n2, h * w):
         raise ValueError(f"variance rows {tuple(v1s.shape)}, {tuple(v2s.shape)} do not "
                          f"match {nblocks} blocks, n = ({n1}, {n2}) and HW = {h * w}")
-    if 2 * MAX_TAIL_BLOCKS * max(n1, n2) * h * w > _INT_MAX:
-        raise ValueError(f"{max(n1, n2)} variance rows of {h * w} pixels exceed the "
-                         "kernel's int indices")
     lanes, rows, lg, rstride, cstride = stream_geometry(h, w)
     lib = _lib()
+    per_launch = lib.snngp_resnet_tail_max_blocks()
+    if 2 * min(nblocks, per_launch) * max(n1, n2) * h * w > _INT_MAX:
+        raise ValueError(f"{max(n1, n2)} variance rows of {h * w} pixels exceed the "
+                         "kernel's int indices")
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for first, count, shortcut in tail_chunks(nblocks, mismatch):
+        for first, count, shortcut in tail_chunks(nblocks, mismatch, per_launch):
             out = torch.empty_like(k)
             err = lib.snngp_resnet_tail_f32(
                 k.data_ptr(), v1s[2 * first].data_ptr(), v2s[2 * first].data_ptr(),

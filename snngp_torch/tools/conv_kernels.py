@@ -21,34 +21,11 @@ phase. Needs nvcc and one CUDA card.
 """
 
 import argparse
-import re
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-
-
-def _card():
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed")
-
-
-def _ptxas(name, log):
-    """The lines of a ptxas report, one per kernel instantiation, with its
-    template arguments: act (0 relu, 1 erf), and for K5 the blocks a launch
-    and the conv shortcut."""
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        m = re.search(r"([a-z_]+_kernel)I((?:L\w\d+E)+)E", line)
-        if "Compiling entry" not in line or not m:
-            continue
-        targs = ", ".join(re.findall(r"L\w(\d+)E", m[2]))
-        for follow in lines[i + 1:i + 4]:
-            if "registers" in follow or "spill" in follow:
-                print(f"ptxas {name}: {m[1]}<{targs}>: {follow.split(':', 1)[-1].strip()}")
 
 
 def _steps(cs):
@@ -76,12 +53,15 @@ def main(argv=None):
     import chip_smoke as cs
     from snngp_torch.ops import _build
 
-    _card()
+    print(cs.card())
+    # Template arguments: act (0 relu, 1 erf); for K5 the blocks a launch
+    # and the conv shortcut.
     for name in ("conv_gram", "resnet_conv_gram"):
         t0 = time.perf_counter()
         _build.load(name)
         print(f"[conv] {name}.cu built in {time.perf_counter() - t0:.1f} s")
-        _ptxas(name, _build.library_path(name).with_suffix(".log").read_text())
+        for line in _build.ptxas_report(name):
+            print(f"ptxas {name}: {line}")
 
     with torch.inference_mode():
         t0 = time.perf_counter()

@@ -21,34 +21,11 @@ call, each beside its bound.
 """
 
 import argparse
-import re
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-
-
-def _card():
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed")
-
-
-def _ptxas(log):
-    """K7's lines of a ptxas report, one per kernel instantiation: the
-    forward's template arguments are (act, g0), the tangent mode's (act,
-    tangents, g0); act 0 is relu, 1 erf."""
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        m = re.search(r"(myrtle_gram(?:_tangents)?_kernel)I((?:Li\d+E)+)E", line)
-        if "Compiling entry" not in line or not m:
-            continue
-        targs = ", ".join(re.findall(r"Li(\d+)E", m[2]))
-        for follow in lines[i + 1:i + 4]:
-            if "registers" in follow or "spill" in follow:
-                print(f"ptxas {m[1]}<{targs}>: {follow.split(':', 1)[-1].strip()}")
 
 
 def _step(cs):
@@ -75,7 +52,7 @@ def _head(cs, MG, margs, mode):
     stop.record()
     stop.synchronize()
     ms = start.elapsed_time(stop)
-    nbytes = (sum(t.numel() * 4 for t in {id(t): t for t in margs}.values())
+    nbytes = (cs._read_bytes(margs)
               + 4 * sum(g.numel() for g in first))
     bound, by = cs.bound_ms(nbytes, *cs.k7_ops(200, 200, 32, 3, 5, "relu", True, len(mode)))
     repeat = all(torch.equal(a, b) for a, b in zip(first, again))
@@ -104,11 +81,14 @@ def main(argv=None):
     from snngp_torch.ops import _build
     from snngp_torch.ops import myrtle_gram as MG
 
-    _card()
+    print(cs.card())
     t0 = time.perf_counter()
     _build.load("myrtle_gram")
     print(f"[k7] myrtle_gram.cu built in {time.perf_counter() - t0:.1f} s")
-    _ptxas(_build.library_path("myrtle_gram").with_suffix(".log").read_text())
+    # Template arguments: the forward's (act, g0), the tangent mode's (act,
+    # tangents, g0); act 0 is relu, 1 erf.
+    for line in _build.ptxas_report("myrtle_gram"):
+        print(f"ptxas {line}")
 
     rng = np.random.RandomState(14)
     t0 = time.perf_counter()

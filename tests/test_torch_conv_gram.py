@@ -18,8 +18,6 @@ tests/test_pallas.py does). Tolerances:
   atol of 1e-6 of the largest entry, the bar of tests/test_torch_grad.py.
 """
 
-import math
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -196,70 +194,6 @@ def test_stream_geometry_segments_and_transposes(hw):
     assert pix == list(range(hw[0] * hw[1]))
 
 
-def _tri_pair(p):
-    """Pair p of a symmetric launch, as ``tri_pair`` in csrc/stream.cuh
-    decodes it: the n (n + 1) / 2 pairs (i, j), j <= i, in row order,
-    p = i (i + 1) / 2 + j (the double root, then exact fix-ups)."""
-    r = int((math.sqrt(8.0 * p + 1.0) - 1.0) * 0.5)
-    while r * (r + 1) // 2 > p:
-        r -= 1
-    while (r + 1) * (r + 2) // 2 <= p:
-        r += 1
-    return r, p - r * (r + 1) // 2
-
-
-def _lane_map(n1, n2, lanes, lg, same, warps=8):
-    """(pair i, pair j, column) of every active lane of a launch, as
-    ``StreamLane`` in csrc/stream.cuh maps them."""
-    pairs = n1 * (n1 + 1) // 2 if same else n1 * n2
-    per_warp = 32 >> lg
-    blocks = -(-(-(-pairs // per_warp)) // warps)
-    out = []
-    for warp in range(blocks * warps):
-        for lane in range(32):
-            c, p = lane & ((1 << lg) - 1), warp * per_warp + (lane >> lg)
-            if p < pairs and c < lanes:
-                i, j = _tri_pair(p) if same else divmod(p, n2)
-                out.append((i, j, c))
-    return out
-
-
-@pytest.mark.parametrize("same", [False, True], ids=["x1,x2", "x,x"])
-@pytest.mark.parametrize("hw", [(32, 32), (7, 7), (4, 4), (5, 40), (1, 1024)],
-                         ids=["32x32", "7x7", "4x4", "5x40", "1x1024"])
-def test_streamed_lanes_cover_each_pair_and_column_once(hw, same):
-    lanes, _, lg, _, _ = TCG.stream_geometry(*hw)
-    n1, n2 = (13, 13) if same else (13, 5)
-    got = _lane_map(n1, n2, lanes, lg, same)
-    want = [(i, j, c) for i in range(n1) for j in range(i + 1 if same else n2)
-            for c in range(lanes)]
-    assert sorted(got) == sorted(want)
-
-
-@pytest.mark.parametrize("n", [1, 2, 3, 17, 200])
-def test_tri_pair_enumerates_the_lower_triangle_once(n):
-    got = [_tri_pair(p) for p in range(n * (n + 1) // 2)]
-    assert got == [(i, j) for i in range(n) for j in range(i + 1)]
-
-
-def test_tri_pair_is_exact_at_large_pair_indices():
-    for n in (46_341, 100_000, 1_000_000):
-        last = n * (n + 1) // 2 - 1
-        for p in (last, last - n + 1, last - n, (n // 2) * (n // 2 + 1) // 2):
-            i, j = _tri_pair(p)
-            assert 0 <= j <= i < n and i * (i + 1) // 2 + j == p
-
-
-def test_stream_warps_take_a_plane_only_for_deep_networks():
-    assert TCG.stream_warps(32, 1) == (8, 0)
-    assert TCG.stream_warps(32, TCG.STAGES) == (8, 0)
-    assert TCG.stream_warps(32, TCG.STAGES + 1) == (8, 8 * 32 * 32 * 4)
-    assert TCG.stream_warps(1024, 10) == (1, 32 * 1024 * 4)
-    for rows in (1, 7, 32, 100, 1024):
-        warps, smem = TCG.stream_warps(rows, 10)
-        assert 1 <= warps <= 8 and smem == warps * rows * 128 <= TCG._SMEM_LIMIT
-
-
 def _transposed(x, v, h, w):
     """Images [N, H, W, C] and variance maps [L, N, H W] of the transposed
     images."""
@@ -268,7 +202,8 @@ def _transposed(x, v, h, w):
 
 
 @pytest.mark.parametrize("act", ["relu", "erf"])
-@pytest.mark.parametrize("hw", [(9, 7), (5, 40)], ids=["9x7", "5x40"])
+@pytest.mark.parametrize("hw", [(9, 7), (5, 40), (3, 48), (1, 33)],
+                         ids=["9x7", "5x40", "3x48", "1x33"])
 def test_conv_gram_plain_is_unchanged_by_transposing_the_images(hw, act):
     # The identity the wide-image launch rests on: the 3 x 3 SAME mean
     # commutes with transposition, only its sums' order changes (1e-6 of
@@ -454,3 +389,25 @@ def test_cuda_streamed_k3_is_symmetric_repeatable_and_matches_plain(cuda_device,
             assert torch.equal(k, again)
             if same:
                 assert torch.equal(k, k.T)
+
+
+def test_cuda_symmetric_launch_decodes_pair_indices_past_an_int(cuda_device):
+    # A symmetric K3 launch over n = 65,536 one-pixel images: its n (n + 1) /
+    # 2 pairs number more than 2^31, so the last rows' pairs decode from
+    # indices past an int (tri_pair in csrc/stream.cuh). Rows at both ends
+    # and the middle within 1e-5 of max|K| of the plain version on those
+    # rows; the whole K (17 GB) bitwise symmetric. Runs only on a CUDA card.
+    n = 65_536
+    assert n * (n + 1) // 2 > 2**31
+    (x,) = randn(26, (n, 1, 1, 2))
+    with torch.inference_mode():
+        a = to_torch(x).to(cuda_device)
+        wt, bt = (torch.tensor(v, device=cuda_device) for v in (1.3, 0.2))
+        v = TCG._flat_stack(a, 2, "relu", wt, bt).contiguous()
+        s4 = torch.tensor([1.69, 0.04, 0.81, 0.5], device=cuda_device)
+        k = TCG.conv_gram_cuda(a, a, v, v, s4, depth=2, act="relu", same=True)
+        rows = torch.tensor([0, 1, n // 2, n - 2, n - 1], device=cuda_device)
+        want = TCG.conv_gram_plain(a[rows], a, v[:, rows], v, s4, depth=2, act="relu")
+        assert (k[rows] - want).abs().max() <= 1e-5 * want.abs().max()
+        for r in range(0, n, 4096):
+            assert torch.equal(k[r:r + 4096], k[:, r:r + 4096].T)

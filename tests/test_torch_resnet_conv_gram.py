@@ -340,12 +340,13 @@ def test_launch_geometry_fits_shared_memory():
 @pytest.mark.parametrize("nblocks", range(1, 10))
 @pytest.mark.parametrize("mismatch", [True, False])
 def test_tail_chunks_chain_the_blocks(nblocks, mismatch):
-    # At most four blocks a K5 launch, in order, the conv shortcut in the
-    # first launch only; SVSP's depth 4 (group 1) and 3 (groups 2-4) take one.
-    chunks = TRG.tail_chunks(nblocks, mismatch)
+    # At most four blocks a K5 launch (the kernel's limit), in order, the
+    # conv shortcut in the first launch only; SVSP's depth 4 (group 1) and 3
+    # (groups 2-4) take one.
+    chunks = TRG.tail_chunks(nblocks, mismatch, 4)
     assert [b for first, count, _ in chunks for b in range(first, first + count)] == \
         list(range(nblocks))
-    assert all(1 <= count <= TRG.MAX_TAIL_BLOCKS for _, count, _ in chunks)
+    assert all(1 <= count <= 4 for _, count, _ in chunks)
     assert [sc for _, _, sc in chunks] == [mismatch] + [False] * (len(chunks) - 1)
     assert len(chunks) == (1 if nblocks <= 4 else -(-nblocks // 4))
 
@@ -356,7 +357,8 @@ def _transposed_rows(z, h, w):
 
 
 @pytest.mark.parametrize("act", ACTS)
-@pytest.mark.parametrize("hw", [(9, 7), (5, 40)], ids=["9x7", "5x40"])
+@pytest.mark.parametrize("hw", [(9, 7), (5, 40), (3, 48), (1, 33)],
+                         ids=["9x7", "5x40", "3x48", "1x33"])
 def test_resnet_tail_plain_is_unchanged_by_transposing_the_state(hw, act):
     # The identity the wide-image launch rests on: the 3 x 3 SAME mean
     # commutes with transposition, only its sums' order changes (1e-6 of
@@ -468,3 +470,32 @@ def test_cuda_streamed_k5_is_symmetric_repeatable_and_matches_plain(cuda_device,
             assert torch.equal(got, again)
             if same:
                 assert torch.equal(got, got.transpose(0, 1))
+
+
+def test_cuda_symmetric_tail_decodes_pair_indices_past_an_int(cuda_device):
+    # A symmetric K5 launch (one block with the conv shortcut) over the
+    # one-pixel states of n = 65,536 images: its n (n + 1) / 2 pairs number
+    # more than 2^31, so the last rows' pairs decode from indices past an
+    # int (tri_pair in csrc/stream.cuh). Rows at both ends and the middle
+    # within 1e-5 of max|K| of the plain version on those rows; the whole
+    # state (17 GB) bitwise symmetric. Runs only on a CUDA card.
+    n = 65_536
+    assert n * (n + 1) // 2 > 2**31
+    (x,) = randn(27, (2, n))
+    with torch.inference_mode():
+        a = to_torch(x).to(cuda_device)
+        k = torch.outer(a[0], a[0])             # the input moment of 2 channels,
+        k.add_(torch.outer(a[1], a[1])).mul_(0.5)   # bitwise symmetric
+        wt, bt = (torch.tensor(v, device=cuda_device) for v in (W, B))
+        v0 = (0.5 * (a * a).sum(dim=0)).reshape(n, 1, 1)
+        rows_v = TRG._flat(TRG.tail_var_stack(v0, 1, "relu", wt, bt, True)[0])
+        scales = torch.stack([wt * wt, bt * bt])
+        kw = dict(nblocks=1, act="relu", h=1, w=1, mismatch=True)
+        got = TRG.resnet_tail_cuda(k.reshape(n, n, 1), rows_v, rows_v, scales, **kw,
+                                   same=True).reshape(n, n)
+        rows = torch.tensor([0, 1, n // 2, n - 2, n - 1], device=cuda_device)
+        want = TRG.resnet_tail_plain(k[rows].reshape(5, n, 1), rows_v[:, rows], rows_v,
+                                     scales, **kw).reshape(5, n)
+        assert (got[rows] - want).abs().max() <= 1e-5 * want.abs().max()
+        for r in range(0, n, 4096):
+            assert torch.equal(got[r:r + 4096], got[:, r:r + 4096].T)
