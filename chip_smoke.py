@@ -46,8 +46,9 @@ script exits non-zero:
    gate: relative error <= 1e-5 of max|K|, a second launch bitwise equal,
    and K(x, x) bitwise symmetric;
 8. its scalar-tangent backward (K4) against its plain version at phase 7's
-   cases on a random cotangent (gate: each sum within 1e-5 of sum |g dK|,
-   bitwise equal over two launches), and one scalar-only gradient through
+   cases on a random, not symmetric cotangent, identical operands a
+   symmetric launch (gate: each sum within 1e-5 of sum |g dK|, bitwise
+   equal over two launches), and one scalar-only gradient through
    ``get_cnn_kernel(trainable_inputs=False)`` against float64 autograd
    through the plain layer tier;
 9. SVSP at full width: synthetic32 (32 x 32 x 3), 200 inducing images,
@@ -68,9 +69,9 @@ script exits non-zero:
    the first with a conv shortcut; K(x, x) a symmetric launch), three
    blocks at 16 x 16, 8 x 8 and 4 x 4, erf, a ragged 7 x 7, a 5 x 64
    state (wider than 32: streamed transposed); the stride-2 block (K6) at
-   32 -> 16, 16 -> 8, 8 -> 4, 7 x 7 and 6 x 10; gate: relative error <=
-   1e-5 of max|K|, a second launch bitwise equal, and K(x, x) bitwise
-   symmetric;
+   32 -> 16, 16 -> 8, 8 -> 4, 7 x 7, 6 x 10 and 5 x 64 (transposed); K(x,
+   x) a symmetric launch of either; gate: relative error <= 1e-5 of
+   max|K|, a second launch bitwise equal, and K(x, x) bitwise symmetric;
 12. WideResNet SVSP at full width (the CIFAR shape of phase 9, ``-n
    resnet``): the svgp ELBO's gradient on one batch against float64 on the
    card through the plain layer tier (gate: within 2x the plain fp32
@@ -338,7 +339,7 @@ def _dual_act_ops(act, partials):
 
 def _pairs(n1, n2, same):
     """Pairs of images the function needs: n (n + 1) / 2 for K(x, x), whose
-    lower triangle mirrors its upper one (K7 runs only those), else
+    lower triangle mirrors its upper one (K3-K7 run only those), else
     n1 n2."""
     return n1 * (n1 + 1) // 2 if same else n1 * n2
 
@@ -589,7 +590,8 @@ def phase7_k3_vs_plain():
 
 def phase8_k4_vs_plain():
     """K4 against its plain version at phase 7's cases on a random
-    cotangent; gate: for each of the three sums, |s_kernel - s_plain| /
+    cotangent (not symmetric; identical operands take the symmetric launch,
+    ``same=True``); gate: for each of the three sums, |s_kernel - s_plain| /
     sum |g dK| <= 1e-5; two launches give the same bits. Then one
     scalar-only gradient through get_cnn_kernel(trainable_inputs=False)
     against float64 autograd through the plain layer tier."""
@@ -615,8 +617,8 @@ def _k4_cases():
         for act in ("relu", "erf"):
             args = _conv_stacks(x1, x2, depth, act, tangents=True)
             kw = dict(depth=depth, act=act)
-            s_kernel = CG.conv_gram_grads_cuda(*args, g, **kw)
-            again = CG.conv_gram_grads_cuda(*args, g, **kw)
+            s_kernel = CG.conv_gram_grads_cuda(*args, g, **kw, same=same)
+            again = CG.conv_gram_grads_cuda(*args, g, **kw, same=same)
             s_plain = CG.conv_gram_grads_plain(*args, g, **kw)
             _, dkw, dkb, dkl = CG.conv_gram_tangents_plain(*args, **kw)
             g64 = g.double().abs()
@@ -626,12 +628,12 @@ def _k4_cases():
             rel = (abs_err / scale).max().item()
             finite = bool(torch.isfinite(s_kernel).all())
             repeat = torch.equal(s_kernel, again)
-            ms = _time_ms(lambda: CG.conv_gram_grads_cuda(*args, g, **kw))
+            ms = _time_ms(lambda: CG.conv_gram_grads_cuda(*args, g, **kw, same=same))
             plain_ms = _time_ms(lambda: CG.conv_gram_grads_plain(*args, g, **kw), reps=2)
-            blocks = CG.tile_shape(h * w, n1, n2, CG._K4_ELEMS)
-            nbytes = (_read_bytes(args)
-                      + g.numel() * 4
-                      + 3 * 8 * (-(-n1 // blocks[0])) * (-(-n2 // blocks[1])))
+            # g whole (a symmetric launch reads g[i, j] and g[j, i]), and the
+            # kernel's float64 partial triples.
+            nbytes = (_read_bytes(args) + g.numel() * 4
+                      + 3 * 8 * CG.grads_blocks(n1, n2, h, w, depth, same))
             bound, by = bound_ms(nbytes, *k4_ops(n1, n2, h * w, c, depth, act, same))
             print(f"[K4] {act:4s} {label:24s} rel_err {rel:.3e} abs_err "
                   f"{abs_err.max().item():.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
@@ -1430,8 +1432,10 @@ def _resnet_cases():
     nblocks, mismatch, act). K5 on the three Gram blocks of an SVSP step at
     32 x 32 (group 1: four blocks, the first with a conv shortcut), three
     blocks at 16 x 16, 8 x 8 and 4 x 4 (groups 2-4), erf, a ragged 7 x 7
-    and a state wider than 32 (streamed transposed); K6 at each group boundary (32 -> 16, 16 -> 8, 8 -> 4), erf and
-    the odd and rectangular 7 x 7 and 6 x 10."""
+    and a state wider than 32 (streamed transposed); K6 at each group
+    boundary (32 -> 16, 16 -> 8, 8 -> 4), erf, the odd and rectangular
+    7 x 7 and 6 x 10, and a state wider than 32 (streamed transposed), on
+    distinct operands and on identical ones."""
     k5 = [("100x200 32x32 4 blocks+sc", 100, 200, 32, 32, False, 4, True, "relu"),
           ("200x200 32x32 4 blocks+sc sym", 200, 200, 32, 32, True, 4, True, "relu"),
           ("100x100 32x32 4 blocks+sc sym", 100, 100, 32, 32, True, 4, True, "relu"),
@@ -1448,7 +1452,9 @@ def _resnet_cases():
           ("200x200 16->8 sym", 200, 200, 16, 16, True, "relu"),
           ("200x200 8->4 sym", 200, 200, 8, 8, True, "relu"),
           ("64x96 7x7->4x4", 64, 96, 7, 7, False, "relu"),
-          ("64x96 6x10->3x5", 64, 96, 6, 10, False, "erf")]
+          ("64x96 6x10->3x5", 64, 96, 6, 10, False, "erf"),
+          ("40x50 5x64->3x32", 40, 50, 5, 64, False, "relu"),
+          ("50x50 5x64->3x32 sym", 50, 50, 5, 64, True, "erf")]
     return ([("K5", *c) for c in k5]
             + [("K6", label, n1, n2, h, w, same, 1, True, act)
                for label, n1, n2, h, w, same, act in k6])
@@ -1488,8 +1494,8 @@ def _resnet_kernel_args(kernel, k, v1, v2, same, nblocks, mismatch, act):
 def phase11_k5_k6_vs_plain():
     """K5 and K6 against their plain versions on the same inputs; gate:
     max|K_kernel - K_plain| / max|K_plain| <= 1e-5; a second launch gives
-    the same bits; identical operands (for K5 a symmetric launch) give a
-    bitwise symmetric K."""
+    the same bits; identical operands (a symmetric launch) give a bitwise
+    symmetric K."""
     import torch
     from snngp_torch.ops import resnet_conv_gram as RG
 
@@ -1499,9 +1505,9 @@ def phase11_k5_k6_vs_plain():
     for kernel, label, n1, n2, h, w, same, nblocks, mismatch, act in _resnet_cases():
         k, v1, v2 = _resnet_inputs(rng, n1, n2, h, w, same)
         args, kw = _resnet_kernel_args(kernel, k, v1, v2, same, nblocks, mismatch, act)
-        cuda_fn, plain_fn = ((functools.partial(RG.resnet_tail_cuda, same=same),
-                              RG.resnet_tail_plain) if kernel == "K5"
+        cuda_fn, plain_fn = ((RG.resnet_tail_cuda, RG.resnet_tail_plain) if kernel == "K5"
                              else (RG.strided_cuda, RG.strided_block_plain))
+        cuda_fn = functools.partial(cuda_fn, same=same)
         k_kernel = cuda_fn(*args, **kw)
         repeat = torch.equal(k_kernel, cuda_fn(*args, **kw))
         k_plain = plain_fn(*args, **kw)
@@ -1993,7 +1999,8 @@ def main() -> int:
                        "snngp/ops/pallas/conv_gram.py:64", classify["conv_gram"], k3_rows,
                        K34_HEAD, k3_abs)
     k4 = _kernel_entry("conv_gram_grads (K4, scalar-tangent CNN Gram backward, fused "
-                       "contraction)", "snngp_torch/csrc/conv_gram.cu",
+                       "contraction; one warp streams a pair's rows through registers, "
+                       "symmetric launch for K(x, x))", "snngp_torch/csrc/conv_gram.cu",
                        "snngp/ops/pallas/conv_gram.py:180", classify["conv_gram_grads"],
                        k4_rows, K34_HEAD, max(r["abs_err"] for r in k4_rows.values()))
     k5 = _kernel_entry("resnet_tail (K5, fused WideResNet stride-1 residual blocks; one warp "
@@ -2002,7 +2009,9 @@ def main() -> int:
                        "snngp/ops/pallas/resnet_conv_gram.py:130", resnet["resnet_tail"],
                        k56_rows["K5"], K5_HEAD, k56_abs["K5"])
     k6 = _kernel_entry("resnet_strided (K6, fused WideResNet stride-2 group-boundary block, "
-                       "at the reduced resolution)", "snngp_torch/csrc/resnet_conv_gram.cu",
+                       "at the reduced resolution; one warp streams a pair's rows through "
+                       "registers, symmetric launch for K(x, x))",
+                       "snngp_torch/csrc/resnet_conv_gram.cu",
                        "snngp/ops/pallas/resnet_conv_gram.py:54", resnet["resnet_strided"],
                        k56_rows["K6"], K6_HEAD, k56_abs["K6"])
     k7 = _kernel_entry("myrtle (K7, fused Myrtle-5/7/10 Gram, Delta-slab recursion)",

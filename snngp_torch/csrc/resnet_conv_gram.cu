@@ -58,16 +58,25 @@
 // for (i, j) and (j, i), and with `same` (K(x, x)) a launch enumerates the
 // n (n + 1) / 2 pairs j <= i, runs each once and writes (i, j) and (j, i).
 //
-// K6 (simple first). None of the TPU layout carries over (the 128-lane HW
-// padding, the rolls with lane masks, the "ones off the lattice"). A block
-// keeps a tile of ti x tj pairs in shared memory, the wrapper choosing the
-// tile from HW at launch (about 4,096 pair-pixels a block: 2 x 2 pairs at
-// 32 x 32, 8 x 8 at 8 x 8): k and t1 at full resolution and the column sums
-// of each at the lattice columns (12 KB a pair at 32 x 32). The separable
-// stencil writes the column sums (z + left) + right in one pass and reads
-// their row neighbours, (zc + up) + down, then / 9, in the next, one
-// barrier after each pass; neighbours are read with row / column edge
-// tests, so ragged H, W need no padding.
+// K6's design: K5's streamed layout at the lattice's two resolutions. Lane
+// c holds full-resolution column c, and step t reads row t of k (128
+// contiguous bytes at 32 x 32), forms t1 = T(k; v_in) and the column sums of
+// t1 and of k (two shuffles each), and keeps a three-row window of each.
+// Once row r + 1 is in (or r is the last row), a lattice row r = 2a + oh
+// has its two stride-1 stencils S(t1) and S(k) complete at every column;
+// one shuffle each moves those of the lattice columns 2b + ow to lanes b =
+// 0 .. wr - 1, which form c1 = w2 S(t1) + b2, t2 = T(c1; v_mid[a, b]) and
+// the shortcut w2 S(k) + b2, each lane reading its own v_mid. The reduced
+// stencil's column sums run over those wr lanes, and a three-row window of
+// them gives output row a - 1 when reduced row a is formed (the shortcut
+// held one reduced row), an output row being one contiguous store; the
+// last row is flushed at the end. A narrow state takes segments of 2^lg >=
+// w lanes and 32 / 2^lg pairs a warp, a state wider than 32 streams
+// transposed, the wrapper swapping the input's strides and the output's
+// (ors, ocs), and the kernel taking the lattice offsets from the parity of
+// the streamed extents, so (oh, ow) swap too. With `same` a launch runs each
+// pair j <= i of K(x, x) once (its state enters bitwise symmetric) and
+// writes (i, j) and (j, i). No shared memory and no barrier.
 
 #include <cuda_runtime.h>
 
@@ -87,6 +96,11 @@ constexpr int kThreads = 256;
 // 1.112 ms, 4 blocks 0.913 ms, 5 blocks 0.937 ms, 6 blocks 0.943 ms.
 constexpr int kMaxTailBlocks = 4;
 constexpr int kTailBlocksPerSM = 4;
+// K6: its blocks an SM. On an H100 (700 W) at 200 x 200 pairs, 32 -> 16,
+// relu, symmetric: 4 or 5 blocks (47-48 registers, no spill) 0.170-0.182
+// ms, 6 blocks (40 registers, 8-16 bytes spilled) 0.170-0.173 ms, 8 blocks
+// (32 registers, 28-32 bytes spilled) 0.181 ms.
+constexpr int kStridedBlocksPerSM = 4;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInv2Pi = 0.15915494309189533577f;
 constexpr float kTwoOverPi = 0.63661977236758134308f;
@@ -112,37 +126,6 @@ __device__ __forceinline__ float dual_act<kErf>(float k, float v1, float v2) {
   const float denom = sqrtf((1.0f + 2.0f * v1) * (1.0f + 2.0f * v2));
   const float c = fminf(fmaxf(2.0f * k / denom, -1.0f), 1.0f);
   return kTwoOverPi * asinf(c);
-}
-
-// The block's tile: pairs (i0 + q / tj, j0 + q % tj) for q < ti * tj.
-struct Tile {
-  int ti, tj, pairs, i0, j0;
-
-  __device__ Tile(int ti_, int tj_)
-      : ti(ti_), tj(tj_), pairs(ti_ * tj_), i0(blockIdx.y * ti_), j0(blockIdx.x * tj_) {}
-  __device__ int i(int q) const { return i0 + q / tj; }
-  __device__ int j(int q) const { return j0 + q % tj; }
-};
-
-// Column pass of the separable 3 x 3 sum: (z[p] + z[p - 1]) + z[p + 1],
-// the missing neighbours off the row's ends counting 0.
-__device__ __forceinline__ float col_sum(const float* z, int p, int col, int w) {
-  float s = z[p] + ((col >= 1) ? z[p - 1] : 0.0f);
-  return s + ((col < w - 1) ? z[p + 1] : 0.0f);
-}
-
-// Row pass on the column sums, in a plane of row stride `stride`:
-// (zc[p] + zc[p - stride]) + zc[p + stride], rows off the image counting 0.
-__device__ __forceinline__ float row_sum(const float* z, int p, int row, int h, int stride) {
-  float s = z[p] + ((row >= 1) ? z[p - stride] : 0.0f);
-  return s + ((row < h - 1) ? z[p + stride] : 0.0f);
-}
-
-// Row `img` of an [n, len] variance map at pixel p; 1 off the edge, which
-// keeps the masked pairs finite.
-__device__ __forceinline__ float var_at(const float* __restrict__ v, int img, int n, int len,
-                                        int p) {
-  return (img < n) ? __ldg(v + (size_t)img * len + p) : 1.0f;
 }
 
 // K5: NB residual blocks, streamed (see the header). v1 [2 NB, n1, hw] and
@@ -236,99 +219,105 @@ resnet_tail_kernel(const float* __restrict__ k_in, const float* __restrict__ v1,
   }
 }
 
-// K6. Shared memory per pair: k and t1 [hw] at full resolution, then the
-// column sums of t1 and of k at the lattice columns, [h][wr] each. The
-// reduced planes (t2, the shortcut, t2's column sums; [hr][wr] each) reuse
-// the first three once their contents are consumed. v1 [n1, hw] and
-// v1m [n1, hr * wr] (v2, v2m likewise): the variances entering the
-// block's two activations; scales = [w^2, b^2].
+// K6, streamed (see the header). v1 [n1, hw] and v1m [n1, hwr] (v2, v2m
+// likewise): the variances entering the block's two activations; scales =
+// [w^2, b^2]. Lane c holds full-resolution column c; reduced lane b = c
+// (b < ceil(lanes / 2)) holds reduced column b, element (a, b) of the
+// reduced state at a * ors + b * ocs. The registers hold the windows of
+// t1's and k's column sums (cpT, ccT; cpK, ccK), the window of t2's reduced
+// column sums (cp2, cc2) and the shortcut of the last reduced row (sc).
 template <int ACT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kStridedBlocksPerSM)
 resnet_strided_kernel(const float* __restrict__ k_in, const float* __restrict__ v1,
                       const float* __restrict__ v2, const float* __restrict__ v1m,
                       const float* __restrict__ v2m, const float* __restrict__ scales,
-                      float* __restrict__ k_out, int n1, int n2, int h, int w, int ti,
-                      int tj) {
-  extern __shared__ float smem[];
-  const Tile t(ti, tj);
-  const int hw = h * w;
-  const int oh = (h % 2 == 0) ? 1 : 0;
-  const int ow = (w % 2 == 0) ? 1 : 0;
-  const int hr = (h + 1) / 2;
-  const int wr = (w + 1) / 2;
-  const int hwr = hr * wr;
-  const int hwc = h * wr;            // every row, the lattice columns
-  float* kpl = smem;                 // [pairs][hw] k;  later t2 [pairs][hwr]
-  float* tpl = kpl + t.pairs * hw;   // [pairs][hw] t1; later the shortcut [pairs][hwr]
-  float* ct = tpl + t.pairs * hw;    // [pairs][hwc] t1's column sums; later t2's [pairs][hwr]
-  float* ck = ct + t.pairs * hwc;    // [pairs][hwc] k's column sums
+                      float* __restrict__ k_out, int n1, int n2, Geo G, int ors, int ocs,
+                      int same) {
+  const StreamLane L(G, n1, n2, same);
+  const int seg = 1 << G.lg;
+  const int rows = G.rows;
+  const int rs = G.rstride;
   const float w2 = scales[0];
   const float b2 = scales[1];
+  // The lattice (2a + oR, 2b + oC): an even extent centres the stride-2
+  // window on 2a + 1, an odd one on 2a.
+  const int oR = (rows & 1) ^ 1;
+  const int oC = (G.lanes & 1) ^ 1;
+  const int lanes_r = (G.lanes + 1) >> 1;
+  const int hwr = ((rows + 1) >> 1) * lanes_r;
+  const bool active_r = L.pair_ok && L.c < lanes_r;
+  const bool left_r = L.c >= 1;
+  const bool right_r = L.c < lanes_r - 1;
+  const int src = 2 * L.c + oC;      // the full-resolution lane of reduced lane c
+  const int pix = L.c * G.cstride;
+  const int pix_r = L.c * ocs;
+  const float* kp = k_in + ((size_t)L.i * n2 + L.j) * G.hw + pix;
+  const float* va_in = v1 + (L.i * G.hw + pix);
+  const float* vb_in = v2 + (L.j * G.hw + pix);
+  const float* va_mid = v1m + (L.i * hwr + pix_r);
+  const float* vb_mid = v2m + (L.j * hwr + pix_r);
+  float* out1 = k_out + ((size_t)L.i * n2 + L.j) * hwr + pix_r;
+  float* out2 = k_out + ((size_t)L.j * n2 + L.i) * hwr + pix_r;
+  const bool mirror = same && L.i != L.j;
 
-  for (int e = threadIdx.x; e < t.pairs * hw; e += kThreads) {   // t1 = T(k; v_in)
-    const int q = e / hw;
-    const int p = e - q * hw;
-    const int i = t.i(q);
-    const int j = t.j(q);
-    const float kv = (i < n1 && j < n2) ? k_in[((size_t)i * n2 + j) * hw + p] : 0.0f;
-    kpl[e] = kv;
-    tpl[e] = dual_act<ACT>(kv, var_at(v1, i, n1, hw, p), var_at(v2, j, n2, hw, p));
+  float cpT = 0.0f, ccT = 0.0f, cpK = 0.0f, ccK = 0.0f;
+  float cp2 = 0.0f, cc2 = 0.0f, sc = 0.0f;
+  int a = 0;                         // the next reduced row
+  for (int t = 0; t <= rows; ++t) {  // t == rows: the row below the image, 0
+    float z = 0.0f, t1 = 0.0f;       // k and T(k; v_in) at row t
+    if (t < rows) {
+      float va = 1.0f, vb = 1.0f;
+      if (L.active) {
+        z = kp[t * rs];
+        va = __ldg(va_in + t * rs);
+        vb = __ldg(vb_in + t * rs);
+      }
+      t1 = dual_act<ACT>(z, va, vb);
+    }
+    const float csT = lane_col_sum(t1, L, seg);
+    const float csK = lane_col_sum(z, L, seg);
+    const int r = t - 1;             // the row whose stencils are complete
+    if (r >= oR && ((r - oR) & 1) == 0) {
+      // Lattice row r = 2a + oR: S(t1) and S(k) there, moved from lane 2b +
+      // oC to lane b, give c1 = w2 S(t1) + b2, t2 = T(c1; v_mid) and the
+      // shortcut w2 S(k) + b2 of reduced row a.
+      const float sT = __shfl_sync(0xffffffffu, ((ccT + cpT) + csT) / 9.0f, src, seg);
+      const float sK = __shfl_sync(0xffffffffu, ((ccK + cpK) + csK) / 9.0f, src, seg);
+      float va = 1.0f, vb = 1.0f;
+      if (active_r) {
+        va = __ldg(va_mid + a * ors);
+        vb = __ldg(vb_mid + a * ors);
+      }
+      const float t2 = dual_act<ACT>(w2 * sT + b2, va, vb);
+      const float cs2 = lane_col_sum(t2, left_r, right_r, seg);
+      if (a >= 1 && active_r) {      // reduced row a - 1: w2 S(t2) + b2, plus the shortcut
+        const float o = (w2 * (((cc2 + cp2) + cs2) / 9.0f) + b2) + sc;
+        out1[(a - 1) * ors] = o;
+        if (mirror) out2[(a - 1) * ors] = o;
+      }
+      cp2 = cc2;
+      cc2 = cs2;
+      sc = w2 * sK + b2;
+      ++a;
+    }
+    cpT = ccT;
+    ccT = csT;
+    cpK = ccK;
+    ccK = csK;
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < t.pairs * hwc; e += kThreads) {  // column sums at c = 2b + ow
-    const int q = e / hwc;
-    const int rc = e - q * hwc;
-    const int r = rc / wr;
-    const int c = 2 * (rc - r * wr) + ow;
-    const int p = r * w + c;
-    ct[e] = col_sum(tpl + q * hw, p, c, w);
-    ck[e] = col_sum(kpl + q * hw, p, c, w);
+  if (active_r) {                    // the last reduced row; the row below it is 0
+    const float o = (w2 * ((cc2 + cp2) / 9.0f) + b2) + sc;
+    out1[(a - 1) * ors] = o;
+    if (mirror) out2[(a - 1) * ors] = o;
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < t.pairs * hwr; e += kThreads) {  // at (2a + oh, 2b + ow)
-    const int q = e / hwr;
-    const int pr = e - q * hwr;
-    const int a = pr / wr;
-    const int r = 2 * a + oh;
-    const int rc = r * wr + (pr - a * wr);
-    const float c1 = w2 * (row_sum(ct + q * hwc, rc, r, h, wr) / 9.0f) + b2;
-    kpl[e] = dual_act<ACT>(c1, var_at(v1m, t.i(q), n1, hwr, pr),
-                           var_at(v2m, t.j(q), n2, hwr, pr));             // t2
-    tpl[e] = w2 * (row_sum(ck + q * hwc, rc, r, h, wr) / 9.0f) + b2;     // shortcut
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < t.pairs * hwr; e += kThreads) {  // t2's column sums
-    const int q = e / hwr;
-    const int pr = e - q * hwr;
-    ct[e] = col_sum(kpl + q * hwr, pr, pr % wr, wr);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < t.pairs * hwr; e += kThreads) {  // out = c2 + shortcut
-    const int q = e / hwr;
-    const int pr = e - q * hwr;
-    const int i = t.i(q);
-    const int j = t.j(q);
-    const float c2 = w2 * (row_sum(ct + q * hwr, pr, pr / wr, hr, wr) / 9.0f) + b2;
-    if (i < n1 && j < n2) k_out[((size_t)i * n2 + j) * hwr + pr] = c2 + tpl[e];
-  }
-}
-
-// Dynamic shared memory above 48 KB needs the kernel's opt-in first.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 template <int ACT, int NB, bool MIS>
 cudaError_t launch_tail_nb(const float* k, const float* v1, const float* v2,
                            const float* scales, float* out, int n1, int n2, const Geo& G,
                            int same, cudaStream_t stream) {
-  const long long pairs = same ? (long long)n1 * (n1 + 1) / 2 : (long long)n1 * n2;
-  const long long warps = (pairs + (32 >> G.lg) - 1) / (32 >> G.lg);
-  const long long blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const long long blocks = stream_blocks(G, n1, n2, same, kThreads / 32);
+  if (blocks < 0) return cudaErrorInvalidConfiguration;
   resnet_tail_kernel<ACT, NB, MIS><<<(unsigned)blocks, kThreads, 0, stream>>>(
       k, v1, v2, scales, out, n1, n2, G, same);
   return cudaGetLastError();
@@ -359,15 +348,12 @@ cudaError_t launch_tail(const float* k, const float* v1, const float* v2,
 template <int ACT>
 cudaError_t launch_strided(const float* k, const float* v1, const float* v2,
                            const float* v1m, const float* v2m, const float* scales,
-                           float* out, int n1, int n2, int h, int w, int ti, int tj,
-                           cudaStream_t stream) {
-  const dim3 grid((n2 + tj - 1) / tj, (n1 + ti - 1) / ti);
-  const size_t per_pair = 2 * (size_t)h * w + 2 * (size_t)h * ((w + 1) / 2);
-  const size_t smem = sizeof(float) * per_pair * ti * tj;
-  const cudaError_t err = allow_smem(resnet_strided_kernel<ACT>, smem);
-  if (err != cudaSuccess) return err;
-  resnet_strided_kernel<ACT><<<grid, kThreads, smem, stream>>>(
-      k, v1, v2, v1m, v2m, scales, out, n1, n2, h, w, ti, tj);
+                           float* out, int n1, int n2, const Geo& G, int ors, int ocs,
+                           int same, cudaStream_t stream) {
+  const long long blocks = stream_blocks(G, n1, n2, same, kThreads / 32);
+  if (blocks < 0) return cudaErrorInvalidConfiguration;
+  resnet_strided_kernel<ACT><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      k, v1, v2, v1m, v2m, scales, out, n1, n2, G, ors, ocs, same);
   return cudaGetLastError();
 }
 
@@ -390,8 +376,7 @@ extern "C" int snngp_resnet_tail_f32(const float* k, const float* v1, const floa
                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo G{lanes, rows, lg, rstride, cstride, lanes * rows};
-  if (lanes < 1 || lg > 5 || lanes > (1 << lg) || rows < 1 || nblocks < 1 ||
-      nblocks > kMaxTailBlocks || (same && n1 != n2))
+  if (bad_geometry(G, n1, n2, same) || nblocks < 1 || nblocks > kMaxTailBlocks)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (act == kRelu)
@@ -403,19 +388,28 @@ extern "C" int snngp_resnet_tail_f32(const float* k, const float* v1, const floa
 
 // k [n1, n2, h*w] -> out [n1, n2, hr*wr], hr = ceil(h/2), wr = ceil(w/2);
 // v1 [n1, h*w], v2 [n2, h*w] enter the first activation, v1m [n1, hr*wr],
-// v2m [n2, hr*wr] the second; scales [w^2, b^2]. As snngp_resnet_tail_f32
-// otherwise.
+// v2m [n2, hr*wr] the second; scales [w^2, b^2]. The state streams as in
+// snngp_resnet_tail_f32, and reduced element (a, b) (of ceil(rows / 2) rows
+// and ceil(lanes / 2) columns) is pixel a * ors + b * ocs of the output; the
+// lattice offsets follow the parity of rows and lanes. same = 1: k is
+// K(x, x)'s state (bitwise symmetric, n1 == n2), v2 is v1 and v2m is v1m.
+// Returns the CUDA error code of the launch; does not synchronize.
 extern "C" int snngp_resnet_strided_f32(const float* k, const float* v1, const float* v2,
                                         const float* v1m, const float* v2m,
                                         const float* scales, float* out, int n1, int n2,
-                                        int h, int w, int act, int ti, int tj,
+                                        int lanes, int rows, int lg, int rstride,
+                                        int cstride, int ors, int ocs, int act, int same,
                                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Geo G{lanes, rows, lg, rstride, cstride, lanes * rows};
+  if (bad_geometry(G, n1, n2, same)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (act == kRelu)
-    err = launch_strided<kRelu>(k, v1, v2, v1m, v2m, scales, out, n1, n2, h, w, ti, tj, s);
+    err = launch_strided<kRelu>(k, v1, v2, v1m, v2m, scales, out, n1, n2, G, ors, ocs, same,
+                                s);
   else if (act == kErf)
-    err = launch_strided<kErf>(k, v1, v2, v1m, v2m, scales, out, n1, n2, h, w, ti, tj, s);
+    err = launch_strided<kErf>(k, v1, v2, v1m, v2m, scales, out, n1, n2, G, ors, ocs, same,
+                               s);
   return static_cast<int>(err);
 }
 

@@ -23,7 +23,8 @@ devices, with the JAX package's ``trainable_inputs`` contract (as
   CPU tensor;
 - backward with ``trainable_inputs=False`` (only the three scales are
   trained): the variance maps and their tangents (``torch.func.jvp``), then
-  K4 (:func:`conv_gram_grads_cuda`) for a CUDA tensor or its plain version
+  K4 (:func:`conv_gram_grads_cuda`, with ``same=True`` for K(x, x)) for a
+  CUDA tensor or its plain version
   (:func:`conv_gram_grads_plain`) for a CPU tensor, which return
   (g . dK/dw_std, g . dK/db_std, g . dK/dlast_w_std); x1 and x2 get zero
   cotangents;
@@ -39,7 +40,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 import torch.nn.functional as F
@@ -49,18 +49,13 @@ from snngp_torch.ops.gram import _ACT_T, _ACT_T_PARTIALS, _ACTS, _post_act_var
 
 __all__ = ["cnn_gram", "conv_var_stack", "conv_gram_plain", "conv_gram_cuda",
            "conv_gram_tangents_plain", "conv_gram_grads_plain", "conv_gram_grads_cuda",
-           "stream_geometry", "MAX_HW", "LAUNCHES"]
+           "grads_blocks", "stream_geometry", "MAX_HW", "LAUNCHES"]
 
 # Launches of each CUDA kernel in this process; the wrappers add one per
 # launch. "conv_gram" is K3, "conv_gram_grads" is K4.
 LAUNCHES = {"conv_gram": 0, "conv_gram_grads": 0}
 
 MAX_HW = 1024          # the route's gate (arch.get_cnn_kernel), as in the JAX package
-_SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
-# Pair-pixel elements one block of K4 keeps in flight: six planes per pair
-# (k, dk/dw, dk/db and their column sums).
-_K4_ELEMS = 2048
-_MAX_ROW_TILES = 65535  # grid.y limit
 _INT_MAX = 2**31 - 1
 
 
@@ -157,7 +152,7 @@ def conv_gram_grads_plain(x1, x2, v1s, v2s, dv1s, dv2s, scales, g, *, depth: int
 # -- the CUDA kernels -----------------------------------------------------------
 
 def stream_geometry(h: int, w: int):
-    """The streamed kernels' layout of an [h, w] state (K3, K5): (lanes,
+    """The streamed kernels' layout of an [h, w] state (K3-K6): (lanes,
     rows, lg, rstride, cstride). Lane c of a segment of 2^lg >= lanes lanes
     owns column c, so a warp holds 32 / 2^lg pairs, and the rows stream;
     element (r, c) is pixel r * rstride + c * cstride. An image wider than
@@ -183,21 +178,6 @@ def _check_same(same, pairs):
             raise ValueError(f"same=True needs one operand twice; {name}2 is not {name}1")
 
 
-def tile_shape(hw: int, n1: int, n2: int, elems: int):
-    """(ti, tj): the block's tile of ti x tj pairs, chosen at launch from the
-    image size so that a block keeps about ``elems`` pair-pixels in flight
-    (4 x 4 pixels: 16 x 16 pairs; 32 x 32 pixels: 2 x 2), cut to the
-    operands' sizes."""
-    pairs = max(1, elems // hw)
-    ti = max(1, math.isqrt(pairs))
-    tj = max(1, pairs // ti)
-    return min(ti, n1), min(tj, n2)
-
-
-def _smem_bytes(hw, ti, tj, planes, row_planes):
-    return 4 * hw * (planes * ti * tj + row_planes * (ti + tj))
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv_gram")
@@ -205,8 +185,11 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.snngp_conv_gram_grads_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.snngp_conv_gram_grads_blocks
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
     lib.snngp_conv_error_string.argtypes = [ctypes.c_int]
     lib.snngp_conv_error_string.restype = ctypes.c_char_p
     return lib
@@ -244,16 +227,6 @@ def _check_cuda_inputs(tensors, depth, act):
     return n1, n2, h, w, c
 
 
-def _launch_geometry(n1, n2, hw, elems, planes, row_planes):
-    ti, tj = tile_shape(hw, n1, n2, elems)
-    if -(-n1 // ti) > _MAX_ROW_TILES:
-        raise ValueError(f"n1 = {n1} exceeds the kernel's row grid")
-    smem = _smem_bytes(hw, ti, tj, planes, row_planes)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{smem} bytes of shared memory exceed the block's limit")
-    return ti, tj
-
-
 def _raise_on(lib, err, what):
     if err != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} "
@@ -287,12 +260,27 @@ def conv_gram_cuda(x1, x2, v1s, v2s, scales, *, depth: int, act: str, same: bool
     return out
 
 
+def grads_blocks(n1: int, n2: int, h: int, w: int, depth: int, same: bool) -> int:
+    """The blocks of a K4 launch on these shapes, each writing one float64
+    triple: the columns of its partial sums. Read from the kernel's library
+    (``snngp_conv_gram_grads_blocks``), which sizes the launch itself."""
+    lanes, rows, lg, _, _ = stream_geometry(h, w)
+    blocks = _lib().snngp_conv_gram_grads_blocks(n1, n2, lanes, rows, lg, depth, int(same))
+    if blocks < 0:
+        raise ValueError(f"{n1} x {n2} pairs of {h} x {w} images at depth {depth} do not "
+                         "fit one K4 launch")
+    return blocks
+
+
 def conv_gram_grads_cuda(x1, x2, v1s, v2s, dv1s, dv2s, scales, g, *, depth: int,
-                         act: str) -> torch.Tensor:
+                         act: str, same: bool = False) -> torch.Tensor:
     """Launch K4 (``csrc/conv_gram.cu``) on the current stream; same inputs
     and result as :func:`conv_gram_grads_plain`: the three float64 sums. The
     kernel writes one partial triple per block; they are added here in
-    float64."""
+    float64. ``same=True`` says that x2, v2s and dv2s are x1, v1s and dv1s:
+    the kernel runs each pair j <= i once and weights it by g[i, j] +
+    g[j, i], so g need not be symmetric."""
+    _check_same(same, dict(x=(x1, x2), v=(v1s, v2s), dv=(dv1s, dv2s)))
     n1, n2, h, w, c = _check_cuda_inputs(
         dict(x1=x1, x2=x2, v1s=v1s, v2s=v2s, dv1s=dv1s, dv2s=dv2s, scales=scales, g=g),
         depth, act)
@@ -304,16 +292,19 @@ def conv_gram_grads_cuda(x1, x2, v1s, v2s, dv1s, dv2s, scales, g, *, depth: int,
         raise ValueError(f"scales must be [7]; got {tuple(scales.shape)}")
     if g.shape != (n1, n2):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match ({n1}, {n2})")
-    ti, tj = _launch_geometry(n1, n2, hw, _K4_ELEMS, planes=6, row_planes=3)
+    if 2 * (depth + 1) * max(n1, n2) * hw > _INT_MAX:
+        raise ValueError(f"2 x {depth + 1} x {max(n1, n2)} variance tangents of {hw} "
+                         "pixels exceed the kernel's int indices")
+    geometry = stream_geometry(h, w)
     lib = _lib()
-    blocks = -(-n1 // ti) * -(-n2 // tj)
-    partial = torch.empty((3, blocks), dtype=torch.float64, device=x1.device)
+    partial = torch.empty((3, grads_blocks(n1, n2, h, w, depth, same)), dtype=torch.float64,
+                          device=x1.device)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.snngp_conv_gram_grads_f32(
             x1.data_ptr(), x2.data_ptr(), v1s.data_ptr(), v2s.data_ptr(),
             dv1s.data_ptr(), dv2s.data_ptr(), scales.data_ptr(), g.data_ptr(),
-            partial.data_ptr(), n1, n2, h, w, c, depth, _ACTS[act], ti, tj, stream)
+            partial.data_ptr(), n1, n2, *geometry, c, depth, _ACTS[act], int(same), stream)
     _raise_on(lib, err, "conv Gram gradient kernel")
     LAUNCHES["conv_gram_grads"] += 1
     return partial.sum(dim=1)
@@ -385,12 +376,16 @@ class _ConvGram(torch.autograd.Function):
             v2s, dv2s = ((v1s, dv1s) if same
                          else _stack_with_tangents(x2, depth, act, w, b))
             scales = torch.stack([w * w, b * b, last * last, _inv_c(x1, w), w, b, last])
-            args = (x1, x2, v1s, v2s, dv1s, dv2s, scales, g)
             if x1.device.type == "cpu":
-                sums = conv_gram_grads_plain(*args, depth=depth, act=act)
+                sums = conv_gram_grads_plain(x1, x2, v1s, v2s, dv1s, dv2s, scales, g,
+                                             depth=depth, act=act)
             else:
-                sums = conv_gram_grads_cuda(*(t.contiguous() for t in args),
-                                            depth=depth, act=act)
+                a, v, dv = x1.contiguous(), v1s.contiguous(), dv1s.contiguous()
+                b, u, du = ((a, v, dv) if same
+                            else (x2.contiguous(), v2s.contiguous(), dv2s.contiguous()))
+                sums = conv_gram_grads_cuda(a, b, v, u, dv, du, scales.contiguous(),
+                                            g.contiguous(), depth=depth, act=act,
+                                            same=same)
         gw, gb, gl = (s.to(w.dtype) for s in sums.unbind())
         zero_x = [torch.zeros_like(x) if need else None
                   for x, need in zip((x1, x2), ctx.needs_input_grad[:2])]

@@ -22,9 +22,9 @@ kernels (:func:`tail_var_stack`, :func:`strided_var_pieces`). K6 computes
 its block at the reduced resolution directly: the stride-2 stencils are
 evaluated only at the (oh, ow) lattice points (:func:`_stride2_offsets`),
 where the TPU kernel ran at full resolution and XLA subsampled afterwards.
-For K(x, x) every K5 launch takes ``same=True``: the state entering each
-tail is bitwise symmetric, so the kernel runs the pairs j <= i and mirrors
-them.
+For K(x, x) every K5 and K6 launch takes ``same=True``: the state
+entering each is bitwise symmetric, so the kernels run the pairs j <= i
+and mirror them.
 
 :func:`conv_resnet_gram` goes through one ``torch.autograd.Function``:
 the kernels for CUDA tensors, :func:`resnet_tail_plain` /
@@ -46,21 +46,18 @@ import functools
 import torch
 
 from snngp_torch.ops import _build
-from snngp_torch.ops.conv_gram import (_INT_MAX, _MAX_ROW_TILES, _SMEM_LIMIT, _check_same,
-                                       _stencil, stream_geometry, tile_shape)
+from snngp_torch.ops.conv_gram import _INT_MAX, _check_same, _stencil, stream_geometry
 from snngp_torch.ops.gram import _ACT_T, _ACTS, _post_act_var
 
 __all__ = ["conv_resnet_gram", "tail_var_stack", "strided_var_pieces",
            "resnet_tail_plain", "strided_block_plain", "resnet_tail_cuda",
-           "strided_cuda", "tail_chunks", "MAX_HW", "LAUNCHES"]
+           "strided_cuda", "strided_geometry", "tail_chunks", "MAX_HW", "LAUNCHES"]
 
 # Launches of each CUDA kernel in this process; the wrappers add one per
 # launch. "resnet_tail" is K5, "resnet_strided" is K6.
 LAUNCHES = {"resnet_tail": 0, "resnet_strided": 0}
 
 MAX_HW = 1024     # the route's gate (arch.get_conv_resnet_kernel), as in the JAX package
-# Pair-pixels one block of K6 keeps in flight: 2 x 2 pairs at 32 x 32.
-_ELEMS = 4096
 
 
 def _stride2_offsets(h: int, w: int):
@@ -188,10 +185,17 @@ def tail_chunks(nblocks: int, mismatch: bool, per_launch: int):
             for first in range(0, nblocks, per_launch)]
 
 
-def _strided_pair_floats(h, w):
-    """Shared floats per pair of K6: k and t1 at full resolution, and the
-    column sums of each at the lattice columns (every row)."""
-    return 2 * h * w + 2 * h * _half(w)
+def strided_geometry(h: int, w: int):
+    """K6's streamed layout of an [h, w] state and its [ceil(h/2), ceil(w/2)]
+    reduction: :func:`stream_geometry`'s (lanes, rows, lg, rstride, cstride),
+    then (ors, ocs), reduced element (a, b) of the stream (a < ceil(rows /
+    2), b < ceil(lanes / 2)) being pixel a * ors + b * ocs of the reduced
+    state. The kernel reads the lattice offsets from the parity of rows and
+    lanes, so a state wider than 32, which streams transposed, swaps the
+    reduced strides and (oh, ow) with the full ones."""
+    lanes, rows, lg, rstride, cstride = stream_geometry(h, w)
+    wr = _half(w)
+    return lanes, rows, lg, rstride, cstride, *((1, wr) if w > 32 else (wr, 1))
 
 
 @functools.cache
@@ -203,7 +207,7 @@ def _lib() -> ctypes.CDLL:
     lib.snngp_resnet_tail_max_blocks.argtypes = []
     lib.snngp_resnet_tail_max_blocks.restype = ctypes.c_int
     fn = lib.snngp_resnet_strided_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.snngp_resnet_error_string.argtypes = [ctypes.c_int]
     lib.snngp_resnet_error_string.restype = ctypes.c_char_p
@@ -233,14 +237,12 @@ def _check_cuda_inputs(tensors, act, h, w):
     return k.shape[0], k.shape[1]
 
 
-def _launch_geometry(n1, n2, hw, pair_floats):
-    ti, tj = tile_shape(hw, n1, n2, _ELEMS)
-    if -(-n1 // ti) > _MAX_ROW_TILES:
-        raise ValueError(f"n1 = {n1} exceeds the kernel's row grid")
-    if 4 * pair_floats * ti * tj > _SMEM_LIMIT:
-        raise ValueError(f"{4 * pair_floats * ti * tj} bytes of shared memory exceed "
-                         "the block's limit")
-    return ti, tj
+def _check_same_state(same, k, pairs):
+    """``same=True`` (run the pairs j <= i and mirror them) only on K(x, x)'s
+    square state, each second operand in ``pairs`` its first."""
+    _check_same(same, pairs)
+    if same and (k.ndim != 3 or k.shape[0] != k.shape[1]):
+        raise ValueError(f"same=True needs K(x, x)'s state; got k {tuple(k.shape)}")
 
 
 def _raise_on(lib, err, what):
@@ -256,9 +258,7 @@ def resnet_tail_cuda(k, v1s, v2s, scales, *, nblocks: int, act: str, h: int, w: 
     :func:`resnet_tail_plain`. ``same=True`` says that k is K(x, x)'s state
     (bitwise symmetric) and v2s is v1s: the kernel runs each pair j <= i
     once and writes both entries."""
-    _check_same(same, dict(v=(v1s, v2s)))
-    if same and (k.ndim != 3 or k.shape[0] != k.shape[1]):
-        raise ValueError(f"same=True needs K(x, x)'s state; got k {tuple(k.shape)}")
+    _check_same_state(same, k, dict(v=(v1s, v2s)))
     n1, n2 = _check_cuda_inputs(dict(k=k, v1s=v1s, v2s=v2s, scales=scales), act, h, w)
     if nblocks < 1:
         raise ValueError(f"nblocks {nblocks} < 1")
@@ -285,10 +285,13 @@ def resnet_tail_cuda(k, v1s, v2s, scales, *, nblocks: int, act: str, h: int, w: 
     return k
 
 
-def strided_cuda(k, v1s, v2s, scales, *, act: str, h: int, w: int):
+def strided_cuda(k, v1s, v2s, scales, *, act: str, h: int, w: int, same: bool = False):
     """Launch K6 (``csrc/resnet_conv_gram.cu``) on the current stream; same
-    inputs and result as :func:`strided_block_plain`."""
+    inputs and result as :func:`strided_block_plain`. ``same=True`` says
+    that k is K(x, x)'s state (bitwise symmetric) and v2s is v1s: the
+    kernel runs each pair j <= i once and writes both entries."""
     (v1_in, v1_mid), (v2_in, v2_mid) = v1s, v2s
+    _check_same_state(same, k, dict(v_in=(v1_in, v2_in), v_mid=(v1_mid, v2_mid)))
     n1, n2 = _check_cuda_inputs(dict(k=k, v1_in=v1_in, v1_mid=v1_mid, v2_in=v2_in,
                                      v2_mid=v2_mid, scales=scales), act, h, w)
     hwr = _half(h) * _half(w)
@@ -297,15 +300,17 @@ def strided_cuda(k, v1s, v2s, scales, *, act: str, h: int, w: int):
         raise ValueError(f"variance rows {tuple(v1_in.shape)}, {tuple(v1_mid.shape)}, "
                          f"{tuple(v2_in.shape)}, {tuple(v2_mid.shape)} do not match "
                          f"n = ({n1}, {n2}), HW = {h * w} and the reduced {hwr}")
-    ti, tj = _launch_geometry(n1, n2, h * w, _strided_pair_floats(h, w))
+    if max(n1, n2) * h * w > _INT_MAX:
+        raise ValueError(f"{max(n1, n2)} variance rows of {h * w} pixels exceed the "
+                         "kernel's int indices")
     lib = _lib()
     out = torch.empty((n1, n2, hwr), dtype=torch.float32, device=k.device)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.snngp_resnet_strided_f32(
             k.data_ptr(), v1_in.data_ptr(), v2_in.data_ptr(), v1_mid.data_ptr(),
-            v2_mid.data_ptr(), scales.data_ptr(), out.data_ptr(), n1, n2, h, w,
-            _ACTS[act], ti, tj, stream)
+            v2_mid.data_ptr(), scales.data_ptr(), out.data_ptr(), n1, n2,
+            *strided_geometry(h, w), _ACTS[act], int(same), stream)
     _raise_on(lib, err, "resnet strided kernel")
     LAUNCHES["resnet_strided"] += 1
     return out
@@ -336,11 +341,12 @@ def _front(x1, x2, w2, b2, same):
 def _resnet_forward(x1, x2, w, b, last, depth, act, same):
     """The Gram through K5 / K6 on CUDA tensors, their plain versions on
     CPU tensors (``_conv_resnet_gram`` in the JAX package); K(x, x) takes
-    K5's symmetric launch."""
+    K5's and K6's symmetric launches."""
     plain = x1.device.type == "cpu"
     tail_fn = (resnet_tail_plain if plain
                else functools.partial(resnet_tail_cuda, same=same))
-    strided_fn = strided_block_plain if plain else strided_cuda
+    strided_fn = (strided_block_plain if plain
+                  else functools.partial(strided_cuda, same=same))
     w2, b2 = w * w, b * b
     scales = torch.stack([w2, b2])
     n1, n2 = x1.shape[0], x2.shape[0]

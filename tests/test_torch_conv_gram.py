@@ -2,7 +2,8 @@
 ``_patch_mean``, ``Conv``, ``Flatten``), the ``cnn`` builders
 (snngp_torch/nn/arch.py) and the fused conv Gram with its two backward
 contracts (snngp_torch/ops/conv_gram.py: K3's and K4's plain versions),
-each against the JAX package on the same numpy inputs.
+each against the JAX package on the same numpy inputs; and, on a CUDA card
+only, K3 and K4 against their plain versions.
 
 The JAX Pallas kernels run in interpreter mode on the CPU
 (``conv_gram.INTERPRET``, set and restored per test, as
@@ -159,18 +160,7 @@ def test_get_cnn_kernel_routes_by_image_size(monkeypatch):
     np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=1e-6)
 
 
-def test_tile_shape_follows_the_image_size():
-    # 4,096 pair-pixels a block (K6's budget), 2,048 (K4's).
-    assert TCG.tile_shape(1024, 100, 200, 4096) == (2, 2)
-    assert TCG.tile_shape(64, 300, 300, 4096) == (8, 8)
-    assert TCG.tile_shape(1024, 100, 200, TCG._K4_ELEMS) == (1, 2)
-    assert TCG.tile_shape(1, 3, 500, 4096) == (3, 64)   # cut to n1
-    for hw in (1, 30, 64, 784, 1024):
-        ti, tj = TCG.tile_shape(hw, 10_000, 10_000, TCG._K4_ELEMS)
-        assert TCG._smem_bytes(hw, ti, tj, 6, 3) <= TCG._SMEM_LIMIT
-
-
-# -- K3's streamed launch (pure Python: what the wrapper passes) -------------------
+# -- K3's and K4's streamed launch (pure Python: what the wrapper passes) -------------------
 
 # (h, w) -> (lanes, rows, lg, rstride, cstride): the widths of the CIFAR,
 # MNIST and synthetic images and of the WideResNet's groups, and images
@@ -232,6 +222,20 @@ def test_conv_gram_cuda_refuses_same_for_two_operands(other):
     with pytest.raises(ValueError, match=f"same=True.*{other}2 is not {other}1"):
         TCG.conv_gram_cuda(*args["x"], *args["v"], torch.ones(4), depth=2, act="relu",
                            same=True)
+
+
+@pytest.mark.parametrize("other", ["x", "v", "dv"])
+def test_conv_gram_grads_cuda_refuses_same_for_two_operands(other):
+    """K4's same=True runs each pair j <= i once, so the wrapper takes it
+    only when x2, v2s and dv2s are x1's, v1s and dv1s."""
+    x1, _ = _images(9, "8x8x1")
+    a = to_torch(x1)
+    v, dv = TCG._stack_with_tangents(a, 2, "relu", torch.tensor(1.3), torch.tensor(0.2))
+    ops = dict(x=(a, a), v=(v, v), dv=(dv, dv))
+    ops[other] = (ops[other][0], ops[other][0].clone())
+    with pytest.raises(ValueError, match=f"same=True.*{other}2 is not {other}1"):
+        TCG.conv_gram_grads_cuda(*ops["x"], *ops["v"], *ops["dv"], torch.ones(7),
+                                 torch.ones(5, 5), depth=2, act="relu", same=True)
 
 
 def test_cuda_wrappers_reject_cpu_tensors_and_count_no_launch():
@@ -389,6 +393,48 @@ def test_cuda_streamed_k3_is_symmetric_repeatable_and_matches_plain(cuda_device,
             assert torch.equal(k, again)
             if same:
                 assert torch.equal(k, k.T)
+
+
+# (h, w, c, depth): narrow images (7, 8), a rectangular one, an image wider
+# than 32 (transposed), and depths of one pass (1, 4: SVSP's) and of three
+# passes through the shared planes (10).
+K4_CASES = [(8, 8, 1, 4), (7, 7, 2, 1), (6, 10, 3, 10), (5, 40, 1, 4), (8, 8, 3, 10),
+            (7, 7, 1, 4), (6, 10, 2, 1), (5, 40, 2, 10)]
+
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("h,w,c,depth", K4_CASES,
+                         ids=[f"{h}x{w}x{c}-d{d}" for h, w, c, d in K4_CASES])
+def test_cuda_streamed_k4_is_symmetric_repeatable_and_matches_plain(cuda_device, act, h, w,
+                                                                    c, depth):
+    # K4's three sums within 1e-5 of sum |g dK| of its plain version on two
+    # operands and on one (same=True) with a cotangent that is not
+    # symmetric; a second launch bitwise equal; a symmetric launch gives the
+    # same bits on g and on g^T (it weights each pair by g[i, j] + g[j, i]).
+    # Runs only on a CUDA card.
+    x1, x2 = randn(28, (19, h, w, c), (11, h, w, c))
+    g1, g2 = randn(29, (19, 11), (19, 19))
+    with torch.inference_mode():
+        a, b, ga, gs = (t.to(cuda_device) for t in to_torch(x1, x2, g1, g2))
+        wt, bt, lt = (torch.tensor(v, device=cuda_device) for v in (1.3, 0.2, 0.9))
+        v1, dv1 = TCG._stack_with_tangents(a, depth, act, wt, bt)
+        v2, dv2 = TCG._stack_with_tangents(b, depth, act, wt, bt)
+        s7 = torch.tensor([1.69, 0.04, 0.81, 1.0 / c, 1.3, 0.2, 0.9], device=cuda_device)
+        kw = dict(depth=depth, act=act)
+        for args, g, same in (((a, b, v1, v2, dv1, dv2), ga, False),
+                              ((a, a, v1, v1, dv1, dv1), gs, True)):
+            sums = TCG.conv_gram_grads_cuda(*args, s7, g, **kw, same=same)
+            again = TCG.conv_gram_grads_cuda(*args, s7, g, **kw, same=same)
+            want = TCG.conv_gram_grads_plain(*args, s7, g, **kw)
+            _, *tangents = TCG.conv_gram_tangents_plain(*args, s7, **kw)
+            scale = torch.stack([(g.double().abs() * t.double().abs()).sum()
+                                 for t in tangents])
+            assert bool(((sums - want).abs() <= 1e-5 * scale).all())
+            assert torch.equal(sums, again)
+            if same:
+                flipped = TCG.conv_gram_grads_cuda(*args, s7, g.T.contiguous(), **kw,
+                                                   same=True)
+                assert torch.equal(sums, flipped)
 
 
 def test_cuda_symmetric_launch_decodes_pair_indices_past_an_int(cuda_device):

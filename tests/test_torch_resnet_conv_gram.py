@@ -326,15 +326,41 @@ def test_get_conv_resnet_kernel_routes_by_image_size(monkeypatch):
     assert tarch.KERNELS["resnet-conv"] is tarch.get_conv_resnet_kernel
 
 
-def test_launch_geometry_fits_shared_memory():
-    # K6: 2 x 2 pairs at 32 x 32; every image size up to 1,024 pixels fits.
-    # K5 keeps no shared memory: its streamed layout takes every such size.
-    assert TRG._launch_geometry(200, 200, 1024, TRG._strided_pair_floats(32, 32)) == (2, 2)
-    assert TRG._launch_geometry(200, 200, 64, TRG._strided_pair_floats(8, 8)) == (8, 8)
-    for h, w in [(32, 32), (7, 7), (6, 10), (1, 1024), (1024, 1), (4, 4)]:
-        TRG._launch_geometry(10_000, 10_000, h * w, TRG._strided_pair_floats(h, w))
-        lanes, rows, _, _, _ = TRG.stream_geometry(h, w)
-        assert lanes <= 32 and lanes * rows == h * w
+# (h, w) -> K6's streamed geometry: (lanes, rows, lg, rstride, cstride) of the
+# full-resolution state (stream_geometry's), then the reduced state's
+# (ors, ocs). The WideResNet's group boundaries, odd and rectangular states,
+# and states wider than 32 (transposed: the reduced strides swap too).
+STRIDED_GEOMETRY = {(32, 32): (32, 32, 5, 32, 1, 16, 1), (16, 16): (16, 16, 4, 16, 1, 8, 1),
+                    (8, 8): (8, 8, 3, 8, 1, 4, 1), (7, 7): (7, 7, 3, 7, 1, 4, 1),
+                    (6, 10): (10, 6, 4, 10, 1, 5, 1), (1, 1): (1, 1, 0, 1, 1, 1, 1),
+                    (5, 64): (5, 64, 3, 1, 64, 1, 32), (3, 48): (3, 48, 2, 1, 48, 1, 24),
+                    (1, 1024): (1, 1024, 0, 1, 1024, 1, 512), (1024, 1): (1, 1024, 0, 1, 1, 1, 1),
+                    (9, 33): (9, 33, 4, 1, 33, 1, 17)}
+
+
+@pytest.mark.parametrize("hw", list(STRIDED_GEOMETRY),
+                         ids=[f"{h}x{w}" for h, w in STRIDED_GEOMETRY])
+def test_strided_geometry_maps_the_lattice(hw):
+    # Reduced element (a, b) of the stream, at pixel a * ors + b * ocs of
+    # the reduced state, comes from full-resolution element (2a + oR, 2b +
+    # oC) of the stream, the offsets taken from the parity of the streamed
+    # extents as the kernel takes them: that element is the lattice point
+    # (2a' + oh, 2b' + ow) of reduced pixel (a', b'). Each reduced pixel once.
+    h, w = hw
+    lanes, rows, lg, rs, cs, ors, ocs = TRG.strided_geometry(h, w)
+    assert (lanes, rows, lg, rs, cs, ors, ocs) == STRIDED_GEOMETRY[hw]
+    assert (lanes, rows, lg, rs, cs) == TRG.stream_geometry(h, w)
+    oh, ow = TRG._stride2_offsets(h, w)
+    o_r, o_c = 1 - rows % 2, 1 - lanes % 2
+    wr = -(-w // 2)
+    seen = []
+    for a in range(-(-rows // 2)):
+        for b in range(-(-lanes // 2)):
+            q = a * ors + b * ocs
+            p = (2 * a + o_r) * rs + (2 * b + o_c) * cs
+            assert divmod(p, w) == (2 * (q // wr) + oh, 2 * (q % wr) + ow)
+            seen.append(q)
+    assert sorted(seen) == list(range(-(-h // 2) * wr))
 
 
 @pytest.mark.parametrize("nblocks", range(1, 10))
@@ -376,6 +402,34 @@ def test_resnet_tail_plain_is_unchanged_by_transposing_the_state(hw, act):
     assert (_transposed_rows(got, w, h) - want).abs().max() <= 1e-6 * want.abs().max()
 
 
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("hw", [(9, 7), (6, 10), (5, 40), (4, 64), (1, 33)],
+                         ids=["9x7", "6x10", "5x40", "4x64", "1x33"])
+def test_strided_block_plain_is_unchanged_by_transposing_the_state(hw, act):
+    # The identity K6's transposed launch rests on: the block on the
+    # transposed state (its lattice offsets (oh, ow) swapped, as they follow
+    # the extents' parity) is the transposed block, only the stencils' sums
+    # reordered (1e-6 of max|K|).
+    h, w = hw
+    hr, wr = -(-h // 2), -(-w // 2)
+    k, v1, v2 = _state(30, 4, 3, h, w)
+    tv1, tv2 = to_torch(v1, v2)
+    wt, bt = torch.tensor(W), torch.tensor(B)
+    m1, _ = TRG.strided_var_pieces(tv1, act, wt, bt)
+    m2, _ = TRG.strided_var_pieces(tv2, act, wt, bt)
+    kt = to_torch(k).reshape(4, 3, h * w)
+    rows1 = (TRG._flat(tv1), TRG._flat(m1))
+    rows2 = (TRG._flat(tv2), TRG._flat(m2))
+    want = TRG.strided_block_plain(kt, rows1, rows2, _scales(), act=act, h=h, w=w)
+
+    def flip(rows):
+        return _transposed_rows(rows[0], h, w), _transposed_rows(rows[1], hr, wr)
+
+    got = TRG.strided_block_plain(_transposed_rows(kt, h, w), flip(rows1), flip(rows2),
+                                  _scales(), act=act, h=w, w=h)
+    assert (_transposed_rows(got, wr, hr) - want).abs().max() <= 1e-6 * want.abs().max()
+
+
 def test_resnet_tail_cuda_refuses_same_for_two_operands():
     """same=True mirrors the lower triangle, so the wrapper takes it only
     for K(x, x)'s state with v2s v1s."""
@@ -388,6 +442,22 @@ def test_resnet_tail_cuda_refuses_same_for_two_operands():
     with pytest.raises(ValueError, match="same=True"):
         TRG.resnet_tail_cuda(kt[:, :2].contiguous(), rows, rows, _scales(), nblocks=1,
                              act="relu", h=4, w=4, same=True)
+
+
+@pytest.mark.parametrize("other", ["v_in", "v_mid", "k"])
+def test_strided_cuda_refuses_same_for_two_operands(other):
+    """K6's same=True mirrors the lower triangle, so the wrapper takes it
+    only for K(x, x)'s square state with v2s v1s."""
+    k, _, _ = _state(31, 3, 3, 4, 4)
+    kt = to_torch(k).reshape(3, 3, 16)
+    v_in, v_mid = torch.ones(3, 16), torch.ones(3, 4)
+    rows2 = dict(v_in=(v_in.clone(), v_mid), v_mid=(v_in, v_mid.clone()),
+                 k=(v_in, v_mid))[other]
+    if other == "k":
+        kt = kt[:, :2].contiguous()
+    with pytest.raises(ValueError, match="same=True" + ("" if other == "k"
+                                                        else f".*{other}2 is not {other}1")):
+        TRG.strided_cuda(kt, (v_in, v_mid), rows2, _scales(), act="relu", h=4, w=4, same=True)
 
 
 def test_cuda_wrappers_reject_cpu_tensors_and_count_no_launch():
@@ -470,6 +540,71 @@ def test_cuda_streamed_k5_is_symmetric_repeatable_and_matches_plain(cuda_device,
             assert torch.equal(got, again)
             if same:
                 assert torch.equal(got, got.transpose(0, 1))
+
+
+# (h, w): the WideResNet's group boundaries (32, 16, 8), odd and rectangular
+# states, a state wider than 32 (transposed) and a one-pixel one.
+K6_CASES = [(32, 32), (8, 8), (7, 7), (6, 10), (5, 64), (3, 40), (1, 1)]
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("h,w", K6_CASES, ids=[f"{h}x{w}" for h, w in K6_CASES])
+def test_cuda_streamed_k6_is_symmetric_repeatable_and_matches_plain(cuda_device, act, h, w):
+    # K6 within 1e-5 of max|K| of its plain version on a cross state and on
+    # K(x, x)'s (same=True), a symmetric launch bitwise symmetric, a second
+    # launch bitwise equal. Runs only on a CUDA card.
+    x1, x2 = _images(32, (h, w), n1=17, n2=9)
+    with torch.inference_mode():
+        a, b = (t.to(cuda_device) for t in to_torch(x1, x2))
+        wt, bt = (torch.tensor(v, device=cuda_device) for v in (W, B))
+        scales = torch.stack([wt * wt, bt * bt])
+        for x, y, same in ((a, b, False), (a, a, True)):
+            k, v1, v2 = TRG._front(x, y, wt * wt, bt * bt, same)
+            m1, _ = TRG.strided_var_pieces(v1, act, wt, bt)
+            m2 = m1 if same else TRG.strided_var_pieces(v2, act, wt, bt)[0]
+            rows1 = (TRG._flat(v1), TRG._flat(m1))
+            rows2 = rows1 if same else (TRG._flat(v2), TRG._flat(m2))
+            args = (k.reshape(k.shape[0], k.shape[1], h * w).contiguous(), rows1, rows2,
+                    scales)
+            got = TRG.strided_cuda(*args, act=act, h=h, w=w, same=same)
+            again = TRG.strided_cuda(*args, act=act, h=h, w=w, same=same)
+            want = TRG.strided_block_plain(*args, act=act, h=h, w=w)
+            assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+            assert torch.equal(got, again)
+            if same:
+                assert torch.equal(got, got.transpose(0, 1))
+
+
+def test_cuda_symmetric_strided_decodes_pair_indices_past_an_int(cuda_device):
+    # A symmetric K6 launch over the one-pixel states of n = 65,536 images:
+    # its n (n + 1) / 2 pairs number more than 2^31 (tri_pair in
+    # csrc/stream.cuh). It reads one 17 GB state and writes another. Rows at
+    # both ends and the middle within 1e-5 of max|K| of the plain version on
+    # those rows; the whole result bitwise symmetric. Runs only on a CUDA
+    # card.
+    n = 65_536
+    assert n * (n + 1) // 2 > 2**31
+    (x,) = randn(33, (2, n))
+    with torch.inference_mode():
+        a = to_torch(x).to(cuda_device)
+        k = torch.outer(a[0], a[0])             # the input moment of 2 channels,
+        k.add_(torch.outer(a[1], a[1])).mul_(0.5)   # bitwise symmetric
+        wt, bt = (torch.tensor(v, device=cuda_device) for v in (W, B))
+        v0 = (0.5 * (a * a).sum(dim=0)).reshape(n, 1, 1)
+        m0, _ = TRG.strided_var_pieces(v0, "relu", wt, bt)
+        rows_v = (TRG._flat(v0), TRG._flat(m0))
+        scales = torch.stack([wt * wt, bt * bt])
+        got = TRG.strided_cuda(k.reshape(n, n, 1), rows_v, rows_v, scales, act="relu", h=1,
+                               w=1, same=True).reshape(n, n)
+        del k
+        rows = torch.tensor([0, 1, n // 2, n - 2, n - 1], device=cuda_device)
+        k_rows = 0.5 * (torch.outer(a[0, rows], a[0]) + torch.outer(a[1, rows], a[1]))
+        want = TRG.strided_block_plain(k_rows.reshape(5, n, 1),
+                                       (rows_v[0][rows], rows_v[1][rows]), rows_v, scales,
+                                       act="relu", h=1, w=1).reshape(5, n)
+        assert (got[rows] - want).abs().max() <= 1e-5 * want.abs().max()
+        for r in range(0, n, 4096):
+            assert torch.equal(got[r:r + 4096], got[:, r:r + 4096].T)
 
 
 def test_cuda_symmetric_tail_decodes_pair_indices_past_an_int(cuda_device):
