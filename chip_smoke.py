@@ -15,18 +15,22 @@ script exits non-zero:
    shared-memory / spill report;
 1. the fused Gram kernel (K1) against its plain PyTorch version on the same
    inputs, mlp / resnet x relu / erf at depth 4, at the headline shape
-   (10,000 x 16 against itself), a ragged cross shape and a shape whose
-   feature dim exceeds the kernel's staging chunk; gate: relative error
-   max|K_kernel - K_plain| / max|K_plain| <= 1e-5;
+   (10,000 x 16 against itself, a symmetric launch, ``same=True``), a
+   ragged cross shape and a shape whose feature dim exceeds the kernel's
+   staging chunk; gate: relative error max|K_kernel - K_plain| /
+   max|K_plain| <= 1e-5, a second launch bitwise equal, and K(x, x)
+   bitwise symmetric;
 2. serving at size: fit_spr + four 1,000-point requests of FittedSPR.predict
    on a depth-4 ReLU MLP NNGP with a Student-t likelihood, N = 10,000, D = 16,
    against the plain fp32 tier and the plain float64 tier on the card;
 3. the serving CLI: ``python -m snngp_torch reg ts`` / ``reg pr`` on a
    checkpoint written in the JAX package's format, on CUDA and on the CPU;
 4. the Gram's scalar-tangent backward kernel (K2) against its plain version
-   at phase 1's shapes and variants, on a random cotangent and, at
-   10,000 x 16, on the cotangent of the ML-II loss; gate: for each of the
-   three sums, |s_kernel - s_plain| / sum |g dK| <= 1e-5;
+   at phase 1's shapes and variants (K(x, x) a symmetric launch, which
+   weights each pair j < i by g[i, j] + g[j, i]), on a random cotangent,
+   which is not symmetric, and, at 10,000 x 16, on the cotangent of the
+   ML-II loss; gate: for each of the three sums, |s_kernel - s_plain| /
+   sum |g dK| <= 1e-5, and a second launch bitwise equal;
 5. ML-II training at size, same model and data as phase 2 with eps = 1e-2
    absolute: one loss and gradient through the kernels (K1 forward, K2
    backward) against float64 autograd through the plain layer tier on the
@@ -143,6 +147,7 @@ KERNEL_REL_TOL = 1e-5      # bench.py's _pallas_parity bar for the TPU kernels
 # K2's sums against the plain version's, relative to sum |g dK| (the scale of
 # the terms the sum cancels): the same 1e-5 bar.
 K2_REL_TOL = 1e-5
+K2_DEEP = 128              # K2's deep case: 16 passes of staged row factors
 SHAPES = {"10000x16 sym": (10_000, None, 16),
           "1001x7 vs 333x7": (1_001, 333, 7),
           "512x100 sym": (512, None, 100)}
@@ -295,27 +300,30 @@ def phase1_kernel_vs_plain():
                                       torch.tensor(1.0 / d, device="cuda")])
                 args = (x1, x2, v1s, v2s, scales)
                 kw = dict(depth=DEPTH, act=act, mode=mode)
-                k_kernel = G.gram_cuda(*args, **kw)
+                same = x2 is x1
+                k_kernel = G.gram_cuda(*args, **kw, same=same)
+                repeat = torch.equal(k_kernel, G.gram_cuda(*args, **kw, same=same))
                 k_plain = G.gram_plain(*args, **kw)
                 _sync()
                 abs_err = (k_kernel - k_plain).abs().max().item()
                 rel_err = abs_err / k_plain.abs().max().item()
                 finite = bool(torch.isfinite(k_kernel).all())
-                ms = _time_ms(lambda: G.gram_cuda(*args, **kw))
+                ms = _time_ms(lambda: G.gram_cuda(*args, **kw, same=same))
                 plain_ms = _time_ms(lambda: G.gram_plain(*args, **kw))
-                sym = ((k_kernel - k_kernel.T).abs().max().item()
-                       if x2 is x1 else float("nan"))
+                symmetric = torch.equal(k_kernel, k_kernel.T) if same else True
                 print(f"[K1] {mode:6s} {act:4s} {shape_name:16s} rel_err {rel_err:.3e} "
                       f"abs_err {abs_err:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
-                      f"  max|K-K^T| {sym:.3e}")
-                if not finite or not rel_err <= KERNEL_REL_TOL:
+                      f"  repeat bitwise {repeat}"
+                      + (f"  bitwise symmetric {symmetric}" if same else ""))
+                if not finite or not rel_err <= KERNEL_REL_TOL or not repeat or not symmetric:
                     raise AssertionError(
                         f"K1 {mode}/{act} at {shape_name}: rel_err {rel_err:.3e} "
-                        f"(tol {KERNEL_REL_TOL}), finite={finite}")
+                        f"(tol {KERNEL_REL_TOL}), finite={finite}, repeat={repeat}, "
+                        f"symmetric={symmetric}")
                 worst_abs = max(worst_abs, abs_err)
                 nbytes = _read_bytes(args)
                 bound, by = bound_ms(nbytes + n1 * x2.shape[0] * 4,
-                                     k1_ops(n1, x2.shape[0], d, DEPTH, act, mode, x2 is x1))
+                                     k1_ops(n1, x2.shape[0], d, DEPTH, act, mode, same))
                 rows[f"{mode}/{act}/{shape_name}"] = dict(
                     ms=ms, plain_ms=plain_ms, rel_err=rel_err, abs_err=abs_err,
                     bound_ms=bound, bound_by=by)
@@ -327,14 +335,16 @@ def phase1_kernel_vs_plain():
 # -- bounds ---------------------------------------------------------------------
 
 def _dual_act_ops(act, partials):
-    """fp32 operations of one dual activation (or of its partials, as K2
-    computes them), counted from csrc/gram.cu: an FMA is 2, every other
-    arithmetic op, min/max, compare and select is 1, and acosf, asinf, sqrtf
-    and an IEEE divide count 1 each (on the card each is a multi-instruction
-    sequence, so the count is a floor and the bound a least time)."""
+    """fp32 operations of one dual activation (or of its partials with the
+    tangents' sums T_v1 dv1 + T_v2 dv2, as K2 computes them), counted from
+    csrc/gram.cu: an FMA is 2, every other arithmetic op, min/max, compare
+    and select is 1, and acosf, asinf, sqrtf, rsqrtf and an IEEE divide
+    count 1 each (on the card each is a multi-instruction sequence, so the
+    count is a floor and the bound a least time). The per-row factors are
+    O(N depth) and not counted."""
     if act == "relu":
-        return 20 if partials else 17
-    return 31 if partials else 12
+        return 25 if partials else 15
+    return 24 if partials else 7
 
 
 def _pairs(n1, n2, same):
@@ -361,11 +371,13 @@ def k1_ops(n1, n2, d, depth, act, mode, same):
 
 def k2_ops(n1, n2, d, depth, act, mode, same):
     """(fp32, fp64) operations of K2 on these shapes (see _dual_act_ops);
-    the fp64 ones are the contraction's three FMAs per output."""
+    the fp64 ones are the contraction's three FMAs per pair and, for
+    K(x, x), the sum g[i, j] + g[j, i] of each pair j < i."""
     p = _dual_act_ops(act, True)
-    per = 2 * d + 1 + (depth * (17 + p) + 3 if mode == "mlp"
-                       else 3 + depth * (p + 20) + p + 13)
-    return _pairs(n1, n2, same) * per, _pairs(n1, n2, same) * 6
+    per = 2 * d + 1 + (depth * (11 + p) + 3 if mode == "mlp"
+                       else 3 + depth * (p + 14) + p + 7)
+    folds = n1 * (n1 - 1) // 2 if same else 0
+    return _pairs(n1, n2, same) * per, _pairs(n1, n2, same) * 6 + folds
 
 
 def bound_ms(nbytes, fp32_ops, fp64_ops=0):
@@ -379,24 +391,32 @@ def bound_ms(nbytes, fp32_ops, fp64_ops=0):
 # -- K2 -------------------------------------------------------------------------
 
 def _k2_inputs(x1, x2, mode, act):
+    """K2's inputs; for K(x, x) x2, v2s and dv2s are x1, v1s and dv1s."""
     import torch
     from snngp_torch.ops import gram as G
 
     w, b, last = (torch.tensor(v, device="cuda") for v in (W_STD, B_STD, LAST_W_STD))
-    v1s, dv1s = G._stack_with_tangents(mode, x1, DEPTH, act, w, b)
-    v2s, dv2s = ((v1s, dv1s) if x2 is x1
-                 else G._stack_with_tangents(mode, x2, DEPTH, act, w, b))
+    x1 = x1.contiguous()
+    v1s, dv1s = (t.contiguous() for t in G._stack_with_tangents(mode, x1, DEPTH, act, w, b))
+    if x2 is None:
+        x2, v2s, dv2s = x1, v1s, dv1s
+    else:
+        v2s, dv2s = (t.contiguous()
+                     for t in G._stack_with_tangents(mode, x2, DEPTH, act, w, b))
     scales = torch.stack([w * w, b * b, last * last,
                           torch.tensor(1.0 / x1.shape[1], device="cuda"), w, b, last])
-    return [t.contiguous() for t in (x1, x2, v1s, v2s, dv1s, dv2s, scales)]
+    return [x1, x2.contiguous(), v1s, v2s, dv1s, dv2s, scales]
 
 
 def _k2_check(args, g, kw, label):
-    """K2 against its plain version on one cotangent; returns the row."""
+    """K2 against its plain version on one cotangent (a symmetric launch
+    where x2 is x1); returns the row."""
     import torch
     from snngp_torch.ops import gram as G
 
-    s_kernel = G.gram_grads_cuda(*args, g, **kw)
+    same = args[1] is args[0]
+    s_kernel = G.gram_grads_cuda(*args, g, **kw, same=same)
+    repeat = torch.equal(s_kernel, G.gram_grads_cuda(*args, g, **kw, same=same))
     s_plain = G.gram_grads_plain(*args, g, **kw)
     _, dkw, dkb, dkl = G.gram_tangents_plain(*args, **kw)
     g64 = g.double().abs()
@@ -405,19 +425,18 @@ def _k2_check(args, g, kw, label):
     abs_err = (s_kernel - s_plain).abs()
     rel = (abs_err / scale).max().item()
     finite = bool(torch.isfinite(s_kernel).all())
-    ms = _time_ms(lambda: G.gram_grads_cuda(*args, g, **kw))
+    ms = _time_ms(lambda: G.gram_grads_cuda(*args, g, **kw, same=same))
     plain_ms = _time_ms(lambda: G.gram_grads_plain(*args, g, **kw), reps=2)
     print(f"[K2] {label:34s} rel_err {rel:.3e} abs_err {abs_err.max().item():.3e}  "
-          f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  sums "
+          f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  repeat bitwise {repeat}  sums "
           + " ".join(f"{v:.6e}" for v in s_kernel.tolist()))
-    if not finite or not rel <= K2_REL_TOL:
+    if not finite or not rel <= K2_REL_TOL or not repeat:
         raise AssertionError(f"K2 {label}: rel_err {rel:.3e} (tol {K2_REL_TOL}), "
-                             f"finite={finite}")
+                             f"finite={finite}, repeat={repeat}")
     n1, n2 = g.shape
-    nbytes = (_read_bytes(args)
-              + g.numel() * 4 + 3 * (-(-n1 // 64)) * (-(-n2 // 64)) * 8)
+    nbytes = _read_bytes(args) + g.numel() * 4 + 3 * G.gram_blocks(n1, n2, same) * 8
     bound, by = bound_ms(nbytes, *k2_ops(n1, n2, args[0].shape[1], kw["depth"],
-                                          kw["act"], kw["mode"], args[1] is args[0]))
+                                          kw["act"], kw["mode"], same))
     return dict(ms=ms, plain_ms=plain_ms, rel_err=rel, abs_err=abs_err.max().item(),
                 bound_ms=bound, bound_by=by)
 
@@ -432,12 +451,12 @@ def phase4_k2_vs_plain(x_train, ml2_cotangent):
     rows = {}
     for shape_name, (n1, n2, d) in SHAPES.items():
         x1 = torch.as_tensor(rng.randn(n1, d).astype(np.float32), device="cuda")
-        x2 = x1 if n2 is None else torch.as_tensor(
+        x2 = None if n2 is None else torch.as_tensor(
             rng.randn(n2, d).astype(np.float32), device="cuda")
-        g = torch.as_tensor(rng.randn(n1, x2.shape[0]).astype(np.float32), device="cuda")
+        g = torch.as_tensor(rng.randn(n1, n2 or n1).astype(np.float32), device="cuda")
         cases = {"random": (x1, x2, g)}
         if shape_name == HEAD_SHAPE:
-            cases["ml2"] = (x_train, x_train, ml2_cotangent)
+            cases["ml2"] = (x_train, None, ml2_cotangent)
         for mode in ("mlp", "resnet"):
             for act in ("relu", "erf"):
                 for case, (a1, a2, cot) in cases.items():
@@ -452,17 +471,20 @@ def phase4_k2_vs_plain(x_train, ml2_cotangent):
 
 
 def _k2_repeat_and_depth(x_train, cot):
-    """K2's sums repeat bitwise (a fixed-order reduction, no atomics), and
-    K2 holds its plain version at its deepest supported depth."""
+    """K2's sums repeat bitwise (a fixed-order reduction, no atomics) and
+    give the same bits for g and g^T on K(x, x), and K2 holds its plain
+    version at depth K2_DEEP (the factors of 8 layers staged a pass)."""
     import torch
     from snngp_torch.ops import gram as G
 
-    args = _k2_inputs(x_train, x_train, "mlp", "relu")
-    kw = dict(depth=DEPTH, act="relu", mode="mlp")
+    args = _k2_inputs(x_train, None, "mlp", "relu")
+    kw = dict(depth=DEPTH, act="relu", mode="mlp", same=True)
     first, second = (G.gram_grads_cuda(*args, cot, **kw) for _ in range(2))
-    if not torch.equal(first, second):
-        raise AssertionError(f"K2 sums differ between two runs: {first} {second}")
-    depth = G._MAX_GRAD_DEPTH
+    transposed = G.gram_grads_cuda(*args, cot.T.contiguous(), **kw)
+    if not (torch.equal(first, second) and torch.equal(first, transposed)):
+        raise AssertionError(f"K2 sums differ between two runs or for g^T: {first} {second} "
+                             f"{transposed}")
+    depth = K2_DEEP
     rng = np.random.RandomState(5)
     x = torch.as_tensor(rng.randn(300, 8).astype(np.float32), device="cuda")
     w, b, last = (torch.tensor(v, device="cuda") for v in (1.0, 0.1, 1.0))
@@ -471,10 +493,10 @@ def _k2_repeat_and_depth(x_train, cot):
                           w, b, last])
     g = torch.as_tensor(rng.randn(300, 300).astype(np.float32), device="cuda")
     kw = dict(depth=depth, act="relu", mode="mlp")
-    got = G.gram_grads_cuda(x, x, v, v, dv, dv, scales, g, **kw)
+    got = G.gram_grads_cuda(x, x, v, v, dv, dv, scales, g, **kw, same=True)
     want = G.gram_grads_plain(x, x, v, v, dv, dv, scales, g, **kw)
     rel = ((got - want).abs() / want.abs()).max().item()
-    print(f"[K2] sums repeat bitwise: True; depth {depth} (the kernel's limit) vs plain "
+    print(f"[K2] sums repeat bitwise and equal for g^T: True; depth {depth} vs plain "
           f"rel err {rel:.3e}")
     if not rel <= K2_REL_TOL:
         raise AssertionError(f"K2 at depth {depth}: rel err {rel:.3e}")

@@ -25,7 +25,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load", "library_path", "ptxas_report", "NVCC_FLAGS"]
+__all__ = ["load", "library_path", "ptxas_report", "parse_ptxas", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -83,11 +83,15 @@ def ptxas_report(name: str) -> list:
     register lines, e.g. ``conv_gram_kernel<0>: 0 bytes stack frame, ...;
     Used 48 registers, ...``. Empty if the library has no log."""
     log = library_path(name).with_suffix(".log")
-    if not log.exists():
-        return []
+    return parse_ptxas(log.read_text()) if log.exists() else []
+
+
+def parse_ptxas(text: str) -> list:
+    """:func:`ptxas_report`'s lines from the text of an ``nvcc -Xptxas -v``
+    run."""
     entries = {}   # kernel<targs> -> its lines, in the log's order
     facts = None
-    for line in log.read_text().splitlines():
+    for line in text.splitlines():
         if "Compiling entry" in line:
             m = re.search(r"([a-z_]+_kernel)(?:I((?:L\w\d+E)+)E)?", line)
             targs = f"<{', '.join(re.findall(r'L\w(\d+)E', m[2]))}>" if m and m[2] else ""

@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from snngp_torch.ops import _build
-from snngp_torch.ops.gram import _ACT_T, _ACT_T_PARTIALS, _ACTS, _post_act_var
+from snngp_torch.ops.gram import _ACT_T, _ACT_T_PARTIALS, _ACTS, _check_same, _post_act_var
 
 __all__ = ["cnn_gram", "conv_var_stack", "conv_gram_plain", "conv_gram_cuda",
            "conv_gram_tangents_plain", "conv_gram_grads_plain", "conv_gram_grads_cuda",
@@ -166,16 +166,6 @@ def stream_geometry(h: int, w: int):
     if not 1 <= lanes <= 32:
         raise ValueError(f"{h} x {w}: the streamed kernels need a side of at most 32")
     return lanes, rows, (lanes - 1).bit_length(), *strides
-
-
-def _check_same(same, pairs):
-    """``same=True`` (run the pairs j <= i and mirror them) only where each
-    second operand is its first: ``pairs`` maps a name to (first, second)."""
-    if not same:
-        return
-    for name, (a, b) in pairs.items():
-        if (a.data_ptr(), a.shape, a.stride()) != (b.data_ptr(), b.shape, b.stride()):
-            raise ValueError(f"same=True needs one operand twice; {name}2 is not {name}1")
 
 
 @functools.cache

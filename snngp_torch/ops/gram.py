@@ -15,11 +15,12 @@ element and writes each output once:
 ``torch.autograd.Function`` on both devices, with the JAX package's
 ``trainable_inputs`` contract:
 
-- forward: K1 (``csrc/gram.cu``, :func:`gram_cuda`) for a CUDA tensor,
-  :func:`gram_plain` for a CPU tensor;
+- forward: K1 (``csrc/gram.cu``, :func:`gram_cuda`, with ``same=True`` for
+  K(x, x)) for a CUDA tensor, :func:`gram_plain` for a CPU tensor;
 - backward with ``trainable_inputs=False`` (ML-II: only the three scales
   are trained): the variance stacks and their tangents (``torch.func.jvp``),
-  then K2 (:func:`gram_grads_cuda`) for a CUDA tensor or its plain version
+  then K2 (:func:`gram_grads_cuda`, with ``same=True`` for K(x, x)) for a
+  CUDA tensor or its plain version
   (:func:`gram_grads_plain`) for a CPU tensor, which return
   (g . dK/dw_std, g . dK/db_std, g . dK/dlast_w_std); x1 and x2 get zero
   cotangents;
@@ -43,7 +44,7 @@ from snngp_torch.ops import _build
 
 __all__ = ["mlp_gram", "resnet_gram", "mlp_var_stack", "resnet_var_stack",
            "gram_plain", "gram_cuda", "gram_tangents_plain", "gram_grads_plain",
-           "gram_grads_cuda", "LAUNCHES"]
+           "gram_grads_cuda", "gram_blocks", "LAUNCHES"]
 
 # Launches of each CUDA kernel in this process; the wrappers add one per
 # launch. "gram" is K1, "gram_grads" is K2.
@@ -51,9 +52,7 @@ LAUNCHES = {"gram": 0, "gram_grads": 0}
 
 _MODES = {"mlp": 0, "resnet": 1}
 _ACTS = {"relu": 0, "erf": 1}
-_MAX_DEPTH = 256       # K1's two variance planes must fit the block's shared memory
-_MAX_GRAD_DEPTH = 128  # K2 stages six planes: 6 x 129 x 64 x 4 B + 17 KB static < 227 KB
-_MAX_ROW_TILES = 65535  # grid.y limit, in 64-row tiles
+_MAX_ROW_TILES = 65535  # a cross launch's grid.y limit, in 64-row tiles
 _TILE = 64
 _INV_4PI = 0.25 / math.pi
 
@@ -234,7 +233,17 @@ def _check_cuda(name, t, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _check_cuda_inputs(tensors, depth, max_depth):
+def _check_same(same, pairs):
+    """``same=True`` (run the pairs j <= i and mirror them) only where each
+    second operand is its first: ``pairs`` maps a name to (first, second)."""
+    if not same:
+        return
+    for name, (a, b) in pairs.items():
+        if (a.data_ptr(), a.shape, a.stride()) != (b.data_ptr(), b.shape, b.stride()):
+            raise ValueError(f"same=True needs one operand twice; {name}2 is not {name}1")
+
+
+def _check_cuda_inputs(tensors, depth, same):
     """Device, dtype, contiguity and the shapes both kernels share;
     ``tensors`` maps names to tensors, x1 first."""
     x1, x2 = tensors["x1"], tensors["x2"]
@@ -248,9 +257,9 @@ def _check_cuda_inputs(tensors, depth, max_depth):
         raise ValueError(f"feature dims differ: {d} vs {x2.shape[1]}")
     if min(n1, n2, d) < 1:
         raise ValueError(f"empty input: x1 {tuple(x1.shape)}, x2 {tuple(x2.shape)}")
-    if not 0 <= depth <= max_depth:
-        raise ValueError(f"depth {depth} outside [0, {max_depth}]")
-    if -(-n1 // _TILE) > _MAX_ROW_TILES:
+    if depth < 0:
+        raise ValueError(f"depth {depth} < 0")
+    if not same and -(-n1 // _TILE) > _MAX_ROW_TILES:
         raise ValueError(f"n1 = {n1} exceeds the kernel's row grid")
     v1s, v2s = tensors["v1s"], tensors["v2s"]
     if v1s.shape != (depth + 1, n1) or v2s.shape != (depth + 1, n2):
@@ -270,11 +279,14 @@ def _check_mode_act(mode, act):
 def _gram_lib() -> ctypes.CDLL:
     lib = _build.load("gram")
     fn = lib.snngp_gram_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.snngp_gram_grads_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.snngp_gram_blocks
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
     lib.snngp_error_string.argtypes = [ctypes.c_int]
     lib.snngp_error_string.restype = ctypes.c_char_p
     return lib
@@ -286,37 +298,56 @@ def _raise_on(lib, err, what):
                            f"({lib.snngp_error_string(err).decode()})")
 
 
-def gram_cuda(x1, x2, v1s, v2s, scales, *, depth: int, act: str, mode: str):
+def gram_blocks(n1: int, n2: int, same: bool) -> int:
+    """The blocks of a K1 or K2 launch on these shapes: the T (T + 1) / 2
+    lower-triangle 64 x 64 tiles of a symmetric one, else every tile; K2
+    writes one float64 triple a block. Read from the kernels' library
+    (``snngp_gram_blocks``), which sizes the launch itself."""
+    blocks = _gram_lib().snngp_gram_blocks(n1, n2, int(same))
+    if blocks < 0:
+        raise ValueError(f"{n1} x {n2} pairs (same={same}) do not fit one Gram launch")
+    return blocks
+
+
+def gram_cuda(x1, x2, v1s, v2s, scales, *, depth: int, act: str, mode: str,
+              same: bool = False):
     """Launch K1 (``csrc/gram.cu``) on the current stream; same inputs and
-    result as :func:`gram_plain`."""
+    result as :func:`gram_plain`. ``same=True`` says that x2 and v2s are x1
+    and v1s: the kernel runs each pair j <= i once and writes both entries,
+    so K(x, x) is bitwise symmetric."""
+    _check_same(same, dict(x=(x1, x2), v=(v1s, v2s)))
     _check_mode_act(mode, act)
     n1, n2, d = _check_cuda_inputs(dict(x1=x1, x2=x2, v1s=v1s, v2s=v2s, scales=scales),
-                                   depth, _MAX_DEPTH)
+                                   depth, same)
     if scales.shape != (4,):
         raise ValueError(f"scales must be [4]; got {tuple(scales.shape)}")
     lib = _gram_lib()
+    gram_blocks(n1, n2, same)   # raises past the grid's limits
     out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.snngp_gram_f32(
             x1.data_ptr(), x2.data_ptr(), v1s.data_ptr(), v2s.data_ptr(),
             scales.data_ptr(), out.data_ptr(), n1, n2, d, depth,
-            _MODES[mode], _ACTS[act], stream)
+            _MODES[mode], _ACTS[act], int(same), stream)
     _raise_on(lib, err, "Gram kernel")
     LAUNCHES["gram"] += 1
     return out
 
 
 def gram_grads_cuda(x1, x2, v1s, v2s, dv1s, dv2s, scales, g, *, depth: int,
-                    act: str, mode: str) -> torch.Tensor:
+                    act: str, mode: str, same: bool = False) -> torch.Tensor:
     """Launch K2 (``csrc/gram.cu``) on the current stream; same inputs and
     result as :func:`gram_grads_plain`: the three float64 sums. The kernel
     writes one partial triple per 64 x 64 block; they are added here in
-    float64."""
+    float64. ``same=True`` says that x2, v2s and dv2s are x1, v1s and dv1s:
+    the kernel runs each pair j <= i once and weights it by g[i, j] +
+    g[j, i] (g[i, i] on the diagonal), so g need not be symmetric."""
+    _check_same(same, dict(x=(x1, x2), v=(v1s, v2s), dv=(dv1s, dv2s)))
     _check_mode_act(mode, act)
     n1, n2, d = _check_cuda_inputs(
         dict(x1=x1, x2=x2, v1s=v1s, v2s=v2s, dv1s=dv1s, dv2s=dv2s, scales=scales, g=g),
-        depth, _MAX_GRAD_DEPTH)
+        depth, same)
     if dv1s.shape != (2, depth + 1, n1) or dv2s.shape != (2, depth + 1, n2):
         raise ValueError(f"variance tangents {tuple(dv1s.shape)}, {tuple(dv2s.shape)} "
                          f"do not match depth {depth} and n = ({n1}, {n2})")
@@ -325,14 +356,15 @@ def gram_grads_cuda(x1, x2, v1s, v2s, dv1s, dv2s, scales, g, *, depth: int,
     if g.shape != (n1, n2):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match ({n1}, {n2})")
     lib = _gram_lib()
-    blocks = -(-n1 // _TILE) * -(-n2 // _TILE)
-    partial = torch.empty((3, blocks), dtype=torch.float64, device=x1.device)
+    partial = torch.empty((3, gram_blocks(n1, n2, same)), dtype=torch.float64,
+                          device=x1.device)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.snngp_gram_grads_f32(
             x1.data_ptr(), x2.data_ptr(), v1s.data_ptr(), v2s.data_ptr(),
             dv1s.data_ptr(), dv2s.data_ptr(), scales.data_ptr(), g.data_ptr(),
-            partial.data_ptr(), n1, n2, d, depth, _MODES[mode], _ACTS[act], stream)
+            partial.data_ptr(), n1, n2, d, depth, _MODES[mode], _ACTS[act], int(same),
+            stream)
     _raise_on(lib, err, "Gram gradient kernel")
     LAUNCHES["gram_grads"] += 1
     return partial.sum(dim=1)
@@ -372,8 +404,9 @@ class _Gram(torch.autograd.Function):
         ctx.conf = (mode, depth, act, trainable_inputs, same)
         if x1.device.type == "cpu":
             return gram_plain(x1, x2, v1s, v2s, scales, depth=depth, act=act, mode=mode)
-        return gram_cuda(x1.contiguous(), x2.contiguous(), v1s.contiguous(),
-                         v2s.contiguous(), scales, depth=depth, act=act, mode=mode)
+        a, v = x1.contiguous(), v1s.contiguous()
+        b, u = (a, v) if same else (x2.contiguous(), v2s.contiguous())
+        return gram_cuda(a, b, v, u, scales, depth=depth, act=act, mode=mode, same=same)
 
     @staticmethod
     def backward(ctx, g):
@@ -397,12 +430,15 @@ class _Gram(torch.autograd.Function):
                          else _stack_with_tangents(mode, x2, depth, act, w, b))
             inv_d = torch.full((), 1.0 / x1.shape[-1], dtype=w.dtype, device=w.device)
             scales = torch.stack([w * w, b * b, last * last, inv_d, w, b, last])
-            args = (x1, x2, v1s, v2s, dv1s, dv2s, scales, g)
             kw = dict(depth=depth, act=act, mode=mode)
             if x1.device.type == "cpu":
-                sums = gram_grads_plain(*args, **kw)
+                sums = gram_grads_plain(x1, x2, v1s, v2s, dv1s, dv2s, scales, g, **kw)
             else:
-                sums = gram_grads_cuda(*(t.contiguous() for t in args), **kw)
+                a, v, dv = x1.contiguous(), v1s.contiguous(), dv1s.contiguous()
+                b, u, du = ((a, v, dv) if same
+                            else (x2.contiguous(), v2s.contiguous(), dv2s.contiguous()))
+                sums = gram_grads_cuda(a, b, v, u, dv, du, scales.contiguous(),
+                                       g.contiguous(), **kw, same=same)
         gw, gb, gl = (s.to(w.dtype) for s in sums.unbind())
         zero_x = [torch.zeros_like(x) if need else None
                   for x, need in zip((x1, x2), ctx.needs_input_grad[:2])]

@@ -46,8 +46,8 @@ import functools
 import torch
 
 from snngp_torch.ops import _build
-from snngp_torch.ops.conv_gram import _INT_MAX, _check_same, _stencil, stream_geometry
-from snngp_torch.ops.gram import _ACT_T, _ACTS, _post_act_var
+from snngp_torch.ops.conv_gram import _INT_MAX, _stencil, stream_geometry
+from snngp_torch.ops.gram import _ACT_T, _ACTS, _check_same, _post_act_var
 
 __all__ = ["conv_resnet_gram", "tail_var_stack", "strided_var_pieces",
            "resnet_tail_plain", "strided_block_plain", "resnet_tail_cuda",

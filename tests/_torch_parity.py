@@ -48,3 +48,31 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU with CUDA (run on the card: "
                     "python -m pytest tests/ -k torch)")
     return torch.device("cuda", 0)
+
+
+def dual_act_inputs(act, seed):
+    """(k, v1, v2) float32 arrays for the dual activations' per-row factor
+    form: random pairs with |c| <= 0.9, where the arccos / arcsin partials
+    are well conditioned (their sqrt(1 - c^2) turns one ulp of c into
+    ~1e-7 / (1 - c^2) of the result), then the corners:
+    - a row of zero variance against a row of large variance (k = 0);
+    - for relu, the diagonal k = +-v at variances that are powers of 4, so
+      that both forms reach c = +-1 without rounding, and k = +-1.5
+      sqrt(v1 v2), clipped to c = +-1 by both;
+    - for erf, the diagonal k = v (c = 2 v / (1 + 2 v) < 1)."""
+    rng = np.random.RandomState(seed)
+    v1, v2 = 10.0 ** rng.uniform(-3, 3, size=(2, 400))
+    rho = rng.uniform(-0.9, 0.9, size=400)
+    if act == "relu":
+        k = rho * np.sqrt(v1 * v2)
+        diag = np.array([0.25, 1.0, 4.0, 16.0])
+        corners = [(0.0, 0.0, 1e4), (0.0, 1e4, 0.0)]
+        corners += [(s * v, v, v) for v in diag for s in (1.0, -1.0)]
+        corners += [(s * 1.5 * np.sqrt(3.0 * 7.0), 3.0, 7.0) for s in (1.0, -1.0)]
+    else:
+        k = rho * np.sqrt((1.0 + 2.0 * v1) * (1.0 + 2.0 * v2)) / 2.0
+        corners = [(0.0, 0.0, 1e4), (0.0, 1e4, 0.0)]
+        corners += [(v, v, v) for v in (0.25, 1.0, 4.0)]
+    ck, cv1, cv2 = np.array(corners).T
+    return [np.concatenate([a, b]).astype(np.float32) for a, b in
+            ((k, ck), (v1, cv1), (v2, cv2))]

@@ -14,6 +14,8 @@ tests/test_torch_gram.py runs them. Tolerances:
   round-off only).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +32,7 @@ from snngp_torch.nn.layers import kernel_fn_of as tkernel_fn_of
 from snngp_torch.ops import gram as TG
 from snngp_torch.ops import linalg as tlinalg
 
-from _torch_parity import cuda_device, randn, to_numpy, to_torch  # noqa: F401
+from _torch_parity import cuda_device, dual_act_inputs, randn, to_numpy, to_torch  # noqa: F401
 
 SCALES = (1.2, 0.3, 0.9)
 
@@ -132,13 +134,13 @@ def test_mvn_logpdf_matches_jax():
 
 # -- the fused Gram's backward ----------------------------------------------------------
 
-def _k2_inputs(mode, act, x1, x2):
-    w, b, last = (torch.tensor(v) for v in SCALES)
-    v1s, dv1s = TG._stack_with_tangents(mode, x1, 3, act, w, b)
+def _k2_inputs(mode, act, x1, x2, depth=3):
+    w, b, last = (torch.tensor(v, device=x1.device) for v in SCALES)
+    v1s, dv1s = TG._stack_with_tangents(mode, x1, depth, act, w, b)
     v2s, dv2s = ((v1s, dv1s) if x2 is x1
-                 else TG._stack_with_tangents(mode, x2, 3, act, w, b))
-    scales = torch.stack([w * w, b * b, last * last, torch.tensor(1.0 / x1.shape[1]),
-                          w, b, last])
+                 else TG._stack_with_tangents(mode, x2, depth, act, w, b))
+    scales = torch.stack([w * w, b * b, last * last,
+                          torch.tensor(1.0 / x1.shape[1], device=x1.device), w, b, last])
     return x1, x2, v1s, v2s, dv1s, dv2s, scales
 
 
@@ -158,6 +160,91 @@ def test_gram_tangents_plain_matches_pallas_grad_kernel(mode, act, shape):
     for g, w in zip(got, want):
         w = np.asarray(w)
         np.testing.assert_allclose(to_numpy(g), w, atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("mode", ["mlp", "resnet"])
+def test_gram_grads_plain_on_kxx_equals_the_folded_sum(mode, act):
+    """K2's symmetric launch runs each pair j <= i of K(x, x) once, weighted
+    by g[i, j] + g[j, i] (g[i, i] on the diagonal). On a cotangent that is
+    not symmetric, the JAX kernel's tangent Grams give the same sums folded
+    as over all pairs (in float64: dK is symmetric up to fp32 round-off),
+    and K2's plain version gives them within 1e-5 of sum |g dK|."""
+    x, cot = randn(41, (140, 6), (140, 140))
+    grams = G._mlp_gram_grads(3, act, (128, 128), mode, jnp.asarray(x), jnp.asarray(x),
+                              *SCALES)
+    g = cot.astype(np.float64)
+    lower, diag = np.tril_indices(140, -1), np.arange(140)
+    folded, full, scale = [], [], []
+    for dk in (np.asarray(t, dtype=np.float64) for t in grams[1:]):
+        folded.append(np.sum((g[lower] + g.T[lower]) * dk[lower]) + np.sum(g[diag, diag]
+                                                                         * dk[diag, diag]))
+        full.append(np.sum(g * dk))
+        scale.append(np.sum(np.abs(g * dk)))
+    xt = to_torch(x)
+    got = to_numpy(TG.gram_grads_plain(*_k2_inputs(mode, act, xt, xt), to_torch(cot), depth=3,
+                                       act=act, mode=mode))
+    np.testing.assert_allclose(folded, full, rtol=0, atol=1e-5 * min(scale))
+    np.testing.assert_allclose(got, folded, rtol=0, atol=1e-5 * min(scale))
+
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+def test_per_row_factor_partials_match_jax(act):
+    """K2's per-row factor form of the partials, written out here as
+    csrc/gram.cu computes them, against the JAX package's _relu_t_partials /
+    _erf_t_partials in fp32, each within 1e-6 of its largest magnitude: T,
+    T_k and the tangents' sum T_v1 dv1 + T_v2 dv2, with the rows' tangents
+    staged scaled (relu r dv: sin(theta) / (4 pi) (a_j r_i dv_i + a_i r_j
+    dv_j), sin(theta) by rsqrt; erf e^2 dv: -T' g (e_i^2 dv_i + e_j^2
+    dv_j), T' by rsqrt). A
+    row of zero variance has zero tangents, as its variance recursion
+    gives at b_std = 0, so its singular T_v is not compared."""
+    k, v1, v2 = dual_act_inputs(act, 42)
+    (dv1, dv2) = randn(43, k.shape, k.shape)
+    dv1[v1 == 0], dv2[v2 == 0] = 0.0, 0.0
+    kt, v1t, v2t, d1t, d2t = to_torch(k, v1, v2, dv1, dv2)
+    if act == "relu":
+        a1, a2 = (torch.sqrt(torch.clamp(v, min=1e-30)) for v in (v1t, v2t))
+        r1, r2 = 1.0 / a1, 1.0 / a2
+        c = torch.clamp(kt * (r1 * r2), -1.0, 1.0)
+        theta = torch.acos(c)
+        s2 = torch.clamp(1.0 - c * c, min=0.0)
+        sin_t = torch.where(s2 > 0.0, s2 * torch.rsqrt(s2), 0.0)
+        t = (a1 * a2 * sin_t + (math.pi - theta) * kt) * (0.5 / math.pi)
+        tk = (math.pi - theta) * (0.5 / math.pi)
+        tv = sin_t * (0.25 / math.pi) * (a2 * (r1 * d1t) + a1 * (r2 * d2t))
+        want = G._relu_t_partials(k, v1, v2)
+    else:
+        e1, e2 = (1.0 / torch.sqrt(1.0 + 2.0 * v) for v in (v1t, v2t))
+        r = e1 * e2
+        g = 2.0 * kt * r
+        c = torch.clamp(g, -1.0, 1.0)
+        base = torch.where((g > -1.0) & (g < 1.0),
+                           (2.0 / math.pi) * torch.rsqrt(torch.clamp(1.0 - c * c, min=1e-30)),
+                           0.0)
+        t = (2.0 / math.pi) * torch.asin(c)
+        tk = base * (2.0 * r)
+        tv = -(base * g) * (d1t / (1.0 + 2.0 * v1t) + d2t / (1.0 + 2.0 * v2t))
+        want = G._erf_t_partials(k, v1, v2)
+    jt, jtk, jtv1, jtv2 = (np.asarray(w) for w in want)
+    jtv = jtv1 * dv1 + jtv2 * dv2
+    for got, ref in ((t, jt), (tk, jtk), (tv, jtv)):
+        np.testing.assert_allclose(to_numpy(got), ref, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("other", ["x", "v", "dv"])
+def test_gram_grads_cuda_refuses_same_for_two_operands(other):
+    """K2's same=True runs each pair j <= i once, so the wrapper takes it
+    only when x2, v2s and dv2s are x1's, v1s and dv1s (checked before the
+    device)."""
+    (x,) = randn(44, (8, 3))
+    a = to_torch(x)
+    _, _, v, _, dv, _, scales = _k2_inputs("mlp", "relu", a, a)
+    ops = dict(x=(a, a), v=(v, v), dv=(dv, dv))
+    ops[other] = (ops[other][0], ops[other][0].clone())
+    with pytest.raises(ValueError, match=f"same=True.*{other}2 is not {other}1"):
+        TG.gram_grads_cuda(*ops["x"], *ops["v"], *ops["dv"], scales, torch.ones(8, 8),
+                           depth=3, act="relu", mode="mlp", same=True)
 
 
 def test_gram_grads_plain_contracts_in_float64():
@@ -231,6 +318,47 @@ def test_gram_grads_kernel_matches_plain_version(cuda_device):
         g = to_torch(cot).to(cuda_device)
         kw = dict(depth=3, act="erf", mode="resnet")
         got = TG.gram_grads_cuda(*args, g, **kw)
+        want = TG.gram_grads_plain(*args, g, **kw)
+        _, *tangents = TG.gram_tangents_plain(*args, **kw)
+        scale = torch.stack([(g.double() * t.double()).abs().sum() for t in tangents])
+    assert ((got - want).abs() / scale).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 301])
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("mode", ["mlp", "resnet"])
+def test_gram_grads_kernel_symmetric_launch(cuda_device, mode, act, n):
+    # K2's symmetric launch on a cotangent that is not symmetric: within
+    # 1e-5 of sum |g dK| of the plain all-pairs sums, bitwise repeatable,
+    # and the same bits for g and g^T (each pair's weight g[i, j] + g[j, i]).
+    x, cot = randn(50 + n, (n, 11), (n, n))
+    with torch.inference_mode():
+        a = to_torch(x).to(cuda_device)
+        args = _k2_inputs(mode, act, a, a, depth=4)
+        g = to_torch(cot).to(cuda_device)
+        kw = dict(depth=4, act=act, mode=mode)
+        got = TG.gram_grads_cuda(*args, g, **kw, same=True)
+        again = TG.gram_grads_cuda(*args, g, **kw, same=True)
+        transposed = TG.gram_grads_cuda(*args, g.T.contiguous(), **kw, same=True)
+        want = TG.gram_grads_plain(*args, g, **kw)
+        _, *tangents = TG.gram_tangents_plain(*args, **kw)
+        scale = torch.stack([(g.double() * t.double()).abs().sum() for t in tangents])
+    assert torch.equal(got, again) and torch.equal(got, transposed)
+    assert ((got - want).abs() / scale).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("same", [False, True], ids=["cross", "symmetric"])
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("mode", ["mlp", "resnet"])
+def test_gram_grads_kernel_deep(cuda_device, mode, act, same):
+    # Depth 20: the row factors are staged in three passes of 8 layers.
+    x1, x2, cot = randn(60, (130, 6), (70, 6), (130, 130))
+    with torch.inference_mode():
+        a, b = (t.to(cuda_device) for t in to_torch(x1, x2))
+        args = _k2_inputs(mode, act, a, a if same else b, depth=20)
+        g = to_torch(cot if same else cot[:, :70].copy()).to(cuda_device)
+        kw = dict(depth=20, act=act, mode=mode)
+        got = TG.gram_grads_cuda(*args, g, **kw, same=same)
         want = TG.gram_grads_plain(*args, g, **kw)
         _, *tangents = TG.gram_tangents_plain(*args, **kw)
         scale = torch.stack([(g.double() * t.double()).abs().sum() for t in tangents])

@@ -14,6 +14,8 @@ Pallas kernel add the <= 5e-7 error of its polynomial arccos
 (tests/test_pallas.py:61), which the port replaces by torch.acos.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +27,7 @@ from snngp.nn.layers import kernel_fn_of as jkernel_fn_of
 from snngp_torch.nn import arch as tarch
 from snngp_torch.ops import gram as TG
 
-from _torch_parity import cuda_device, randn, to_numpy, to_torch  # noqa: F401
+from _torch_parity import cuda_device, dual_act_inputs, randn, to_numpy, to_torch  # noqa: F401
 
 SCALES = dict(w_std=1.3, b_std=0.3, last_w_std=0.9)
 ATOL = {"mlp": 2e-6, "resnet": 5e-6}
@@ -116,6 +118,44 @@ def test_plain_version_on_kernel_inputs_is_symmetric_and_counts_no_launch():
     np.testing.assert_allclose(to_numpy(k), to_numpy(k.T), atol=1e-7)
 
 
+@pytest.mark.parametrize("act", ["relu", "erf"])
+def test_per_row_factor_duals_match_jax(act):
+    """K1's per-row factor form of the dual activations, written out here as
+    csrc/gram.cu computes it (relu a = sqrt(max(v, 1e-30)), r = 1 / a,
+    c = k (r_i r_j), s = a_i a_j; erf e = 1 / sqrt(1 + 2 v), c = 2 k
+    (e_i e_j); sin(theta) by rsqrt), against the JAX package's _relu_t /
+    _erf_t in fp32: within 1e-6 of max|T| (the JAX arccos polynomial is
+    within 2e-8)."""
+    k, v1, v2 = dual_act_inputs(act, 40)
+    kt, v1t, v2t = to_torch(k, v1, v2)
+    if act == "relu":
+        a1, a2 = (torch.sqrt(torch.clamp(v, min=1e-30)) for v in (v1t, v2t))
+        c = torch.clamp(kt * ((1.0 / a1) * (1.0 / a2)), -1.0, 1.0)
+        s2 = torch.clamp(1.0 - c * c, min=0.0)
+        sin_t = torch.where(s2 > 0.0, s2 * torch.rsqrt(s2), 0.0)
+        got = (a1 * a2 * sin_t + (math.pi - torch.acos(c)) * kt) * (0.5 / math.pi)
+        want = np.asarray(G._relu_t(k, v1, v2))
+    else:
+        e1, e2 = (1.0 / torch.sqrt(1.0 + 2.0 * v) for v in (v1t, v2t))
+        got = (2.0 / math.pi) * torch.asin(torch.clamp(2.0 * kt * (e1 * e2), -1.0, 1.0))
+        want = np.asarray(G._erf_t(k, v1, v2))
+    np.testing.assert_allclose(to_numpy(got), want, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("other", ["x", "v"])
+def test_gram_cuda_refuses_same_for_two_operands(other):
+    """same=True mirrors the lower triangle, so the wrapper takes it only
+    when x2 and v2s are x1's and v1s (checked before the device)."""
+    (x,) = randn(8, (8, 3))
+    a = to_torch(x)
+    v = TG.mlp_var_stack(a, 2, "relu", 1.0, 0.1)
+    ops = dict(x=(a, a), v=(v, v))
+    ops[other] = (ops[other][0], ops[other][0].clone())
+    with pytest.raises(ValueError, match=f"same=True.*{other}2 is not {other}1"):
+        TG.gram_cuda(*ops["x"], *ops["v"], torch.ones(4), depth=2, act="relu", mode="mlp",
+                     same=True)
+
+
 def test_cuda_wrapper_rejects_cpu_tensors():
     (x,) = randn(6, (8, 3))
     xt = to_torch(x)
@@ -145,3 +185,73 @@ def test_cuda_kernel_matches_plain_version(cuda_device, mode, act):
                              scales, depth=4, act=act, mode=mode)
     err = (got - want).abs().max().item() / want.abs().max().item()
     assert err <= 1e-5
+
+
+def _cuda_gram_inputs(x, depth, act, mode, b_std=0.3):
+    stack = TG.mlp_var_stack if mode == "mlp" else TG.resnet_var_stack
+    w, b, last = (torch.tensor(v, device=x.device) for v in (1.3, b_std, 0.9))
+    scales = torch.stack([w * w, b * b, last * last,
+                          torch.tensor(1.0 / x.shape[1], device=x.device)])
+    return stack(x, depth, act, w, b).contiguous(), scales
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 301])
+@pytest.mark.parametrize("act", ["relu", "erf"])
+@pytest.mark.parametrize("mode", ["mlp", "resnet"])
+def test_cuda_symmetric_gram_is_bitwise_symmetric_repeatable_and_matches_plain(
+        cuda_device, mode, act, n):
+    # K(x, x) by the symmetric launch (the lower-triangle tiles, mirrored):
+    # ragged against the 64 x 64 tiles, one tile, a diagonal tile alone.
+    (x,) = randn(30 + n, (n, 11))
+    with torch.inference_mode():
+        a = to_torch(x).to(cuda_device)
+        v, scales = _cuda_gram_inputs(a, 4, act, mode)
+        kw = dict(depth=4, act=act, mode=mode)
+        got = TG.gram_cuda(a, a, v, v, scales, **kw, same=True)
+        again = TG.gram_cuda(a, a, v, v, scales, **kw, same=True)
+        want = TG.gram_plain(a, a, v, v, scales, **kw)
+    assert torch.equal(got, again) and torch.equal(got, got.T)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("case", ["deep cross", "deep symmetric", "zero row symmetric",
+                                  "zero row cross"])
+@pytest.mark.parametrize("mode", ["mlp", "resnet"])
+def test_cuda_gram_deep_and_zero_variance_rows_match_plain(cuda_device, mode, case):
+    # Depth 20 stages the row factors in three passes of 8 layers; a row of
+    # zeros with b_std = 0 has zero variance at every layer (the relu
+    # factors' floor) against rows of variance up to ~1e4.
+    x1, x2 = randn(33, (130, 6), (70, 6))
+    depth = 20 if case.startswith("deep") else 4
+    b_std = 0.0 if case.startswith("zero") else 0.3
+    if case.startswith("zero"):
+        x1[5] = 0.0
+        x1[7] *= 100.0
+    with torch.inference_mode():
+        a, b = (t.to(cuda_device) for t in to_torch(x1, x2))
+        if case.endswith("symmetric"):
+            b = a
+        va, scales = _cuda_gram_inputs(a, depth, "relu", mode, b_std)
+        vb = va if b is a else _cuda_gram_inputs(b, depth, "relu", mode, b_std)[0]
+        kw = dict(depth=depth, act="relu", mode=mode)
+        got = TG.gram_cuda(a, b, va, vb, scales, **kw, same=b is a)
+        want = TG.gram_plain(a, b, va, vb, scales, **kw)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_cuda_gram_route_launches_the_symmetric_kernels(cuda_device):
+    # kernel_fn(x, None) and the scalar-tangent backward of K(x, x) reach
+    # K1 and K2 with same=True: K(x, x) comes out bitwise symmetric.
+    (x,) = randn(34, (150, 5))
+    a = to_torch(x).to(cuda_device)
+    w, b, last = (torch.tensor(v, device=cuda_device, requires_grad=True)
+                  for v in (1.3, 0.3, 0.9))
+    before = dict(TG.LAUNCHES)
+    k = tarch.get_mlp_kernel(3, act="relu", w_std=w, b_std=b, last_w_std=last,
+                             trainable_inputs=False)(a, None, get="nngp")
+    k.sum().backward()
+    assert torch.equal(k, k.T)
+    assert TG.LAUNCHES["gram"] == before["gram"] + 1
+    assert TG.LAUNCHES["gram_grads"] == before["gram_grads"] + 1
+    assert all(torch.isfinite(t.grad) for t in (w, b, last))
