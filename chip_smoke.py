@@ -109,13 +109,32 @@ script exits non-zero:
    cuda --image-size 32 --depth 5 --n-train 512 --n-test 128 --fused on
    --mlii 3 --mlii-n 128`` on seeded synthetic images: its per-phase
    report and a finite NLL, launching K7 only; then K7 against the full
-   tier on a 64-image block (gate: 2e-5 of max|K|).
+   tier on a 64-image block (gate: 2e-5 of max|K|);
+18. extendable serving at phase 2's size: ``fit_spr(extendable=True)``,
+   then ``FittedSPR.extend`` by 1,000 points; its predictive on a
+   1,000-point request against a float64 factorization of the same
+   bordered matrix (gate: within 2x a fresh fp32 fit's error), extend
+   against refit times, and save / load / extend again (gate: bitwise equal
+   to the in-memory result);
+19. ``reg fd`` on syn-normal over a 2 x 2 x 3 grid on the card and on the
+   CPU (gate: the best Student-t and Gaussian NLLs within rtol 5e-3), then
+   ``reg pr --add-x / --add-y`` on phase 3's checkpoint and cache;
+20. ``SNNGPClassifier(network="mlp")`` on a seeded 300 x 64 tabular set, 3
+   classes, one epoch, ``predict_proba`` (gate: finite losses);
+21. full-Gram ML-II: ``full_gram_mlii_value_and_grad`` on ``tiled_aug_gram``
+   of 160 seeded 32 x 32 x 3 images at block 64 (K7's tangent mode, a
+   symmetric launch on each diagonal tile) against autograd of ``SPR.loss``
+   through ``get_myrtle_kernel(trainable_inputs=False)``, gp and tp (gate:
+   loss rtol 1e-5, gradients rtol 2e-3, atol 1e-6), then ``cifar_myrtle
+   --mlii 2 --mlii-scope full`` at N = 256 (gate: a finite NLL; the ML-II
+   time a step).
 
-Five main paths run with the kernels' launch counts set to 0 just before
-and read just after: serving (phases 2-3), training (phases 5-6), CNN
+Six main paths run with the kernels' launch counts set to 0 just before
+and read just after: serving (phases 2-3), training (phases 5-6), the
+regression extras (phases 18-20; K1 and no other kernel), CNN
 classification (phases 9-10), WideResNet classification (phases 12-13)
-and Myrtle classification with the pipeline (phases 15-17); each fails if
-a kernel of its path never launched. Launches made to compare a kernel
+and Myrtle classification with the pipeline and full-Gram ML-II (phases
+15-17 and 21); each fails if a kernel of its path never launched. Launches made to compare a kernel
 with its plain version (phases 1, 4, 7, 8, 11 and 14, the gradient checks
 of phases 9, 12 and 15, run just before their windows, and phase 17's
 full-tier comparison, run just after its window) are not counted.
@@ -195,6 +214,21 @@ CLI_RTOL = 5e-3            # CUDA vs CPU CLI NLL (tests/test_cli_smoke.py:47-51)
 CLI_A, CLI_B = 2.0, 0.02
 CLI_TRAIN = ["-m", "tp", "-a", str(CLI_A), "-b", str(CLI_B), "-dn", "syn-normal",
              "-vi", "10", "-pi", "10", "-nh", "2", "-eps", "1e-2", "-q"]
+EXTEND_M = 1_000           # points phase 18 adds to phase 2's fit
+EXTEND_T_JITTER = 1e-6     # the Student-t jitter extend puts on the new block (as JAX)
+# reg fd's grid of phase 19: 2 x 2 x 3 Grams' cells, a 2 x 2 (alpha, beta)
+# lattice of 1,000 Burr-XII draws each.
+FD_GRID = ["-dn", "syn-normal", "-wsl", "1", "1.4", "-bsl", "0", "0.3", "-el", "1e-2", "1e-1",
+           "1", "-al", "1", "2", "-bl", "1", "2", "-ns", "1000", "-q"]
+MLP_CLS_N, MLP_CLS_D = 300, 64     # phase 20's seeded tabular set, 3 classes
+# Phase 21: full-Gram ML-II at 32 x 32 x 3, blocks of 64 over 160 images
+# (three diagonal tiles, three off-diagonal, the last block ragged), against
+# autograd of SPR.loss; tolerances of tests/test_mlii.py:107-119.
+MLII_N, MLII_BLOCK, MLII_EPS, MLII_AB = 160, 64, 1e-2, (2.0, 1.5)
+MLII_HYPER = dict(w_std=1.0, b_std=0.1, last_w_std=1.0)   # the pipeline's initial scales
+MLII_PIPELINE = ["--image-size", "32", "--depth", "5", "--n-train", "256", "--n-test", "64",
+                 "--fused", "on", "--fused-block", "128", "--mlii", "2", "--mlii-scope",
+                 "full"]
 
 
 def _sync():
@@ -1130,6 +1164,201 @@ def phase6_train_cli():
     np.testing.assert_allclose(nll_cuda, nll_cpu, rtol=CLI_RTOL)
 
 
+# -- regression extras: extendable serving, reg fd, the MLP classifier ----------------
+
+def _extension_data():
+    """EXTEND_M new points of phase 2's generating function (the same
+    direction u), their raw targets, and EXTEND_M more for the reload check."""
+    rng = np.random.RandomState(1)
+    rng.randn(SERVE_N, SERVE_D)
+    u = rng.randn(SERVE_D) / math.sqrt(SERVE_D)
+    rng = np.random.RandomState(18)
+    x_new = rng.randn(2 * EXTEND_M, SERVE_D).astype(np.float32)
+    y_new = (np.sin(2.0 * x_new @ u) + 0.5 * np.cos(x_new[:, 0])
+             + 0.1 * rng.randn(2 * EXTEND_M)).astype(np.float32)
+    return x_new[:EXTEND_M], y_new[:EXTEND_M], x_new[EXTEND_M:], y_new[EXTEND_M:]
+
+
+def _bordered_fit(x_all, y_all, y_mean, y_std, reg, n0, dtype):
+    """A fresh fit of the bordered matrix that ``extend`` factors, on the
+    plain tier at ``dtype``: K + reg I with the frozen regularizer, and the
+    Student-t factor of (b/a) K + jitter, SERVE_T_JITTER on the first n0
+    points and EXTEND_T_JITTER on the rest."""
+    import torch
+    from snngp_torch.models import FittedSPR
+    from snngp_torch.ops.linalg import chol_quad_form, chol_solve, cholesky
+
+    model = _model(x_all, y_all, y_mean, y_std, fused=False, dtype=dtype)
+    k = model._gram(model.kernel.get_kernel_fn())
+    n = k.shape[0]
+    chol = cholesky(k + float(reg) * torch.eye(n, dtype=dtype, device="cuda"))
+    a, b = model.likelihood._ab()
+    jitter = torch.full((n,), EXTEND_T_JITTER, dtype=dtype, device="cuda")
+    jitter[:n0] = SERVE_T_JITTER
+    chol_t = cholesky((b / a) * k + torch.diag(jitter))
+    y = model.y_data
+    state = {"chol": chol, "alpha": chol_solve(chol, y[:, None]), "y_mean": model.y_mean,
+             "y_std": model.y_std, "d": 2.0 * a + chol_quad_form(chol_t, y),
+             "cond_df": 2.0 * a + n, "scale_ba": b / a}
+    return FittedSPR(model, state)
+
+
+def _timed(fn):
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, time.perf_counter() - t0
+
+
+def phase18_extend(data):
+    """fit_spr(extendable=True) at phase 2's size, extended by EXTEND_M
+    points: its predictive on a 1,000-point request against a float64
+    factorization of the same bordered matrix (gate: within 2x a fresh fp32
+    fit's error), extend against refit times, and save / load / extend again
+    bitwise equal to the in-memory result."""
+    import torch
+    from snngp_torch.models import FittedSPR, fit_spr
+
+    x, y, x_req, y_mean, y_std = data
+    x_new, y_new, x_more, y_more = _extension_data()
+    model = _model(x, y, y_mean, y_std, fused=True, dtype=torch.float32)
+    fitted, t_fit = _timed(lambda: fit_spr(model, extendable=True, t_jitter=SERVE_T_JITTER))
+    xn, yn = (torch.as_tensor(a, device="cuda") for a in (x_new, y_new))
+    _, t_first = _timed(lambda: fitted.extend(xn, yn))      # loads the solver modules
+    ext, t_ext = _timed(lambda: fitted.extend(xn, yn))
+    x_all = ext.model.x_data.cpu().numpy()
+    y_all = ext.model.y_data.cpu().numpy()
+    refit_model = _model(x_all, y_all, y_mean, y_std, fused=True, dtype=torch.float32)
+    _, t_refit = _timed(lambda: fit_spr(refit_model, t_jitter=SERVE_T_JITTER))
+    del refit_model
+    print(f"[extend] N={SERVE_N} + {EXTEND_M}: fit (extendable) {t_fit * 1e3:.2f} ms; extend "
+          f"{t_ext * 1e3:.2f} ms (first call {t_first * 1e3:.2f} ms) against a refit of "
+          f"{SERVE_N + EXTEND_M} points {t_refit * 1e3:.2f} ms")
+
+    req = torch.as_tensor(x_req[:REQUEST_SIZE], device="cuda")
+    mean_e, var_e = ext.predict(req, batch=PREDICT_BATCH)
+    reg = float(fitted.state["reg"])
+    ref = {}
+    for name, dtype in (("plain fp32", torch.float32), ("plain fp64", torch.float64)):
+        fresh = _bordered_fit(x_all, y_all, y_mean, y_std, reg, SERVE_N, dtype)
+        ref[name] = [t.double() for t in fresh.predict(req.to(dtype), batch=PREDICT_BATCH)]
+        del fresh
+        torch.cuda.empty_cache()
+    mean64, var64 = ref["plain fp64"]
+
+    def err(a, want):
+        return ((a.double() - want).abs().max() / want.abs().max()).item()
+
+    errs = {"extend": (err(mean_e, mean64), err(var_e, var64)),
+            "plain fp32": (err(ref["plain fp32"][0], mean64), err(ref["plain fp32"][1], var64))}
+    for name, (em, ev) in errs.items():
+        print(f"[extend] {name:10s} vs fp64 bordered fit: mean rel err {em:.3e}  "
+              f"var rel err {ev:.3e}")
+    if not (bool(torch.isfinite(mean_e).all()) and bool((var_e > 0).all())):
+        raise AssertionError("extended predictive not finite / variances not positive")
+    for i, what in enumerate(("mean", "var")):
+        bar = 2.0 * max(errs["plain fp32"][i], 1e-6)
+        if not errs["extend"][i] <= bar:
+            raise AssertionError(f"extended {what} error {errs['extend'][i]:.3e} above 2x "
+                                 f"a fresh fp32 fit's ({bar:.3e})")
+
+    path = REPO / "build" / "chip_smoke" / "extended.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    ext.save(str(path))
+    back = FittedSPR.load(str(path), _model(x_all, y_all, y_mean, y_std, fused=True,
+                                            dtype=torch.float32))
+    more = [torch.as_tensor(a, device="cuda") for a in (x_more, y_more)]
+    again, direct = back.extend(*more), ext.extend(*more)
+    unequal = [k for k in direct.state if not torch.equal(again.state[k], direct.state[k])]
+    print(f"[extend] saved, reloaded and extended by {EXTEND_M} more: "
+          f"{'bitwise equal' if not unequal else f'differs in {unequal}'}")
+    if unequal:
+        raise AssertionError(f"reloaded extension differs in {unequal}")
+    return dict(extend_ms=t_ext * 1e3, refit_ms=t_refit * 1e3, errs=errs)
+
+
+def _minima(log_path):
+    """reg fd's final two lines: [(cell, NLL) of Student-t, of Gaussian]."""
+    text = Path(log_path).read_text()
+    if "Traceback" in text:
+        raise AssertionError(f"{log_path}:\n{text}")
+    return [(cell, float(v)) for cell, v in
+            (line.rsplit(": ", 1) for line in text.strip().splitlines()[-2:])]
+
+
+def phase19_find_and_add_x():
+    """``reg fd`` on syn-normal over FD_GRID on the card and on the CPU
+    (gate: the best Student-t and Gaussian NLLs within CLI_RTOL), then
+    ``reg pr --add-x / --add-y`` on phase 3's checkpoint and its cached,
+    not extendable, fitted state on the card."""
+    work = REPO / "build" / "chip_smoke" / "find"
+    shutil.rmtree(work, ignore_errors=True)
+    minima, times = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        _run_cli(["--device", device, "reg", "fd", *FD_GRID, "-dr", str(work / "data"),
+                  "-cd", str(work / device)])
+        times[device] = time.perf_counter() - t0
+        minima[device] = _minima(work / device / "train.log")
+    print(f"[fd] syn-normal 12 cells: {times['cuda']:.2f} s (cuda) {times['cpu']:.2f} s (cpu); "
+          f"best t {minima['cuda'][0]} (cpu {minima['cpu'][0]}); best gaussian "
+          f"{minima['cuda'][1]} (cpu {minima['cpu'][1]})")
+    for (_, got), (_, want) in zip(minima["cuda"], minima["cpu"]):
+        if not math.isfinite(got):
+            raise AssertionError("reg fd: non-finite best NLL")
+        np.testing.assert_allclose(got, want, rtol=CLI_RTOL)
+
+    ckpt = REPO / "build" / "chip_smoke" / "syn-t-tp"
+    rng = np.random.RandomState(19)
+    add_x, add_y = work / "add_x.npy", work / "add_y.npy"
+    np.save(add_x, rng.randn(20, 1).astype(np.float32))
+    np.save(add_y, rng.randn(20).astype(np.float32))
+    t0 = time.perf_counter()
+    _run_cli(["--device", "cuda", "reg", "pr", "-cd", str(ckpt), "-dr",
+              str(REPO / "build" / "chip_smoke" / "data"), "-fs", str(ckpt / "fitted.npz"),
+              "-ax", str(add_x), "-ay", str(add_y), "-o", str(work / "added.npz"), "-q"])
+    wall = time.perf_counter() - t0
+    log = (ckpt / "predict" / "predict.log").read_text()
+    nll = _nll(ckpt / "predict" / "predict.log")
+    preds = np.load(work / "added.npz")
+    print(f"[fd] reg pr --add-x 20 points on phase 3's cache: {wall:.2f} s, NLL {nll:.5f}")
+    for want in ("refitting with extendable=True", "refreshed",
+                 "extended conditioning set by 20"):
+        if want not in log:
+            raise AssertionError(f"reg pr --add-x: no {want!r} in\n{log}")
+    if not (math.isfinite(nll) and np.all(np.isfinite(preds["mean"]))
+            and np.all(preds["var"] > 0)):
+        raise AssertionError("reg pr --add-x: non-finite NLL or predictions")
+    return dict(fd_s=times, minima=minima)
+
+
+def phase20_mlp_classifier():
+    """SNNGPClassifier(network="mlp") on a seeded tabular set (MLP_CLS_N x
+    MLP_CLS_D, 3 classes) for one epoch on the card, then predict_proba
+    (gate: finite losses, probabilities that sum to 1)."""
+    from snngp_torch.ops import gram as G
+    from snngp_torch.sklearn import SNNGPClassifier
+
+    rng = np.random.RandomState(20)
+    y = rng.randint(3, size=MLP_CLS_N)
+    x = (rng.randn(MLP_CLS_N, MLP_CLS_D) + 0.3 * y[:, None]).astype(np.float32)
+    before = G.LAUNCHES["gram"]
+    clf = SNNGPClassifier(method="svtp", network="mlp", num_hiddens=DEPTH, num_inducing=60,
+                          num_samples=SVSP_SAMPLES, batch_size=SVSP_NB, epochs=1,
+                          device="cuda")
+    _, t_fit = _timed(lambda: clf.fit(x, y))
+    proba = clf.predict_proba(x[:100])
+    print(f"[mlp-cls] {MLP_CLS_N} x {MLP_CLS_D}, 3 classes, svtp depth {DEPTH}: one epoch "
+          f"{t_fit:.2f} s, losses {np.round(clf.losses_, 5).tolist()}, accuracy "
+          f"{clf.score(x, y):.3f}, K1 launches {G.LAUNCHES['gram'] - before}")
+    if not np.all(np.isfinite(clf.losses_)):
+        raise AssertionError(f"MLP classifier losses {clf.losses_}")
+    if not (proba.shape == (100, 3) and np.allclose(proba.sum(axis=1), 1.0, rtol=1e-5)):
+        raise AssertionError("MLP classifier probabilities")
+    return dict(fit_s=t_fit)
+
+
 # -- classification -----------------------------------------------------------------
 
 def _svsp_data():
@@ -1927,6 +2156,114 @@ def phase17_full_tier(hyper):
     return rel
 
 
+def _mlii_images():
+    """MLII_N seeded standard-normal 32 x 32 x 3 images and targets. Images
+    drawn uniform on [0, 1), as the pipeline's synthetic set is, share one
+    large mean: their Myrtle Gram is nearly rank one, and at eps = 1e-2 the
+    two fp32 routes to the cancelling d/db_std sum (closed form, autograd)
+    then differ by more than the gate allows."""
+    rng = np.random.RandomState(21)
+    return (rng.randn(MLII_N, 32, 32, 3).astype(np.float32),
+            rng.randn(MLII_N).astype(np.float32))
+
+
+def _closed_form_f64(k, dkw, dkb, y, eps, ab):
+    """The closed-form gradients in float64 on the same tiles (numpy), and
+    the condition number of S = K + eps I."""
+    from snngp_torch.models.mlii import gram_cotangent_coeffs
+
+    s = k.astype(np.float64) + eps * np.eye(k.shape[0])
+    s_inv = np.linalg.inv(s)
+    alpha = s_inv @ y.astype(np.float64)
+    c_inv, c_aa = gram_cotangent_coeffs(float(y @ alpha), k.shape[0], ab=ab)
+    grads = {name: c_inv * np.sum(s_inv * dk) + c_aa * float(alpha @ dk.astype(np.float64)
+                                                             @ alpha)
+             for name, dk in (("w_std", dkw), ("b_std", dkb))}
+    return grads, float(np.linalg.cond(s))
+
+
+def phase21_mlii():
+    """Full-Gram ML-II (snngp_torch.models.mlii) on the card: the closed-form
+    loss and gradients from ``tiled_aug_gram`` (K7's tangent mode, a
+    symmetric launch on each diagonal tile) against autograd of SPR.loss
+    through ``get_myrtle_kernel(trainable_inputs=False)`` on the same
+    MLII_N images, for gp and tp (gate: loss rtol 1e-5, gradients rtol 2e-3,
+    atol 1e-6); then the pipeline with ``--mlii-scope full`` (gate: a finite
+    NLL)."""
+    import tempfile
+
+    import torch
+    from snngp_torch.examples import cifar_myrtle
+    from snngp_torch.models import (SPR, GaussianLikelihood, NNGPKernel,
+                                    StudentTLikelihood)
+    from snngp_torch.models.mlii import full_gram_mlii_value_and_grad, tiled_aug_gram
+    from snngp_torch.nn.arch import get_myrtle_kernel
+    from snngp_torch.ops import myrtle_gram as MG
+
+    x_np, y_np = _mlii_images()
+    x = torch.as_tensor(x_np, device="cuda")
+    h = MLII_HYPER
+    aug = functools.partial(MG.myrtle_gram_scale_grads, depth=MYRTLE_DEPTH, act="relu", **h)
+    prof = functools.partial(MG.myrtle_profile_tangents, depth=MYRTLE_DEPTH, act="relu",
+                             w_std=h["w_std"], b_std=h["b_std"])
+    before = MG.LAUNCHES["myrtle_grads"]
+    (k, dkw, dkb), t_asm = _timed(lambda: tiled_aug_gram(aug, x, block=MLII_BLOCK,
+                                                         profile_fn=prof))
+    tiles = MG.LAUNCHES["myrtle_grads"] - before
+    print(f"[mlii] tiled_aug_gram of {MLII_N} 32x32x3 images, block {MLII_BLOCK}: {tiles} "
+          f"tangent-mode launches, {t_asm:.3f} s")
+    if tiles != 6:
+        raise AssertionError(f"{tiles} tangent-mode launches for 6 tiles")
+
+    def builder(w, b, last):
+        return get_myrtle_kernel(MYRTLE_DEPTH, 1, "relu", w_std=w, b_std=b, last_w_std=last,
+                                 trainable_inputs=False)
+
+    worst = {}
+    for method, ab in (("gp", None), ("tp", MLII_AB)):
+        (loss, g_c), t_closed = _timed(lambda: full_gram_mlii_value_and_grad(
+            k, dkw, dkb, y_np, last_w_std=h["last_w_std"], eps=MLII_EPS, ab=ab,
+            panel=MLII_BLOCK, device="cuda"))
+        lik = GaussianLikelihood() if ab is None else StudentTLikelihood(*ab)
+        model = SPR(NNGPKernel(builder, **h), lik, x_np, y_np, 0.0, 1.0,
+                    eps=MLII_EPS).cuda()
+        # SPR.loss adds eps to the diagonal: the absolute eps of the closed form.
+        with torch.enable_grad():
+            ref = model.loss()
+            names = [n for n, _ in model.named_parameters()]
+            raws = [p for _, p in model.named_parameters()]
+            grads = torch.autograd.grad(ref, raws)
+        rel_loss = abs(loss - ref.item()) / abs(ref.item())
+        g64, cond = _closed_form_f64(k, dkw, dkb, y_np, MLII_EPS, ab)
+        print(f"[mlii] {method}: loss {loss:.7f} (closed form, {t_closed:.3f} s) "
+              f"{ref.item():.7f} (autograd), rel {rel_loss:.2e}; cond(S) {cond:.3e}")
+        worst[method] = rel_loss
+        if not rel_loss <= 1e-5:
+            raise AssertionError(f"{method} ML-II loss rel err {rel_loss:.2e}")
+        for name, raw, g in zip(names, raws, grads):
+            # constrained -> raw through the softplus bijector: dt/du = sigmoid(u)
+            leaf, chain = name.rpartition(".")[2], torch.sigmoid(raw.detach()).item()
+            got, want = g_c[leaf] * chain, g.item()
+            f64 = f" float64 {g64[leaf] * chain:.7e}" if leaf in g64 else ""
+            print(f"[mlii] {method} d/d{name}: closed form {got:.7e} autograd {want:.7e}{f64}")
+            if not abs(got - want) <= 1e-6 + 2e-3 * abs(want):
+                raise AssertionError(f"{method} d/d{name}: {got:.7e} against {want:.7e}")
+        del model
+    del k, dkw, dkb
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        result, wall = _timed(lambda: cifar_myrtle.main(["--device", "cuda", *MLII_PIPELINE,
+                                                         "--resume-gram", tmp]))
+    steps = int(MLII_PIPELINE[MLII_PIPELINE.index("--mlii") + 1])
+    print(f"[mlii] cifar_myrtle --mlii-scope full, N=256: {wall:.2f} s, ML-II "
+          f"{result['mlii_s']:.2f} s ({result['mlii_s'] / steps:.2f} s a step), NLL "
+          f"{result['nll']:.5f}, hyper {result['hyper']}")
+    if not math.isfinite(result["nll"]):
+        raise AssertionError(f"full-scope pipeline NLL {result['nll']}")
+    torch.cuda.empty_cache()
+    return dict(loss_rel=worst, step_s=result["mlii_s"] / steps)
+
+
 def _kernel_entry(name, source, replaces, launches, rows, head, worst_abs):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": worst_abs,
@@ -1977,6 +2314,15 @@ def main() -> int:
     _phase(6, phase6_train_cli)
     training = _read_launches("train", ["gram", "gram_grads"])  # training path ends here
 
+    _reset_launches()                     # regression extras start here
+    with torch.inference_mode():
+        _phase(18, phase18_extend, data)
+    _phase(19, phase19_find_and_add_x)
+    _phase(20, phase20_mlp_classifier)
+    extras = _read_launches("regression extras", ["gram"])   # regression extras end here
+    if any(n for name, n in extras.items() if name != "gram"):
+        raise AssertionError(f"the regression extras launched {extras}; expected K1 only")
+
     with torch.inference_mode():
         k3_rows, k3_abs = _phase(7, phase7_k3_vs_plain)
     k4_rows = _phase(8, phase8_k4_vs_plain)
@@ -2001,6 +2347,7 @@ def main() -> int:
     _phase(15, phase15_myrtle_svsp)
     _phase(16, phase16_myrtle_cli)
     pipeline = _phase(17, phase17_pipeline)
+    _phase(21, phase21_mlii)
     myrtle = _read_launches("myrtle", ["myrtle", "myrtle_grads"])  # ends here
     _phase("17 (full tier)", phase17_full_tier, pipeline["hyper"])
     if "jax" in sys.modules:
@@ -2009,7 +2356,7 @@ def main() -> int:
 
     k1 = _kernel_entry("gram (K1, fused NNGP Gram)", "snngp_torch/csrc/gram.cu",
                        "snngp/ops/pallas/gram.py:180",
-                       serving["gram"] + training["gram"], k1_rows,
+                       serving["gram"] + training["gram"] + extras["gram"], k1_rows,
                        f"mlp/relu/{HEAD_SHAPE}", k1_abs)
     k2 = _kernel_entry("gram_grads (K2, scalar-tangent Gram backward, fused contraction)",
                        "snngp_torch/csrc/gram.cu", "snngp/ops/pallas/gram.py:249",

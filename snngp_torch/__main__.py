@@ -1,5 +1,5 @@
 """CLI entry point: ``python -m snngp_torch [--device DEV] {reg,cls} {tr,ts,pr}
-...`` (counterpart of the JAX package's ``run.py``).
+...`` (and ``reg fd``) (counterpart of the JAX package's ``run.py``).
 
 ``--device`` (default ``cuda``) names the torch device every tensor lives
 on; it stands where ``run.py`` has ``--devices``. Asking for CUDA on a

@@ -1,5 +1,6 @@
 """argparse command tree: ``regression|reg`` and ``classification|cls``, each
-x ``train|tr``, ``test|ts``, ``predict|pr``."""
+x ``train|tr``, ``test|ts``, ``predict|pr``; ``regression`` also has
+``find|fd``, the Burr-XII grid search."""
 
 from snngp_torch.cli import classification, regression
 

@@ -1,6 +1,8 @@
-"""Regression subcommands: train / test / predict (counterpart of ``reg tr``,
-``reg ts`` and ``reg pr`` in ``snngp/cli/regression.py``; ``fd`` comes in a
-later slice, ``pr``'s ``--add-x`` / ``--add-y`` with ``FittedSPR.extend``).
+"""Regression subcommands: train / test / predict / find (counterpart of
+``reg tr``, ``reg ts``, ``reg pr`` and ``reg fd`` in
+``snngp/cli/regression.py``; ``fd`` lives in :mod:`snngp_torch.cli.find`).
+``reg pr --add-x / --add-y`` grows the fitted state's conditioning set with
+``FittedSPR.extend`` before it predicts.
 
 Same flags, data pipeline (double seeded permutation, byte-identical to the
 reference's order), run-budget defaults, plateau LR policy, best-valid
@@ -48,6 +50,8 @@ def add_subparser(subparsers):
     _add_train_parser(sub)
     _add_test_parser(sub)
     _add_predict_parser(sub)
+    from snngp_torch.cli.find import add_subparser as add_find
+    add_find(sub)
 
 
 def _load_splits(data_name, data_root, seed, device):
@@ -392,6 +396,16 @@ def _add_predict_parser(subparsers):
                         help="path for the fitted solve cache: loaded if it "
                              "exists, written after fitting otherwise — "
                              "repeat predictions skip the N x N factorization")
+    parser.add_argument("-ax", "--add-x", type=str, default=None,
+                        help=".npy of raw inputs to ADD to the conditioning "
+                             "set before predicting (normalized with the "
+                             "train-split stats): grows the cached factor in "
+                             "O(N^2 m) via chol_append instead of an "
+                             "O((N+m)^3) refit; the extension itself is "
+                             "in-process, but a non-extendable -fs cache is "
+                             "refit once and rewritten as extendable")
+    parser.add_argument("-ay", "--add-y", type=str, default=None,
+                        help=".npy of raw-scale targets for --add-x")
     parser.add_argument("-q",  "--quite",      default=False, action="store_true")
 
 
@@ -410,15 +424,38 @@ def predict_main(args):
     try:
         model, splits, context = _restore_model(args)
         _, _, (x_test, y_test), _ = splits
+        want_extend = args.add_x is not None or args.add_y is not None
+        if want_extend and not (args.add_x and args.add_y):
+            raise ValueError("--add-x and --add-y go together")
         with torch.inference_mode():
             if args.fitted_state and os.path.exists(args.fitted_state):
                 fitted = FittedSPR.load(args.fitted_state, model)
                 logger.log(f"loaded fitted state from {args.fitted_state}")
             else:
-                fitted = fit_spr(model)
+                fitted = fit_spr(model, extendable=want_extend)
                 if args.fitted_state:
                     fitted.save(args.fitted_state)
                     logger.log(f"saved fitted state to {args.fitted_state}")
+
+            if want_extend:
+                if "reg" not in fitted.state:
+                    logger.log("cached fitted state is not extendable; "
+                               "refitting with extendable=True")
+                    fitted = fit_spr(model, extendable=True)
+                    if args.fitted_state:
+                        # Later --add-x calls then load it instead of refitting.
+                        fitted.save(args.fitted_state)
+                        logger.log(f"refreshed {args.fitted_state} with the "
+                                   "extendable fit")
+                x_mean, x_std = _train_x_stats(context["data_name"], args.data_root)
+                x_add = torch.as_tensor(
+                    np.nan_to_num((np.load(args.add_x) - x_mean) / x_std).astype(np.float32),
+                    device=args.device)
+                y_add = torch.as_tensor(np.load(args.add_y).astype(np.float32),
+                                        device=args.device)
+                fitted = fitted.extend(x_add, y_add)
+                logger.log(f"extended conditioning set by {x_add.shape[0]} "
+                           f"-> {fitted.model.num_data} points (in-process)")
 
             if args.input:
                 x_raw = np.load(args.input)

@@ -13,11 +13,16 @@ the three Gram blocks are assembled by
 plain version on the CPU) into host memory, resumable with
 ``--resume-gram``; with ``off`` they come from the full spatial-covariance
 tier, tile by tile. ``--mlii N`` first fits (w_std, b_std, last_w_std, eps
-and the Student-t a, b) by N steps of Adam on the marginal NLL of an
-``--mlii-n`` subset, through the fused Gram's scalar-tangent backward.
+and the Student-t a, b) by N steps of Adam on the marginal NLL: of an
+``--mlii-n`` subset, through the fused Gram's scalar-tangent backward
+(``--mlii-scope subset``), or of the whole training set (``full``), by the
+closed-form gradient of :mod:`snngp_torch.models.mlii` over one augmented
+tiled assembly a step (K7's tangent mode on the card, ``--fused-block``
+tiles, a per-block profile cache, ``--mlii-panel`` S^{-1} panels),
+resumable under ``<--resume-gram>/mlii``.
 
-Not ported (they raise ``NotImplementedError``): ``--mlii-scope full``
-(``models/mlii.py``), ``--devices`` > 1 (the multi-device slice),
+Not ported (they raise ``NotImplementedError``): ``--devices`` > 1 (the
+multi-device slice),
 ``--chol blocked`` / ``inplace`` (``parallel/cholesky.py``), and the JAX
 dispatch knobs ``--scan-chunk`` / ``--remat``. ``--bf16`` is ignored on the
 fused path on the card, with the JAX script's message, and raises
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 import torch
@@ -61,8 +67,6 @@ def mlii_fit(args, x_sub, y_sub, device):
     """ML-II fit of the Myrtle kernel's scales and eps (and the Student-t
     a, b) on a training subset: full-batch Adam on the marginal NLL, with
     the Gram's scalar-tangent backward (``trainable_inputs=False``)."""
-    import time
-
     def get_kernel_fn(w_std, b_std, last_w_std):
         return get_myrtle_kernel(args.depth, 1, "relu", w_std=w_std, b_std=b_std,
                                  last_w_std=last_w_std, trainable_inputs=False)
@@ -90,6 +94,34 @@ def mlii_fit(args, x_sub, y_sub, device):
     print(f"[mlii] {args.mlii} steps on N={x_sub.shape[0]} in {time.time() - t0:.1f}s -> "
           f"{hyper} eps {eps:.3e}"
           + (f" a {alpha:.3f} b {beta:.3f}" if args.mlii_method == "tp" else ""))
+    return hyper, eps, alpha, beta
+
+
+def mlii_full(args, x_train, y_train, hyper, device):
+    """Full-scope ML-II (:func:`snngp_torch.models.mlii.mlii_fit_full`) over
+    the whole training set, from ``hyper`` and ``--eps`` (and ``--alpha`` /
+    ``--beta`` for tp); returns (hyper, eps, alpha, beta)."""
+    from snngp_torch.models.mlii import mlii_fit_full
+    from snngp_torch.ops.myrtle_gram import myrtle_gram_scale_grads, myrtle_profile_tangents
+
+    def aug_builder(w, b, l):
+        return lambda xa, xb, profiles=None: myrtle_gram_scale_grads(
+            xa, xb, depth=args.depth, act="relu", w_std=w, b_std=b, last_w_std=l,
+            profiles=profiles)
+
+    def profile_builder(w, b):
+        # the per-block profile cache: one profile recursion a block a step
+        return lambda xb: myrtle_profile_tangents(xb, depth=args.depth, act="relu",
+                                                  w_std=w, b_std=b)
+
+    resume = os.path.join(args.resume_gram, "mlii") if args.resume_gram else None
+    tp = args.mlii_method == "tp"
+    hyper, eps, ab, _ = mlii_fit_full(
+        aug_builder, torch.as_tensor(x_train, device=device), y_train, steps=args.mlii,
+        lr=args.mlii_lr, block=args.fused_block, init_hyper=hyper, eps=args.eps,
+        ab=(args.alpha, args.beta) if tp else None, panel=args.mlii_panel,
+        resume_dir=resume, profile_builder=profile_builder, device=device)
+    alpha, beta = ab if tp else (args.alpha, args.beta)
     return hyper, eps, alpha, beta
 
 
@@ -123,12 +155,15 @@ def _parser():
                          ".npy memmap with a block bitmap, flushed per block")
     ap.add_argument("--mlii", type=int, default=0,
                     help="ML-II steps on an --mlii-n training subset first")
-    ap.add_argument("--mlii-n", type=int, default=512)
+    ap.add_argument("--mlii-n", type=int, default=512,
+                    help="subset size for the ML-II fit (subset scope only)")
     ap.add_argument("--mlii-scope", choices=["subset", "full"], default="subset",
-                    help="full (the tiled full-Gram ML-II of models/mlii.py) is not "
-                         "ported")
+                    help="subset: autograd through the fused Gram on an --mlii-n "
+                         "subset; full: the exact full-Gram gradient at tiled scale, "
+                         "one augmented assembly (K, dK/dw, dK/db) + factorization + "
+                         "streamed S^-1 panel contractions a step (models/mlii.py)")
     ap.add_argument("--mlii-panel", type=int, default=2048,
-                    help="panel of the full-scope contraction (not ported)")
+                    help="S^-1 panel width of the full-scope contraction")
     ap.add_argument("--mlii-method", choices=["gp", "tp"], default="tp")
     ap.add_argument("--mlii-lr", type=float, default=1e-2)
     ap.add_argument("--chol", choices=["auto", "xla", "blocked", "inplace"], default="auto",
@@ -143,9 +178,6 @@ def _parser():
 
 
 def _check_unported(args):
-    if args.mlii and args.mlii_scope == "full":
-        raise NotImplementedError("--mlii-scope full: the tiled full-Gram ML-II "
-                                  "(models/mlii.py) is not ported yet")
     if args.devices > 1:
         raise NotImplementedError("--devices > 1: the multi-device path is not ported yet")
     if args.chol in ("blocked", "inplace"):
@@ -157,7 +189,8 @@ def _check_unported(args):
 
 
 def main(argv=None):
-    """Run the pipeline; returns {"nll", "phases_s", "hyper"}."""
+    """Run the pipeline; returns {"nll", "phases_s", "hyper", "mlii_s"} (the
+    last the wall time of the ML-II fit, 0 without ``--mlii``)."""
     args = _parser().parse_args(argv)
     _check_unported(args)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -171,10 +204,15 @@ def main(argv=None):
     y_train = (y[:args.n_train] - y_mean) / y_std
 
     hyper = dict(w_std=1.0, b_std=0.1, last_w_std=1.0)
-    if args.mlii:
+    t0 = time.perf_counter()
+    if args.mlii and args.mlii_scope == "full":
+        hyper, args.eps, args.alpha, args.beta = mlii_full(args, x_train, y_train, hyper,
+                                                           device)
+    elif args.mlii:
         n_fit = min(args.mlii_n, args.n_train)
         hyper, args.eps, args.alpha, args.beta = mlii_fit(
             args, x_train[:n_fit], y_train[:n_fit], device)
+    mlii_s = time.perf_counter() - t0
 
     fused = (args.fused == "on"
              or (args.fused == "auto" and device.type == "cuda"
@@ -234,7 +272,7 @@ def main(argv=None):
     print(f"\nN={args.n_train} Myrtle-{args.depth} ({args.image_size}x{args.image_size}) "
           f"pipeline total: {total:.2f}s  t-predictive NLL (de-normalized, reference "
           f"semantics): {float(nll):.4f}")
-    return dict(nll=float(nll), phases_s=dict(prof.totals), hyper=hyper)
+    return dict(nll=float(nll), phases_s=dict(prof.totals), hyper=hyper, mlii_s=mlii_s)
 
 
 if __name__ == "__main__":

@@ -17,10 +17,19 @@ file written by either package loads in the other.
 
 ``var_floor`` clips the posterior variance at predict time, and
 ``predict_given`` / ``test_nll_given`` serve from precomputed Gram pieces
-(the Myrtle pipeline, ``snngp_torch.examples.cifar_myrtle``). Not ported
-(they raise ``NotImplementedError``): ``memory_lean`` (the in-place blocked
-factorization for Grams past one chip's memory; an 80 GB card holds a 50k
-fp32 Gram and its factor) and ``extendable`` / ``FittedSPR.extend``.
+(the Myrtle pipeline, ``snngp_torch.examples.cifar_myrtle``).
+
+``fit_spr(extendable=True)`` freezes the absolute regularizer and keeps the
+Student-t factor, so that :meth:`FittedSPR.extend` grows the training set by
+a bordered-block update of the factors
+(:func:`~snngp_torch.ops.linalg.chol_append`) instead of a refit.
+
+A state that holds the upper factor (``chol_lower = 0``, written by the JAX
+package's ``fit_spr(memory_lean=True)``) loads and serves, and extends if
+it is extendable. Fitting one is not ported (``memory_lean=True`` raises
+``NotImplementedError``): that path is the in-place blocked factorization
+for Grams past a 16 GB chip, and an 80 GB card holds a 50k fp32 Gram and
+its factor.
 """
 
 from __future__ import annotations
@@ -33,8 +42,9 @@ import torch
 
 from snngp_torch.models import params as P
 from snngp_torch.models.likelihoods import normal_logpdf, student_t_logpdf
-from snngp_torch.ops.linalg import (add_diag_reg, add_jitter, chol_quad_form,
-                                    chol_solve, cholesky, inv_psd, pinv_psd_eigh)
+from snngp_torch.ops.linalg import (add_diag_reg, add_jitter, chol_append,
+                                    chol_quad_form, chol_solve, cholesky, inv_psd,
+                                    pinv_psd_eigh)
 from snngp_torch.ops.softmax import get_correct_count, test_log_likelihood
 
 __all__ = ["fit_spr", "FittedSPR", "fit_svsp", "FittedSVSP"]
@@ -62,9 +72,22 @@ def fit_spr(model, memory_lean: bool = False, extendable: bool = False,
     factor defines the Student-t data scale ``d`` (the reference hardcodes
     1e-6). At large N the Gram's own fp32 noise exceeds 1e-6 and the
     factorization needs a proportionally larger value to stay PD.
+
+    ``extendable=True`` keeps what :meth:`FittedSPR.extend` needs: the
+    absolute regularizer applied (``reg`` = eps tr(K) / N, frozen at fit
+    time, so extensions do not re-derive it from the drifting mean
+    diagonal) and, for a Student-t likelihood, the factor of the scaled
+    Gram (``chol_t``, a second [N, N]).
+
+    ``memory_lean=True`` (the upper-factor fit) is not ported and raises;
+    with ``extendable`` it is a ``ValueError``, as in the JAX package.
     """
-    if memory_lean or extendable:
-        raise NotImplementedError("memory_lean and extendable are not ported")
+    if extendable and memory_lean:
+        raise ValueError("extendable fits keep extra factors resident; "
+                         "memory_lean exists to avoid exactly that — pick one")
+    if memory_lean:
+        raise NotImplementedError("memory_lean fitting is not ported; upper-factor "
+                                  "states written by the JAX package load and serve")
     eps = P.constrained_read(model.eps, model.bij)
     kernel_fn = model.kernel.get_kernel_fn()
 
@@ -82,6 +105,8 @@ def fit_spr(model, memory_lean: bool = False, extendable: bool = False,
     }
     if var_floor:
         state["var_floor"] = torch.tensor(var_floor, dtype=like.dtype, device=like.device)
+    if extendable:  # freeze the absolute regularizer add_diag_reg applied
+        state["reg"] = eps * torch.trace(k_dd) / model.num_data
     if model.likelihood.require:  # Student-t conditional predictive
         a, b = model.likelihood._ab()
         df = 2.0 * a
@@ -89,6 +114,8 @@ def fit_spr(model, memory_lean: bool = False, extendable: bool = False,
         state["d"] = df + chol_quad_form(chol_t, model.y_data)
         state["cond_df"] = df + model.num_data
         state["scale_ba"] = b / a
+        if extendable:
+            state["chol_t"] = chol_t
     return FittedSPR(model, state)
 
 
@@ -96,15 +123,14 @@ class FittedSPR:
     """Cheap repeated prediction from a one-time :func:`fit_spr` solve."""
 
     def __init__(self, model, state: Dict[str, torch.Tensor]):
-        if "chol_lower" in state and not bool(state["chol_lower"]):
-            raise NotImplementedError(
-                "upper-factor (memory_lean) fitted states are not ported yet")
-        if "reg" in state:
-            raise NotImplementedError("extendable fitted states are not ported")
         self.model = model
         self.state = state
         self._kernel_fn = model.kernel.get_kernel_fn()
         self._student_t = "d" in state
+        # The factor's orientation: lower L (A = L L^T) unless the state says
+        # chol_lower = 0, the upper U (A = U^T U) of a memory-lean fit.
+        cl = state.get("chol_lower")
+        self._chol_lower = True if cl is None else bool(cl)
         self._var_floor = float(state["var_floor"]) if "var_floor" in state else 0.0
 
     # -- prediction -------------------------------------------------------
@@ -162,6 +188,56 @@ class FittedSPR:
             log_prob = normal_logpdf(y_den, mean, torch.sqrt(var))
         return -torch.mean(log_prob)
 
+    def extend(self, x_new, y_new) -> "FittedSPR":
+        """A new fitted predictor with ``m`` more training points, without
+        refactorizing: the factor (and the Student-t scaled-Gram factor) grow
+        by a bordered-block update (:func:`~snngp_torch.ops.linalg.chol_append`,
+        O(N^2 m) against the O((N + m)^3) refit), ``alpha`` is solved
+        against the new factor and the Student-t ``d`` recomputed.
+
+        Needs ``fit_spr(..., extendable=True)``. ``y_new`` is raw-scale and
+        normalized with the fit-time mean / std. The frozen regularizer goes
+        on the new diagonal block, so the result equals a factorization of
+        the same bordered matrix to fp32 resolution. The returned predictor
+        holds a new ``SPR`` over the concatenated data that shares this
+        one's kernel and likelihood modules. As in the JAX package, the
+        extended state carries no ``var_floor``."""
+        from snngp_torch.models.gp import SPR
+
+        s = self.state
+        if "reg" not in s:
+            raise ValueError("extend() needs fit_spr(..., extendable=True)")
+        model = self.model
+        like = model.x_data
+        x_new = torch.as_tensor(x_new, dtype=like.dtype, device=like.device)
+        y_n = (torch.as_tensor(y_new, dtype=like.dtype, device=like.device).reshape(-1)
+               - s["y_mean"]) / s["y_std"]
+
+        k_nb = model.kernel.K(self._kernel_fn, model.x_data, x_new)   # [N, m]
+        k_bb = model.kernel.K(self._kernel_fn, x_new)                 # [m, m]
+        chol = chol_append(s["chol"], k_nb, add_jitter(k_bb, s["reg"]),
+                           lower=self._chol_lower)
+
+        new_model = SPR(model.kernel, model.likelihood, torch.cat([model.x_data, x_new]),
+                        torch.cat([model.y_data, y_n]), model.y_mean, model.y_std)
+        new_model.eps = model.eps
+        y_all = new_model.y_data
+        state = {"chol": chol, "alpha": self._solve(chol, y_all[:, None]),
+                 "y_mean": s["y_mean"], "y_std": s["y_std"], "reg": s["reg"]}
+        if "chol_lower" in s:
+            state["chol_lower"] = s["chol_lower"]
+        if self._student_t:
+            ba = s["scale_ba"]
+            chol_t = chol_append(s["chol_t"], ba * k_nb, add_jitter(ba * k_bb, 1e-6),
+                                 lower=self._chol_lower)
+            df = s["cond_df"] - model.num_data
+            at = self._whiten_with(chol_t, y_all[:, None])
+            state["chol_t"] = chol_t
+            state["d"] = df + torch.sum(at * at)
+            state["cond_df"] = df + new_model.num_data
+            state["scale_ba"] = ba
+        return FittedSPR(new_model, state)
+
     def _posterior(self, x, batch: int = None):
         """Normalized posterior mean + variance diagonal ([n], [n]).
 
@@ -198,8 +274,20 @@ class FittedSPR:
         return mean, var
 
     def _whiten(self, k_td):
-        """L^{-1} K* for the cached lower factor ([N, n])."""
-        return torch.linalg.solve_triangular(self.state["chol"], k_td.T, upper=False)
+        """L^{-1} K* for the cached factor ([N, n])."""
+        return self._whiten_with(self.state["chol"], k_td.T)
+
+    def _whiten_with(self, chol, b):
+        """L^{-1} b for a factor of this state's orientation: with the upper
+        U = L^T, one lower solve on U^T."""
+        return torch.linalg.solve_triangular(chol if self._chol_lower else chol.mT, b,
+                                             upper=False)
+
+    def _solve(self, chol, b):
+        """A^{-1} b for a factor of this state's orientation."""
+        if self._chol_lower:
+            return chol_solve(chol, b)
+        return torch.cholesky_solve(b, chol, upper=True)
 
     # -- persistence ------------------------------------------------------
 

@@ -46,6 +46,7 @@ __all__ = [
     "chol_solve",
     "chol_logdet",
     "chol_quad_form",
+    "chol_append",
     "gp_predict",
     "mvn_logpdf",
     "inv_psd",
@@ -110,6 +111,31 @@ def chol_quad_form(chol: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if y.ndim == 1:
         return torch.sum(alpha * alpha)
     return torch.sum(alpha * alpha, dim=-2)
+
+
+def chol_append(chol: torch.Tensor, k_nb: torch.Tensor, k_bb: torch.Tensor,
+                lower: bool = True) -> torch.Tensor:
+    """Extend a Cholesky factor by m new rows / columns in O(n^2 m)
+    (``snngp/ops/linalg.py:119``).
+
+    Given the factor of ``A`` [n, n] and the blocks of the bordered matrix
+    ``[[A, k_nb], [k_nb^T, k_bb]]`` (``k_nb`` [n, m], ``k_bb`` [m, m], already
+    regularized), returns the factor of the bordered matrix without
+    refactorizing the n x n block. ``lower=True`` extends L (A = L L^T);
+    ``lower=False`` extends the upper U (A = U^T U) of a memory-lean state.
+    The Schur complement is factored by :func:`cholesky`, so a bordered
+    matrix that is not PD gives NaN on the new block's diagonal."""
+    m = k_bb.shape[-1]
+    if lower:
+        l21 = torch.linalg.solve_triangular(chol, k_nb, upper=False).mT    # [m, n]
+        l22 = cholesky(k_bb - l21 @ l21.mT)
+        top = torch.cat([chol, chol.new_zeros(chol.shape[0], m)], dim=1)
+        return torch.cat([top, torch.cat([l21, l22], dim=1)])
+    # U^T u12 = k_nb: a lower solve on U^T.
+    u12 = torch.linalg.solve_triangular(chol.mT, k_nb, upper=False)        # [n, m]
+    u22 = cholesky(k_bb - u12.mT @ u12).mT
+    top = torch.cat([chol, u12], dim=1)
+    return torch.cat([top, torch.cat([chol.new_zeros(m, chol.shape[0]), u22], dim=1)])
 
 
 def gp_predict(

@@ -4,10 +4,12 @@
 - :class:`SNNGPRegressor` packages exact-inference NNGP regression (``SPR``)
   with ``method="gp"`` (Gaussian) or ``"tp"`` (Student-t scale mixture),
   optional ML-II hyperparameter training and repeated prediction through
-  the fitted-state predictor.
+  the fitted-state predictor; ``extendable=True`` lets ``add_data`` grow
+  the conditioning set without a refit.
 - :class:`SNNGPClassifier` packages sparse variational classification
-  (``SVSP``) of images with ``method="svgp"`` / ``"svtp"`` on the CNN NNGP,
-  minibatch ELBO training and MC ``predict_proba``.
+  (``SVSP``) with ``method="svgp"`` / ``"svtp"`` on the MLP NNGP of flat
+  features or the CNN, WideResNet or Myrtle NNGP of images, minibatch ELBO
+  training and MC ``predict_proba``.
 
 Both follow the fit/predict contract: ``__init__`` only stores
 hyperparameters, ``fit`` returns ``self``, learned attributes end in ``_``,
@@ -16,8 +18,7 @@ grid-search-compatible. sklearn itself is not required.
 
 ``device`` (default ``"cuda"``) names where the data, the parameters and
 every Gram live; asking for CUDA on a machine without it is an error, not a
-quiet CPU run. ``extendable=True`` / ``add_data`` raise
-``NotImplementedError`` until ``FittedSPR.extend`` is ported.
+quiet CPU run.
 """
 
 from __future__ import annotations
@@ -119,9 +120,6 @@ class SNNGPRegressor(_EstimatorBase):
         splits each step into its synchronized phases."""
         from snngp_torch.cli.regression import _build_model
 
-        if self.extendable:
-            raise NotImplementedError("extendable=True needs FittedSPR.extend, "
-                                      "which is not ported yet")
         self.device_ = _device(self.device)
         X = self._tensor(X)
         y = np.asarray(y, np.float32).reshape(-1)
@@ -147,12 +145,20 @@ class SNNGPRegressor(_EstimatorBase):
 
         self.model_ = model
         with torch.inference_mode():
-            self.fitted_ = fit_spr(model)
+            self.fitted_ = fit_spr(model, extendable=self.extendable)
         return self
 
     def add_data(self, X, y):
-        raise NotImplementedError("add_data needs FittedSPR.extend, which is not "
-                                  "ported yet")
+        """Grow the fitted training set incrementally (O(N^2 m), no refit).
+
+        Needs ``extendable=True`` at construction. The new targets are
+        normalized with the fit-time statistics; the hyperparameters are not
+        retrained (call ``fit`` on the combined data for that)."""
+        with torch.inference_mode():
+            self.fitted_ = self.fitted_.extend(self._tensor(X),
+                                               self._tensor(np.asarray(y).reshape(-1)))
+        self.model_ = self.fitted_.model
+        return self
 
     def predict(self, X, return_std: bool = False):
         """De-normalized predictive mean (and optionally its std)."""
@@ -180,20 +186,21 @@ class SNNGPRegressor(_EstimatorBase):
 
 
 class SNNGPClassifier(_EstimatorBase):
-    """Sparse variational NNGP / Student-t process classification of
-    [N, H, W, C] images.
+    """Sparse variational NNGP / Student-t process classification.
 
     Parameters mirror ``cls tr`` flags: ``method`` svgp|svtp, the kernel's
-    network (``"cnn"``, ``"resnet"``, the conv WideResNet, or ``"myrtle"``,
-    with ``num_hiddens`` the Myrtle depth 5, 7 or 10, which freezes the
-    inducing inputs and takes scalar-only kernel gradients as ``cls tr -n
-    myrtle`` does; mlp is not ported and raises), depth / activation /
-    scales, ``alpha`` /
-    ``beta`` of the svtp prior, jitter ``eps``, the inducing-point count,
-    the ELBO's MC sample count and the minibatch schedule. ``fit`` initializes the inducing
-    points class-proportionally (the first images of each class, as the CLI
-    does), trains the ELBO with Adam / SGD, and hoists the inducing-side
-    solves into a fitted predictor for ``predict_proba``.
+    network (``"cnn"``, ``"resnet"``, the conv WideResNet, or ``"myrtle"``
+    for [N, H, W, C] images, with ``num_hiddens`` the Myrtle depth 5, 7 or
+    10, which freezes the inducing inputs and takes scalar-only kernel
+    gradients as ``cls tr -n myrtle`` does; ``"mlp"`` for [N, D] features,
+    whose Gram blocks are K1 on the card and whose backward, the inducing
+    inputs being trained, is the layer tier's), depth / activation /
+    scales, ``alpha`` / ``beta`` of the svtp prior, jitter ``eps``, the
+    inducing-point count, the ELBO's MC sample count and the minibatch
+    schedule. ``fit`` initializes the inducing points class-proportionally
+    (the first samples of each class, as the CLI does), trains the ELBO
+    with Adam / SGD, and hoists the inducing-side solves into a fitted
+    predictor for ``predict_proba``.
 
     The minibatch order and the MC draws come from ``torch.Generator``s
     seeded with ``seed`` (fit) and ``seed + 1`` (every ``predict_proba``
@@ -236,11 +243,9 @@ class SNNGPClassifier(_EstimatorBase):
         phases (see :func:`~snngp_torch.utils.training.svsp_train_step`)."""
         from snngp_torch.cli.classification import _make_model
         from snngp_torch.models.predictor import fit_svsp
+        from snngp_torch.nn.arch import get_mlp_kernel
         from snngp_torch.utils.training import svsp_train_step
 
-        if self.network not in ("cnn", "resnet", "myrtle"):
-            raise NotImplementedError(f"network={self.network!r}: only 'cnn', 'resnet' "
-                                      "and 'myrtle' are ported")
         if self.network == "myrtle" and self.num_hiddens not in (5, 7, 10):
             raise ValueError("network='myrtle' uses num_hiddens as the Myrtle depth: "
                              f"one of 5, 7, 10 (got {self.num_hiddens})")
@@ -254,9 +259,15 @@ class SNNGPClassifier(_EstimatorBase):
         counts = np.bincount(y_idx, minlength=num_class)
         per_class = np.round(self.num_inducing * counts / counts.sum()).astype(int)
         z = np.concatenate([X[y_idx == c][:max(per_class[c], 1)] for c in range(num_class)])
+        get_kernel_fn = None
+        if self.network == "mlp":
+            def get_kernel_fn(w, b, l):
+                return get_mlp_kernel(self.num_hiddens, num_class, self.activation,
+                                      w_std=w, b_std=b, last_w_std=l)
         model = _make_model(self.method, self.network, self.num_hiddens, self.activation,
                             self.w_std, self.b_std, self.last_w_std, self.alpha, self.beta,
-                            num_class, z, self.eps).to(self.device_)
+                            num_class, z, self.eps,
+                            get_kernel_fn=get_kernel_fn).to(self.device_)
         opt_cls = Adam if self.optimizer == "adam" else SGD
         if self.network == "myrtle":   # the inducing inputs stay at their init
             opt = opt_cls(model, mask=lambda n: "inducing_variable" not in n)

@@ -20,7 +20,8 @@ MODULES = ["snngp_torch", "snngp_torch.__main__", "snngp_torch.cli.regression",
            "snngp_torch.models.priors", "snngp_torch.data.classification",
            "snngp_torch.data.resize", "snngp_torch.ops.resnet_conv_gram",
            "snngp_torch.nn.full", "snngp_torch.ops.myrtle_gram",
-           "snngp_torch.examples.cifar_myrtle"]
+           "snngp_torch.examples.cifar_myrtle", "snngp_torch.models.mlii",
+           "snngp_torch.cli.find", "snngp_torch.examples.online_regression"]
 
 
 def _run(code):
@@ -52,5 +53,17 @@ def test_classification_data_needs_no_scipy_or_tfds_for_synthetic_sets():
                 "from snngp_torch.data.classification import get_train_dataset\n"
                 "get_train_dataset('synthetic', num_data=50)\n"
                 "print('scipy.io' in sys.modules, 'jax' in sys.modules)")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "False"]
+
+
+def test_reg_fd_runs_without_pandas(tmp_path):
+    # The card has no pandas: reg fd formats its tables without it.
+    proc = _run("import sys\n"
+                "from snngp_torch.__main__ import main\n"
+                f"main(['--device', 'cpu', 'reg', 'fd', '-dn', 'syn-normal', '-cd', {str(tmp_path)!r}, "
+                "'-wsl', '1', '-bsl', '0.3', '-el', '1e-1', '-al', '2', '-bl', '2', '-ns', '50', "
+                "'-smp', 'device', '-q'])\n"
+                "print('pandas' in sys.modules, 'jax' in sys.modules)")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["False", "False"]

@@ -169,11 +169,16 @@ def test_checkpoint_cross_loads(writer, tmp_path):
 
 
 def test_unported_fit_options_raise():
+    # Fitting memory-lean is not ported (its states load: test_torch_extend.py);
+    # extendable fits are, and not together with memory_lean, as in JAX.
     x, y, _, _ = _data()
     model = _torch_model("gp", x, y)
-    for kw in (dict(memory_lean=True), dict(extendable=True)):
-        with pytest.raises(NotImplementedError):
-            fit_spr(model, **kw)
+    with pytest.raises(NotImplementedError):
+        fit_spr(model, memory_lean=True)
+    with pytest.raises(ValueError, match="pick one"):
+        fit_spr(model, memory_lean=True, extendable=True)
+    with torch.no_grad():
+        assert "reg" in fit_spr(model, extendable=True).state
 
 
 def test_gram_argument_is_used_as_given():

@@ -370,8 +370,31 @@ def test_classifier_fits_predicts_and_follows_the_protocol():
     assert 0.0 <= clf.score(x, y) <= 1.0
     assert clf.get_params()["device"] == "cpu"
     assert clf.set_params(epochs=2).epochs == 2
-    with pytest.raises(NotImplementedError):     # myrtle is ported; mlp is not
-        SNNGPClassifier(network="mlp", device="cpu").fit(x, y)
+    # network="mlp" on flat features, against the JAX facade: the same
+    # protocol, classes, inducing init and kernel (Gram blocks of the fitted
+    # scales through either package's builder, rtol 1e-5); the fits differ
+    # by their Monte Carlo draws.
+    from snngp.sklearn import SNNGPClassifier as JClassifier
+    xf = x.reshape(40, -1)
+    kw = dict(method="svtp", network="mlp", num_hiddens=2, num_inducing=9, num_samples=8,
+              batch_size=20, epochs=1)
+    mlp, jmlp = SNNGPClassifier(**kw, device="cpu"), JClassifier(**kw)
+    assert mlp.fit(xf, y) is mlp and jmlp.fit(xf, y) is jmlp
+    assert set(mlp.get_params()) == set(jmlp.get_params()) | {"device"}
+    np.testing.assert_array_equal(mlp.classes_, jmlp.classes_)
+    assert mlp.losses_.shape == (2,) and np.all(np.isfinite(mlp.losses_))
+    z0 = np.concatenate([xf[y == c][:3] for c in (1, 3, 5)])
+    np.testing.assert_array_equal(to_numpy(mlp.model_.inducing_variable).shape, z0.shape)
+    w, b, last = (float(v) for v in mlp.model_.kernel.get_params())
+    want = jmlp.model_.kernel._get_kernel_fn(w, b, last)(xf[:6], z0, get="nngp")
+    with torch.no_grad():
+        got = mlp.model_.kernel._get_kernel_fn(w, b, last)(to_torch(xf[:6]), to_torch(z0))
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), rtol=1e-5)
+    proba, jproba = mlp.predict_proba(xf[:5], num_samples=64), jmlp.predict_proba(xf[:5])
+    assert proba.shape == jproba.shape == (5, 3)
+    np.testing.assert_allclose(proba.sum(axis=1), 1.0, rtol=1e-5)
+    assert set(mlp.predict(xf)) <= {1, 3, 5}
+    assert 0.0 <= mlp.score(xf, y) <= 1.0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SNNGPClassifier(device="cuda").fit(x, y)

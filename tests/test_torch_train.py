@@ -225,11 +225,12 @@ def test_regressor_protocol_and_what_is_not_ported():
     assert est.get_params()["device"] == "cpu"
     est.set_params(num_hiddens=2)
     x = np.random.RandomState(35).randn(20, 2).astype(np.float32)
-    with pytest.raises(NotImplementedError):
-        SNNGPRegressor(extendable=True, device="cpu").fit(x, x[:, 0])
+    ext = SNNGPRegressor(method="gp", num_hiddens=2, extendable=True, device="cpu")
+    assert ext.fit(x[:15], x[:15, 0]).add_data(x[15:], x[15:, 0]) is ext
+    assert ext.model_.num_data == 20 and np.all(np.isfinite(ext.predict(x)))
     est.fit(x, x[:, 0])
     assert not hasattr(est, "losses_")   # max_steps=0 keeps the constructor values
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="extendable"):    # add_data needs extendable=True
         est.add_data(x, x[:, 0])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
