@@ -121,23 +121,33 @@ script exits non-zero:
    ``reg pr --add-x / --add-y`` on phase 3's checkpoint and cache;
 20. ``SNNGPClassifier(network="mlp")`` on a seeded 300 x 64 tabular set, 3
    classes, one epoch, ``predict_proba`` (gate: finite losses);
-21. full-Gram ML-II: ``full_gram_mlii_value_and_grad`` on ``tiled_aug_gram``
-   of 160 seeded 32 x 32 x 3 images at block 64 (K7's tangent mode, a
-   symmetric launch on each diagonal tile) against autograd of ``SPR.loss``
-   through ``get_myrtle_kernel(trainable_inputs=False)``, gp and tp (gate:
-   loss rtol 1e-5, gradients rtol 2e-3, atol 1e-6), then ``cifar_myrtle
-   --mlii 2 --mlii-scope full`` at N = 256 (gate: a finite NLL; the ML-II
-   time a step).
+21. full-Gram ML-II on its main path: ``cifar_myrtle --mlii 2 --mlii-scope
+   full`` at N = 256 (gate: a finite NLL; the ML-II time a step); then,
+   after the Myrtle window, ``full_gram_mlii_value_and_grad`` on
+   ``tiled_aug_gram`` of 160 seeded standard-normal 32 x 32 x 3 images at
+   block 64 (K7's tangent mode, a symmetric launch on each diagonal tile)
+   against autograd of ``SPR.loss`` through
+   ``get_myrtle_kernel(trainable_inputs=False)``, gp and tp (gate: loss
+   rtol 1e-5, gradients rtol 2e-3, atol 1e-6), and against float64
+   arithmetic on its own tiles (the same gate); on 160 of the pipeline's
+   uniform images, the same, plus the float64 witnesses, the closed form
+   on K7's plain float64 tangent tiles against autograd through K7's plain
+   versions in float64 (gate: rtol 1e-6), with each fp32 route's error
+   against them printed; and the peak device memory of one
+   ``full_gram_mlii_value_and_grad`` at N = 8,192 (gate: below 1.5 x S's
+   bytes, the factor written over S).
 
 Six main paths run with the kernels' launch counts set to 0 just before
 and read just after: serving (phases 2-3), training (phases 5-6), the
 regression extras (phases 18-20; K1 and no other kernel), CNN
 classification (phases 9-10), WideResNet classification (phases 12-13)
 and Myrtle classification with the pipeline and full-Gram ML-II (phases
-15-17 and 21); each fails if a kernel of its path never launched. Launches made to compare a kernel
-with its plain version (phases 1, 4, 7, 8, 11 and 14, the gradient checks
-of phases 9, 12 and 15, run just before their windows, and phase 17's
-full-tier comparison, run just after its window) are not counted.
+15-17 and 21's pipeline); each fails if a kernel of its path never
+launched. Launches made to compare a kernel with its plain version or
+with autograd (phases 1, 4, 7, 8, 11 and 14, the gradient checks of
+phases 9, 12 and 15, run just before their windows, and phase 17's
+full-tier comparison and phase 21's gradient check, run just after the
+Myrtle window) are not counted.
 Each phase prints its seconds. The line before the last is one JSON object
 describing the kernels; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when CUDA is not available or the
@@ -225,6 +235,9 @@ MLP_CLS_N, MLP_CLS_D = 300, 64     # phase 20's seeded tabular set, 3 classes
 # (three diagonal tiles, three off-diagonal, the last block ragged), against
 # autograd of SPR.loss; tolerances of tests/test_mlii.py:107-119.
 MLII_N, MLII_BLOCK, MLII_EPS, MLII_AB = 160, 64, 1e-2, (2.0, 1.5)
+# The factorization's peak memory is read at a size where S (256 MiB) is
+# far above the allocator's rounding and the panels (3 x 16 MiB).
+MLII_MEM_N, MLII_MEM_PANEL = 8192, 512
 MLII_HYPER = dict(w_std=1.0, b_std=0.1, last_w_std=1.0)   # the pipeline's initial scales
 MLII_PIPELINE = ["--image-size", "32", "--depth", "5", "--n-train", "256", "--n-test", "64",
                  "--fused", "on", "--fused-block", "128", "--mlii", "2", "--mlii-scope",
@@ -2156,51 +2169,105 @@ def phase17_full_tier(hyper):
     return rel
 
 
-def _mlii_images():
-    """MLII_N seeded standard-normal 32 x 32 x 3 images and targets. Images
-    drawn uniform on [0, 1), as the pipeline's synthetic set is, share one
-    large mean: their Myrtle Gram is nearly rank one, and at eps = 1e-2 the
-    two fp32 routes to the cancelling d/db_std sum (closed form, autograd)
-    then differ by more than the gate allows."""
-    rng = np.random.RandomState(21)
-    return (rng.randn(MLII_N, 32, 32, 3).astype(np.float32),
-            rng.randn(MLII_N).astype(np.float32))
+def _mlii_images(kind):
+    """MLII_N seeded 32 x 32 x 3 images and standardized targets: "normal"
+    (standard-normal images and targets) or "uniform" (the pipeline's own
+    synthetic set, images uniform on [0, 1) and standardized labels, which
+    ``--mlii-scope full`` trains on)."""
+    if kind == "normal":
+        rng = np.random.RandomState(21)
+        return (rng.randn(MLII_N, 32, 32, 3).astype(np.float32),
+                rng.randn(MLII_N).astype(np.float32))
+    from snngp_torch.examples import cifar_myrtle
+
+    x, y = cifar_myrtle.load_images(MLII_N, 32, seed=0)
+    return x, ((y - y.mean()) / y.std()).astype(np.float32)
 
 
-def _closed_form_f64(k, dkw, dkb, y, eps, ab):
-    """The closed-form gradients in float64 on the same tiles (numpy), and
-    the condition number of S = K + eps I."""
+def _closed_form_f64(k, dkw, dkb, y, eps, ab, last_w_std):
+    """The closed-form loss and constrained gradients over {w_std, b_std,
+    last_w_std, eps} in float64 (numpy) on the given tiles, and the
+    condition number of S = K + eps I."""
     from snngp_torch.models.mlii import gram_cotangent_coeffs
 
-    s = k.astype(np.float64) + eps * np.eye(k.shape[0])
+    k, dkw, dkb = (np.asarray(a, np.float64) for a in (k, dkw, dkb))
+    y = np.asarray(y, np.float64)
+    n = k.shape[0]
+    s = k + eps * np.eye(n)
     s_inv = np.linalg.inv(s)
-    alpha = s_inv @ y.astype(np.float64)
-    c_inv, c_aa = gram_cotangent_coeffs(float(y @ alpha), k.shape[0], ab=ab)
-    grads = {name: c_inv * np.sum(s_inv * dk) + c_aa * float(alpha @ dk.astype(np.float64)
-                                                             @ alpha)
-             for name, dk in (("w_std", dkw), ("b_std", dkb))}
-    return grads, float(np.linalg.cond(s))
+    alpha = s_inv @ y
+    q = float(y @ alpha)
+    c_inv, c_aa = gram_cotangent_coeffs(q, n, ab=ab)
+    dks = {"w_std": dkw, "b_std": dkb, "last_w_std": (2.0 / last_w_std) * k,
+           "eps": np.eye(n)}
+    grads = {name: c_inv * np.sum(s_inv * dk) + c_aa * float(alpha @ dk @ alpha)
+             for name, dk in dks.items()}
+    logdet = np.linalg.slogdet(s)[1]
+    if ab is None:
+        loss = (q + logdet + n * math.log(2 * math.pi)) / (2 * n)
+    else:
+        a, b = ab
+        df, half = 2 * a, a + n / 2
+        loss = (half * math.log1p((a / b) * q / df) + 0.5 * n * math.log(df * math.pi)
+                - math.lgamma(half) + math.lgamma(a) + 0.5 * (n * math.log(b / a) + logdet)) / n
+    return loss, grads, float(np.linalg.cond(s))
 
 
-def phase21_mlii():
-    """Full-Gram ML-II (snngp_torch.models.mlii) on the card: the closed-form
-    loss and gradients from ``tiled_aug_gram`` (K7's tangent mode, a
-    symmetric launch on each diagonal tile) against autograd of SPR.loss
-    through ``get_myrtle_kernel(trainable_inputs=False)`` on the same
-    MLII_N images, for gp and tp (gate: loss rtol 1e-5, gradients rtol 2e-3,
-    atol 1e-6); then the pipeline with ``--mlii-scope full`` (gate: a finite
-    NLL)."""
-    import tempfile
-
+def _mlii_autograd(x_np, y_np, ab, dtype):
+    """SPR.loss and its raw-parameter gradients by autograd on the card:
+    float32 through ``get_myrtle_kernel(trainable_inputs=False)`` (K7 and
+    its tangent mode), float64 through K7's plain versions."""
     import torch
-    from snngp_torch.examples import cifar_myrtle
-    from snngp_torch.models import (SPR, GaussianLikelihood, NNGPKernel,
-                                    StudentTLikelihood)
-    from snngp_torch.models.mlii import full_gram_mlii_value_and_grad, tiled_aug_gram
+    from snngp_torch.models import SPR, GaussianLikelihood, NNGPKernel, StudentTLikelihood
     from snngp_torch.nn.arch import get_myrtle_kernel
     from snngp_torch.ops import myrtle_gram as MG
 
-    x_np, y_np = _mlii_images()
+    def builder(w, b, last):
+        if dtype == torch.float32:
+            return get_myrtle_kernel(MYRTLE_DEPTH, 1, "relu", w_std=w, b_std=b,
+                                     last_w_std=last, trainable_inputs=False)
+
+        def kernel_fn(x1, x2=None, get="nngp"):
+            x2e = x1 if x2 is None else x2
+            return MG._MyrtleGram.apply(x1, x2e, w, b, last, MYRTLE_DEPTH, "relu", False,
+                                        x2e is x1, True)
+        return kernel_fn
+
+    lik = GaussianLikelihood() if ab is None else StudentTLikelihood(*ab)
+    model = SPR(NNGPKernel(builder, **MLII_HYPER), lik, x_np, y_np, 0.0, 1.0,
+                eps=MLII_EPS).to(device="cuda", dtype=dtype)
+    if dtype == torch.float64:
+        # the raw parameters were rounded to fp32 at construction: set them
+        # again in float64, so the witness sits at the exact values
+        values = dict(MLII_HYPER, eps=MLII_EPS, **dict(zip("ab", ab or ())))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(model.bij.inverse(torch.tensor(
+                    values[name.rpartition(".")[2]], dtype=torch.float64)))
+    # SPR.loss adds eps to the diagonal: the absolute eps of the closed form.
+    with torch.enable_grad():
+        loss = model.loss()
+        named = list(model.named_parameters())
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+    # raw -> constrained through the softplus bijector: dt/du = sigmoid(u)
+    chain = {n.rpartition(".")[2]: torch.sigmoid(p.detach()).item() for n, p in named}
+    out = {n.rpartition(".")[2]: g.item() for (n, _), g in zip(named, grads)}
+    return loss.item(), out, chain
+
+
+def _mlii_routes(kind, witness):
+    """Full-Gram ML-II's loss and raw gradients on MLII_N ``kind`` images,
+    for gp and tp, by the routes: "closed form" (``tiled_aug_gram`` of K7's
+    tangent-mode tiles, then ``full_gram_mlii_value_and_grad``), "autograd"
+    (SPR.loss through K7, fp32) and "f64 on fp32 tiles" (the closed form in
+    numpy float64 on the same tiles); with ``witness`` also the float64
+    witnesses "f64 closed form" (on K7's plain float64 tangent tiles) and
+    "f64 autograd" (through K7's plain versions in float64)."""
+    import torch
+    from snngp_torch.models.mlii import full_gram_mlii_value_and_grad, tiled_aug_gram
+    from snngp_torch.ops import myrtle_gram as MG
+
+    x_np, y_np = _mlii_images(kind)
     x = torch.as_tensor(x_np, device="cuda")
     h = MLII_HYPER
     aug = functools.partial(MG.myrtle_gram_scale_grads, depth=MYRTLE_DEPTH, act="relu", **h)
@@ -2210,46 +2277,105 @@ def phase21_mlii():
     (k, dkw, dkb), t_asm = _timed(lambda: tiled_aug_gram(aug, x, block=MLII_BLOCK,
                                                          profile_fn=prof))
     tiles = MG.LAUNCHES["myrtle_grads"] - before
-    print(f"[mlii] tiled_aug_gram of {MLII_N} 32x32x3 images, block {MLII_BLOCK}: {tiles} "
-          f"tangent-mode launches, {t_asm:.3f} s")
+    print(f"[mlii] {kind}: tiled_aug_gram of {MLII_N} 32x32x3 images, block {MLII_BLOCK}: "
+          f"{tiles} tangent-mode launches, {t_asm:.3f} s")
     if tiles != 6:
         raise AssertionError(f"{tiles} tangent-mode launches for 6 tiles")
+    if witness:
+        x64 = x.double()
+        scales = [torch.tensor(h[n], dtype=torch.float64, device="cuda")
+                  for n in ("w_std", "b_std", "last_w_std")]
+        (k64, dkw64, dkb64), t64 = _timed(lambda: [
+            t.cpu().numpy() for t in MG._tangents(x64, x64, *scales, MYRTLE_DEPTH, "relu",
+                                                  plain=True)])
+        print(f"[mlii] {kind}: float64 tangent tiles through K7's plain version, {t64:.1f} "
+              f"s; max |K fp32 - K fp64| / max |K| "
+              f"{np.abs(k - k64).max() / np.abs(k64).max():.2e}")
 
-    def builder(w, b, last):
-        return get_myrtle_kernel(MYRTLE_DEPTH, 1, "relu", w_std=w, b_std=b, last_w_std=last,
-                                 trainable_inputs=False)
+    # each closed form to raw space through its precision's bijector
+    def raw(g, chain):
+        return {n: g[n] * chain[n] for n in g}
 
-    worst = {}
+    routes = {}
     for method, ab in (("gp", None), ("tp", MLII_AB)):
         (loss, g_c), t_closed = _timed(lambda: full_gram_mlii_value_and_grad(
             k, dkw, dkb, y_np, last_w_std=h["last_w_std"], eps=MLII_EPS, ab=ab,
             panel=MLII_BLOCK, device="cuda"))
-        lik = GaussianLikelihood() if ab is None else StudentTLikelihood(*ab)
-        model = SPR(NNGPKernel(builder, **h), lik, x_np, y_np, 0.0, 1.0,
-                    eps=MLII_EPS).cuda()
-        # SPR.loss adds eps to the diagonal: the absolute eps of the closed form.
-        with torch.enable_grad():
-            ref = model.loss()
-            names = [n for n, _ in model.named_parameters()]
-            raws = [p for _, p in model.named_parameters()]
-            grads = torch.autograd.grad(ref, raws)
-        rel_loss = abs(loss - ref.item()) / abs(ref.item())
-        g64, cond = _closed_form_f64(k, dkw, dkb, y_np, MLII_EPS, ab)
-        print(f"[mlii] {method}: loss {loss:.7f} (closed form, {t_closed:.3f} s) "
-              f"{ref.item():.7f} (autograd), rel {rel_loss:.2e}; cond(S) {cond:.3e}")
-        worst[method] = rel_loss
-        if not rel_loss <= 1e-5:
-            raise AssertionError(f"{method} ML-II loss rel err {rel_loss:.2e}")
-        for name, raw, g in zip(names, raws, grads):
-            # constrained -> raw through the softplus bijector: dt/du = sigmoid(u)
-            leaf, chain = name.rpartition(".")[2], torch.sigmoid(raw.detach()).item()
-            got, want = g_c[leaf] * chain, g.item()
-            f64 = f" float64 {g64[leaf] * chain:.7e}" if leaf in g64 else ""
-            print(f"[mlii] {method} d/d{name}: closed form {got:.7e} autograd {want:.7e}{f64}")
-            if not abs(got - want) <= 1e-6 + 2e-3 * abs(want):
-                raise AssertionError(f"{method} d/d{name}: {got:.7e} against {want:.7e}")
-        del model
-    del k, dkw, dkb
+        loss32, g32, chain32 = _mlii_autograd(x_np, y_np, ab, torch.float32)
+        lt, gt, cond = _closed_form_f64(k, dkw, dkb, y_np, MLII_EPS, ab, h["last_w_std"])
+        r = routes[method] = {"closed form": (loss, raw(g_c, chain32)),
+                              "autograd": (loss32, g32),
+                              "f64 on fp32 tiles": (lt, raw(gt, chain32))}
+        timing = f"closed form {t_closed:.3f} s"
+        if witness:
+            (loss64, g64, chain64), t_ag64 = _timed(lambda: _mlii_autograd(
+                x_np, y_np, ab, torch.float64))
+            lcf64, gcf64, _ = _closed_form_f64(k64, dkw64, dkb64, y_np, MLII_EPS, ab,
+                                               h["last_w_std"])
+            r["f64 closed form"] = (lcf64, raw(gcf64, chain64))
+            r["f64 autograd"] = (loss64, g64)
+            timing += f", float64 autograd {t_ag64:.1f} s"
+        print(f"[mlii] {kind} {method}: cond(S) {cond:.3e}; {timing}")
+        for route, (lv, g) in r.items():
+            print(f"[mlii] {kind} {method} {route:17s} loss {lv:.9f} " + " ".join(
+                f"d/d{n} {g[n]:.7e}" for n in sorted(g)))
+    return routes
+
+
+def _mlii_gate(kind, routes, got, want, rtol_loss, rtol, atol):
+    """Hold route ``got`` to route ``want`` on the loss and on every
+    gradient both have, for gp and tp; prints the relative gaps."""
+    for method, r in routes.items():
+        (loss, g), (ref, g_ref) = r[got], r[want]
+        g_ref = {n: v for n, v in g_ref.items() if n in g}
+        rel = {n: abs(g[n] - v) / abs(v) for n, v in g_ref.items()}
+        print(f"[mlii] {kind} {method} {got} against {want}: loss rel "
+              f"{abs(loss - ref) / abs(ref):.2e}; " + " ".join(
+                  f"d/d{n} {v:.2e}" for n, v in sorted(rel.items())))
+        if not abs(loss - ref) <= rtol_loss * abs(ref):
+            raise AssertionError(f"{kind} {method} loss: {got} {loss:.9f}, {want} {ref:.9f}")
+        for name, v in g_ref.items():
+            if not abs(g[name] - v) <= atol + rtol * abs(v):
+                raise AssertionError(f"{kind} {method} d/d{name}: {got} {g[name]:.7e}, "
+                                     f"{want} {v:.7e}")
+
+
+def _mlii_memory():
+    """Peak device memory of one ``full_gram_mlii_value_and_grad`` at N =
+    MLII_MEM_N over S's own bytes (the factorization runs in S's storage;
+    gate: below 1.5 N^2 fp32)."""
+    import torch
+    from snngp_torch.models.mlii import full_gram_mlii_value_and_grad
+
+    n = MLII_MEM_N
+    rng = np.random.RandomState(22)
+    f = rng.randn(n, 64).astype(np.float32)
+    k = f @ f.T / 64.0 + np.eye(n, dtype=np.float32)
+    y = rng.randn(n).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss, _ = full_gram_mlii_value_and_grad(k, k, k, y, last_w_std=1.0, eps=1e-2,
+                                            panel=MLII_MEM_PANEL, device="cuda")
+    peak = torch.cuda.max_memory_allocated() - base
+    s_bytes = 4 * n * n
+    print(f"[mlii] value_and_grad at N={n}, panel {MLII_MEM_PANEL}: peak device memory "
+          f"{peak / 2**20:.1f} MiB = {peak / s_bytes:.3f} x S's {s_bytes / 2**20:.1f} MiB; "
+          f"loss {loss:.6f}")
+    if not (math.isfinite(loss) and peak <= 1.5 * s_bytes):
+        raise AssertionError(f"peak {peak} bytes for an S of {s_bytes} bytes (loss {loss})")
+    return peak / s_bytes
+
+
+def phase21_mlii():
+    """Full-Gram ML-II on the card, on its main path: ``cifar_myrtle --mlii 2
+    --mlii-scope full`` at N = 256 (K7's tangent mode in every tile of each
+    step's assembly, K7 in the Grams that follow; gate: a finite NLL)."""
+    import tempfile
+
+    import torch
+    from snngp_torch.examples import cifar_myrtle
 
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         result, wall = _timed(lambda: cifar_myrtle.main(["--device", "cuda", *MLII_PIPELINE,
@@ -2261,7 +2387,36 @@ def phase21_mlii():
     if not math.isfinite(result["nll"]):
         raise AssertionError(f"full-scope pipeline NLL {result['nll']}")
     torch.cuda.empty_cache()
-    return dict(loss_rel=worst, step_s=result["mlii_s"] / steps)
+    return dict(step_s=result["mlii_s"] / steps)
+
+
+def phase21_mlii_gradient():
+    """Phase 21's comparison, run after the Myrtle launch window: the
+    closed-form loss and gradients (``full_gram_mlii_value_and_grad`` on
+    ``tiled_aug_gram``, K7's tangent mode with a symmetric launch on each
+    diagonal tile) against autograd of SPR.loss through
+    ``get_myrtle_kernel(trainable_inputs=False)`` on MLII_N seeded
+    standard-normal images, gp and tp (gate: loss rtol 1e-5, gradients rtol
+    2e-3, atol 1e-6); on both image sets, the closed form against float64
+    arithmetic on its own fp32 tiles (the same gate); on the pipeline's
+    uniform images, the float64 closed form against float64 autograd
+    (gate: rtol 1e-6, atol 1e-12); the factorization's peak memory."""
+    import torch
+
+    normal = _mlii_routes("normal", witness=False)
+    _mlii_gate("normal", normal, "closed form", "autograd", 1e-5, 2e-3, 1e-6)
+    _mlii_gate("normal", normal, "closed form", "f64 on fp32 tiles", 1e-5, 2e-3, 1e-6)
+    uniform = _mlii_routes("uniform", witness=True)
+    _mlii_gate("uniform", uniform, "f64 closed form", "f64 autograd", 1e-6, 1e-6, 1e-12)
+    _mlii_gate("uniform", uniform, "closed form", "f64 on fp32 tiles", 1e-5, 2e-3, 1e-6)
+    for route in ("closed form", "autograd"):   # the reading: each fp32 route's error
+        for method, r in uniform.items():
+            (_, g), (_, g64) = r[route], r["f64 autograd"]
+            print(f"[mlii] uniform {method} {route} against f64 autograd: " + " ".join(
+                f"d/d{n} {abs(g[n] - v) / abs(v):.2e}" for n, v in sorted(g64.items())))
+    mem = _mlii_memory()
+    torch.cuda.empty_cache()
+    return dict(normal=normal, uniform=uniform, mem=mem)
 
 
 def _kernel_entry(name, source, replaces, launches, rows, head, worst_abs):
@@ -2350,6 +2505,7 @@ def main() -> int:
     _phase(21, phase21_mlii)
     myrtle = _read_launches("myrtle", ["myrtle", "myrtle_grads"])  # ends here
     _phase("17 (full tier)", phase17_full_tier, pipeline["hyper"])
+    _phase("21 (gradient check)", phase21_mlii_gradient)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

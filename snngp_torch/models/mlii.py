@@ -28,15 +28,22 @@ scalar closed forms for eps; the (a, b) gradients come from autograd of
 Divergences from the JAX package:
 
 - the factor is the lower L of K + eps I, from ``cholesky_ex`` on the
-  device (JAX: the upper factor of its in-place blocked factorization);
+  device, written over S's own storage (JAX: the upper factor of its
+  in-place blocked factorization); both hold one N^2 buffer;
   q = |L^{-1} y|^2, logdet S = 2 sum log diag(L), and a factorization that
   fails puts NaN on the factor's diagonal, so the loss is NaN;
+- alpha^T dK alpha accumulates in float64 (:func:`_quad_host` casts each
+  row chunk; JAX's multiplies the chunk by alpha in float32). The
+  gradient's two terms can cancel (d/db_std on images that share a large
+  mean), and float32 sums there put the closed form farther from float64
+  than autograd through the Gram;
 - ragged last blocks are not padded (the kernels take any N);
 - a diagonal tile passes one block object as both operands, which the fused
   Gram's tangent mode takes as its symmetric launch (each pair of
   K(x_i, x_i) once, mirrored);
 - tiles are copied to pinned host memory as soon as they are launched, so
-  the host writes tile t to its memmap while the device runs tile t + 1.
+  the host writes tile t to its memmap while the device runs tile t + 1
+  (:mod:`snngp_torch.ops.tiled`, shared with ``myrtle_gram_tiled``).
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from torch import nn
 from snngp_torch.models import params as P
 from snngp_torch.models.bijectors import positive
 from snngp_torch.ops.linalg import _nan_where_failed
+from snngp_torch.ops.tiled import assemble_tiles
 from snngp_torch.utils.optim import Adam
 
 __all__ = ["marginal_nll_from_scalars", "gram_cotangent_coeffs",
@@ -97,20 +105,6 @@ def gram_cotangent_coeffs(q, n, ab=None):
     return 1.0 / (2.0 * n_f), c_aa
 
 
-def _start_copy(tiles):
-    """Enqueue the tiles' copies to the host; returns ``(host, event)``.
-    On the card the copies go to pinned memory behind an event that
-    completes with them, before any later launch; CPU tiles pass as they
-    are (event None)."""
-    if tiles[0].device.type == "cpu":
-        return [t.numpy() for t in tiles], None
-    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
-            for t in tiles]
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
-
-
 def tiled_aug_gram(aug_fn: Callable, x, *, block: int,
                    resume_dir: Optional[str] = None, log=None,
                    profile_fn: Optional[Callable] = None
@@ -132,7 +126,8 @@ def tiled_aug_gram(aug_fn: Callable, x, *, block: int,
     (``aug_k.npy``, ``aug_dkw.npy``, ``aug_dkb.npy`` memmaps and the tile
     bitmap ``aug.done.npy``, flushed per tile), so either package resumes
     the other's directory. Tile t + 1 is launched before tile t is written
-    to the host arrays. The last block is ragged, not padded."""
+    to the host arrays (:func:`snngp_torch.ops.tiled.assemble_tiles`). The
+    last block is ragged, not padded."""
     n = x.shape[0]
     todo = [(i, j) for i in range(0, n, block) for j in range(i, n, block)]
 
@@ -143,67 +138,20 @@ def tiled_aug_gram(aug_fn: Callable, x, *, block: int,
             prof_cache[i] = profile_fn(x[i:i + block])
         return prof_cache[i]
 
-    names = ("k", "dkw", "dkb")
-    done = None
-    if resume_dir is None:
-        outs = [np.zeros((n, n), np.float32) for _ in names]
-    else:
+    def launch(i, j):
+        x1 = x[i:i + block]
+        x2 = x1 if i == j else x[j:j + block]       # one object: a symmetric launch
+        if profile_fn is None:
+            return aug_fn(x1, x2)
+        return aug_fn(x1, x2, profiles=(prof(i), prof(j)))
+
+    paths = done_path = None
+    if resume_dir is not None:
         os.makedirs(resume_dir, exist_ok=True)
-        paths = [os.path.join(resume_dir, f"aug_{nm}.npy") for nm in names]
+        paths = [os.path.join(resume_dir, f"aug_{nm}.npy") for nm in ("k", "dkw", "dkb")]
         done_path = os.path.join(resume_dir, "aug.done.npy")
-        if all(os.path.exists(p) for p in paths) and os.path.exists(done_path):
-            outs = [np.lib.format.open_memmap(p, mode="r+") for p in paths]
-            done = np.load(done_path)
-            if outs[0].shape != (n, n) or done.shape[0] != len(todo):
-                raise ValueError(
-                    f"{resume_dir} holds a {outs[0].shape} assembly / "
-                    f"{done.shape[0]}-tile bitmap; expected {(n, n)} / "
-                    f"{len(todo)} — different data or block size")
-            if log is not None:
-                log(f"tiled_aug_gram: resuming, {int(done.sum())}/"
-                    f"{len(todo)} tiles already done")
-        else:
-            outs = [np.lib.format.open_memmap(p, mode="w+", dtype=np.float32,
-                                              shape=(n, n)) for p in paths]
-            done = np.zeros(len(todo), bool)
-            np.save(done_path, done)
-
-    def commit(t, i, j, copy):
-        host, event = copy
-        if event is not None:
-            event.synchronize()
-        for out, tile in zip(outs, host):
-            piece = np.asarray(tile)                     # a pinned tensor or an array
-            h, w = piece.shape
-            out[i:i + h, j:j + w] = piece
-            if j > i:
-                out[j:j + w, i:i + h] = piece.T
-        if done is not None:     # the done bit is set once the tile is on disk
-            for out in outs:
-                out.flush()
-            done[t] = True
-            np.save(done_path, done)
-        if log is not None and (t % 8 == 0 or t == len(todo) - 1):
-            log(f"tiled_aug_gram: tile {t + 1}/{len(todo)}")
-
-    pending = None
-    with torch.no_grad():
-        for t, (i, j) in enumerate(todo):
-            if done is not None and done[t]:
-                continue
-            x1 = x[i:i + block]
-            x2 = x1 if i == j else x[j:j + block]       # one object: a symmetric launch
-            if profile_fn is None:
-                tiles = aug_fn(x1, x2)
-            else:
-                tiles = aug_fn(x1, x2, profiles=(prof(i), prof(j)))
-            copy = _start_copy(tiles)
-            if pending is not None:
-                commit(*pending)
-            pending = (t, i, j, copy)
-        if pending is not None:
-            commit(*pending)
-    return tuple(outs)
+    return tuple(assemble_tiles(todo, launch, (n, n), count=3, mirror=True, paths=paths,
+                                done_path=done_path, log=log, label="tiled_aug_gram"))
 
 
 def _f64_frob(a: np.ndarray, b: np.ndarray, chunk: int = 1 << 22) -> float:
@@ -217,11 +165,12 @@ def _f64_frob(a: np.ndarray, b: np.ndarray, chunk: int = 1 << 22) -> float:
 
 
 def _quad_host(mat: np.ndarray, vec: np.ndarray, chunk: int = 4096) -> float:
-    """vec^T mat vec with float64 accumulation, row-streamed (memmap-safe)."""
+    """vec^T mat vec with float64 accumulation, row-streamed (memmap-safe):
+    each row chunk is cast, so the inner sums are float64 too."""
     v64 = vec.astype(np.float64)
     total = 0.0
     for s in range(0, mat.shape[0], chunk):
-        total += float(v64[s:s + chunk] @ (mat[s:s + chunk] @ vec).astype(np.float64))
+        total += float(v64[s:s + chunk] @ (mat[s:s + chunk].astype(np.float64) @ v64))
     return total
 
 
@@ -246,16 +195,20 @@ def full_gram_mlii_value_and_grad(k, dkw, dkb, y, *, last_w_std, eps, ab=None,
     the bijector).
 
     The factorization and the solves run on ``device`` (default: ``y``'s
-    device if ``y`` is a tensor, else CUDA); the device holds K + eps I, its
-    factor and one [N, panel] S^{-1} panel at a time, which goes to the host
-    for the float64 contractions."""
+    device if ``y`` is a tensor, else CUDA); the device holds K + eps I,
+    factored in its own storage, and one [N, panel] S^{-1} panel at a time,
+    which goes to the host for the float64 contractions."""
     device = torch.device(device) if device is not None else _default_device(y)
     n = k.shape[0]
     y_dev = torch.as_tensor(y, dtype=torch.float32).reshape(-1).to(device)
     with torch.no_grad():
         s = torch.tensor(np.asarray(k), dtype=torch.float32, device=device)   # a copy
         s.diagonal().add_(torch.as_tensor(eps, dtype=torch.float32, device=device))
-        chol = _nan_where_failed(*torch.linalg.cholesky_ex(s))
+        # Factor in place: S is symmetric, so its transpose view is the same
+        # matrix in the column-major layout the factorization writes, and the
+        # lower factor overwrites S's storage (one N^2 buffer, not two).
+        chol = _nan_where_failed(*torch.linalg.cholesky_ex(s.mT, out=(s.mT, torch.empty(
+            (), dtype=torch.int32, device=device))))
         del s
         z = torch.linalg.solve_triangular(chol, y_dev[:, None], upper=False)
         alpha = torch.linalg.solve_triangular(chol.mT, z, upper=True)[:, 0]

@@ -54,7 +54,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -62,6 +61,7 @@ import torch
 
 from snngp_torch.ops import _build
 from snngp_torch.ops.gram import _ACT_T, _ACT_T_PARTIALS, _ACTS
+from snngp_torch.ops.tiled import assemble_tiles
 
 __all__ = ["MYRTLE_GROUPS", "myrtle_var_profiles", "myrtle_profile_tangents",
            "myrtle_gram_plain", "myrtle_gram_tangents_plain", "myrtle_gram_cuda",
@@ -685,63 +685,27 @@ def myrtle_gram_tiled(x1, x2=None, *, depth: int = 5, act: str = "relu", w_std=1
     resumes the other's file). A re-run with the same path skips the
     blocks already done.
 
-    Block t + 1 is launched before block t is copied to the host, so the
-    copy and the resume flush overlap the card's work. Ragged last blocks
-    are not padded (the kernel takes any N)."""
+    Block t + 1 is launched before block t is written to the host array
+    (:func:`snngp_torch.ops.tiled.assemble_tiles`), so the host's write and
+    the resume flush overlap the card's work. Ragged last blocks are not
+    padded (the kernel takes any N)."""
     symmetric = x2 is None
     x2e = x1 if symmetric else x2
     n1, n2 = x1.shape[0], x2e.shape[0]
     todo = [(i, j) for i in range(0, n1, block)
             for j in range(i if symmetric else 0, n2, block)]
 
-    done = None
+    def launch(i, j):
+        # A diagonal block of K(x, x) is K(x_i, x_i): one operand, so the
+        # kernel's symmetric launch.
+        diag = symmetric and i == j
+        return (myrtle_gram(x1[i:i + block], None if diag else x2e[j:j + block],
+                            depth=depth, act=act, w_std=w_std, b_std=b_std,
+                            last_w_std=last_w_std, dtype=dtype),)
+
+    paths = None if resume_path is None else [resume_path]
     done_path = None if resume_path is None else resume_path + ".done.npy"
-    if resume_path is None:
-        out = np.zeros((n1, n2), np.float32)
-    elif os.path.exists(resume_path) and os.path.exists(done_path):
-        out = np.lib.format.open_memmap(resume_path, mode="r+")
-        done = np.load(done_path)
-        if out.shape != (n1, n2) or done.shape[0] != len(todo):
-            raise ValueError(
-                f"resume_path {resume_path} holds a {out.shape} Gram / {done.shape[0]}-block "
-                f"bitmap; expected {(n1, n2)} / {len(todo)}: different data or block size")
-        if log is not None:
-            log(f"myrtle_gram_tiled: resuming, {int(done.sum())}/{len(todo)} blocks "
-                "already done")
-    else:
-        out = np.lib.format.open_memmap(resume_path, mode="w+", dtype=np.float32,
-                                        shape=(n1, n2))
-        done = np.zeros(len(todo), bool)
-        np.save(done_path, done)
-
-    def commit(t, i, j, dev):
-        # The done bit is set only once the block is on disk.
-        piece = dev.cpu().numpy()
-        h, w = piece.shape
-        out[i:i + h, j:j + w] = piece
-        if symmetric and j > i:
-            out[j:j + w, i:i + h] = piece.T
-        if done is not None:
-            out.flush()
-            done[t] = True
-            np.save(done_path, done)
-        if log is not None and (t % 8 == 0 or t == len(todo) - 1):
-            log(f"myrtle_gram_tiled: block {t + 1}/{len(todo)}")
-
-    pending = None
-    with torch.no_grad():
-        for t, (i, j) in enumerate(todo):
-            if done is not None and done[t]:
-                continue
-            # A diagonal block of K(x, x) is K(x_i, x_i): one operand, so the
-            # kernel's symmetric launch.
-            diag = symmetric and i == j
-            dev = myrtle_gram(x1[i:i + block], None if diag else x2e[j:j + block],
-                              depth=depth, act=act, w_std=w_std, b_std=b_std,
-                              last_w_std=last_w_std, dtype=dtype)
-            if pending is not None:
-                commit(*pending)
-            pending = (t, i, j, dev)
-        if pending is not None:
-            commit(*pending)
+    (out,) = assemble_tiles(todo, launch, (n1, n2), mirror=symmetric, paths=paths,
+                            done_path=done_path, log=log, label="myrtle_gram_tiled",
+                            what="block")
     return out

@@ -10,11 +10,13 @@ version.
 Tolerances: the scalar functions rtol 1e-6 (float32 arithmetic on the same
 numbers). ``full_gram_mlii_value_and_grad`` on the same host arrays: loss
 rtol 1e-5; gradients rtol 1e-4 for the Student-t marginal, and for the
-Gaussian marginal 2e-4 against JAX and 1e-4 against a float64 numpy
-reference: the two packages factor the same fp32 matrix with different
-algorithms (JAX a blocked in-place upper factorization, the port LAPACK's
-lower), the condition number of S is ~5e2, and JAX's d/db_std lands 1.4e-4
-from float64 where the port's lands 3e-5. ``mlii_fit_full`` after two Adam
+Gaussian marginal 2e-4 against JAX: the two packages factor the same fp32
+matrix with different algorithms (JAX a blocked in-place upper
+factorization, the port LAPACK's lower), the condition number of S is
+~1.4e3 (JAX's d/db_std lands 1.4e-4 from float64). Against a float64
+numpy closed form on its own tiles the port's gradients are held to rtol
+1e-5, and its alpha^T dK alpha (float64 inner sums, where JAX's are
+float32) to rtol 1e-10. ``mlii_fit_full`` after two Adam
 steps: rtol 1e-4 on w_std, eps and a. Assemblies and resumes: the tiles of
 one package are compared with the same package's tiles at rtol 1e-6; across
 packages at rtol 1e-5.
@@ -114,6 +116,39 @@ def test_value_and_grad_matches_jax(method):
             dk = dk.astype(np.float64)
             want = ((s_inv * dk).sum() - alpha @ dk @ alpha) / (2 * n)
             np.testing.assert_allclose(g_t[name], want, rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("method", ["gp", "tp"])
+def test_value_and_grad_against_float64_on_its_tiles(method):
+    """Every constrained gradient against float64 numpy on the same fp32
+    tiles, dK/deps = I and dK/dlast_w_std = (2 / last) K included."""
+    x, y = _data()
+    k, dkw, dkb = T.tiled_aug_gram(_torch_aug_builder(**HYPER), torch.as_tensor(x), block=32)
+    ab = (A0, B0) if method == "tp" else None
+    _, got = T.full_gram_mlii_value_and_grad(k, dkw, dkb, y, last_w_std=HYPER["last_w_std"],
+                                             eps=EPS0, ab=ab, panel=40, device="cpu")
+    n = k.shape[0]
+    s_inv = np.linalg.inv(k.astype(np.float64) + EPS0 * np.eye(n))
+    alpha = s_inv @ y.astype(np.float64)
+    c_inv, c_aa = T.gram_cotangent_coeffs(float(y @ alpha), n, ab=ab)
+    dks = dict(w_std=dkw, b_std=dkb, eps=np.eye(n), last_w_std=2.0 / HYPER["last_w_std"] * k)
+    for name, dk in dks.items():
+        dk = dk.astype(np.float64)
+        want = c_inv * (s_inv * dk).sum() + c_aa * alpha @ dk @ alpha
+        np.testing.assert_allclose(got[name], want, rtol=1e-5, err_msg=name)
+
+
+def test_quad_host_accumulates_in_float64():
+    """alpha^T dK alpha on a Gram-like fp32 matrix (a large shared part) and
+    a vector whose terms cancel: float64 inner sums (rtol 1e-10; a float32
+    matrix-vector product lands ~3e-4 away)."""
+    rng = np.random.RandomState(3)
+    a = (1.0 + 1e-3 * rng.randn(600, 600)).astype(np.float32)
+    a = (a + a.T) / 2
+    v = rng.randn(600).astype(np.float32)
+    v -= v.mean()
+    want = v.astype(np.float64) @ a.astype(np.float64) @ v.astype(np.float64)
+    np.testing.assert_allclose(T._quad_host(a, v, chunk=256), want, rtol=1e-10)
 
 
 def test_tiled_aug_gram_matches_jax_and_caches_profiles():
