@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of snngp_torch on one NVIDIA card: exact-GP serving and
 ML-II training, sparse variational classification of images with the CNN,
-the WideResNet and the Myrtle NNGP, and the Myrtle Gram -> Cholesky ->
-Student-t pipeline.
+the WideResNet and the Myrtle NNGP, the Myrtle Gram -> Cholesky ->
+Student-t pipeline, the finite-width ensemble and the paper figures.
 
     python3 chip_smoke.py
 
@@ -135,15 +135,29 @@ script exits non-zero:
    versions in float64 (gate: rtol 1e-6), with each fp32 route's error
    against them printed; and the peak device memory of one
    ``full_gram_mlii_value_and_grad`` at N = 8,192 (gate: below 1.5 x S's
-   bytes, the factor written over S).
+   bytes, the factor written over S);
+22. the finite-width ensemble: ``ens tr -m tp -dn synthetic32 -nh 4 -nc 32
+   -nb 250 -e 2`` (the JAX CLI's default widths) with ``-mp highest`` and
+   ``-mp default``, each epoch's seconds, the valid NLL and accuracy (gate:
+   finite; both TF32 flags off again afterwards); ``ens ts`` of the two
+   members on the card and on the CPU (gate: test NLLs within rtol 1e-4 at
+   ``highest``);
+23. the paper figures, ``python -m snngp_torch.examples.paper_figures``
+   at the notebook's sizes (width 512, 500 members in one batch, 10,000
+   SGD steps): each panel's seconds and KS statistic (gate: initial <=
+   0.0607, the 5% critical value at n = 500; last and full <= 0.12); then 8
+   members from one host-drawn init after 200 full-train steps on the card
+   and on the CPU, in float32 and float64 (gate: float32 within 1e-4 of
+   max |f|, float64 within 1e-10).
 
-Six main paths run with the kernels' launch counts set to 0 just before
+Seven main paths run with the kernels' launch counts set to 0 just before
 and read just after: serving (phases 2-3), training (phases 5-6), the
 regression extras (phases 18-20; K1 and no other kernel), CNN
-classification (phases 9-10), WideResNet classification (phases 12-13)
-and Myrtle classification with the pipeline and full-Gram ML-II (phases
-15-17 and 21's pipeline); each fails if a kernel of its path never
-launched. Launches made to compare a kernel with its plain version or
+classification (phases 9-10), WideResNet classification (phases 12-13),
+Myrtle classification with the pipeline and full-Gram ML-II (phases
+15-17 and 21's pipeline), and the ensemble with the figures (phases 22-23,
+which run cuDNN convolutions and cuBLAS products: none of K1-K7 may
+launch there); each fails if a kernel of its path never launched. Launches made to compare a kernel with its plain version or
 with autograd (phases 1, 4, 7, 8, 11 and 14, the gradient checks of
 phases 9, 12 and 15, run just before their windows, and phase 17's
 full-tier comparison and phase 21's gradient check, run just after the
@@ -156,6 +170,7 @@ Exits non-zero without a result when CUDA is not available or the
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -242,6 +257,25 @@ MLII_HYPER = dict(w_std=1.0, b_std=0.1, last_w_std=1.0)   # the pipeline's initi
 MLII_PIPELINE = ["--image-size", "32", "--depth", "5", "--n-train", "256", "--n-test", "64",
                  "--fused", "on", "--fused-block", "128", "--mlii", "2", "--mlii-scope",
                  "full"]
+# Phase 22: ens tr at the JAX CLI's default widths (depth 4, 32 channels,
+# batch 250) on synthetic32, two epochs, at both -mp settings; ens ts of the
+# two members on the card and on the CPU.
+ENS_TRAIN = ["ens", "tr", "-m", "tp", "-dn", "synthetic32", "-nh", "4", "-nc", "32",
+             "-nb", "250", "-e", "2", "-q"]
+ENS_TEST_N = 500
+ENS_RTOL = 1e-4           # card against CPU, test NLL and averaged logits
+# Phase 23: the paper figures at the notebook's sizes (width 512, 500
+# members, 10,000 SGD steps at lr 1e-3), every member in one batch. The 5%
+# critical value of the one-sample KS statistic at n = 500 is 1.358 /
+# sqrt(500) = 0.0607; the trained panels carry an O(1/width) bias at width
+# 512 (RESULTS.md: 0.0815 and 0.0831 in the JAX package), and a wrong mean
+# or covariance lands far past 0.12.
+FIGURES = ["--device", "cuda", "--ensemble-size", "500", "--train-steps", "10000",
+           "--map-batch", "500"]
+KS_INITIAL_MAX, KS_TRAINED_MAX = 0.0607, 0.12
+# Eight fully trained members from one host-drawn init, 200 steps, on the card
+# and on the CPU, in float32 and in float64.
+FIG_CHECK_MEMBERS, FIG_CHECK_STEPS, FIG_CHECK_SEED = 8, 200, 10
 
 
 def _sync():
@@ -2419,6 +2453,187 @@ def phase21_mlii_gradient():
     return dict(normal=normal, uniform=uniform, mem=mem)
 
 
+# -- the finite-width ensemble and the paper figures (no kernel of K1-K7) -------------
+
+@contextlib.contextmanager
+def _log_times(records):
+    """Records (host time, line) of every ``Logger.log`` call: ``ens tr``
+    logs an epoch's train NLL after a host read of its loss, so the time
+    between two lines is device time."""
+    from snngp_torch.utils.training import Logger
+    original = Logger.log
+
+    def log(self, *args, **kw):
+        records.append((time.perf_counter(), "".join(map(str, args))))
+        return original(self, *args, **kw)
+
+    Logger.log = log
+    try:
+        yield
+    finally:
+        Logger.log = original
+
+
+def _epoch_seconds(records):
+    """epoch -> seconds of its training steps (from the line before its
+    ``Train NLL`` line, the last validation's, to that line)."""
+    out = {}
+    for (t0, _), (t1, line) in zip(records, records[1:]):
+        if "Train NLL:" in line:
+            out[int(line.split("]")[0].strip("[ "))] = t1 - t0
+    return out
+
+
+def _tf32_flags():
+    import torch
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+def _ens_test(dirs, device, precision="highest"):
+    """``ens ts`` of the members ``dirs`` through its entry point: (NLL,
+    accuracy in %)."""
+    import argparse
+
+    import torch
+    import snngp_torch.cli as cli
+
+    parser = argparse.ArgumentParser()
+    cli.add_subparser(parser.add_subparsers(dest="command", required=True))
+    args = parser.parse_args(["ens", "ts", "-dn", "synthetic32", "-cd", *dirs, "-nd",
+                              str(ENS_TEST_N), "-mp", precision, "-q"])
+    args.device = torch.device(device)
+    return args.func(args)
+
+
+def _member_logits(dirs, device):
+    """The members' averaged logits on ENS_TEST_N test images, as ``ens ts``
+    computes them."""
+    import torch
+    from snngp_torch.cli import ensemble
+    from snngp_torch.data.classification import get_test_dataset
+
+    (x, _), _ = get_test_dataset("synthetic32", num_data=ENS_TEST_N, onehot=True)
+    xb = torch.as_tensor(x.astype(np.float32), device=device)
+    members = [ensemble.load_member(d, device) for d in dirs]
+    with torch.no_grad():
+        return torch.stack([layer.apply(p, xb) for layer, p in members]).mean(0).cpu().numpy()
+
+
+def phase22_ensemble():
+    """``ens tr`` at the JAX defaults' full width on the card, with ``-mp
+    highest`` and ``-mp default`` (gate: finite valid NLLs; both TF32 flags
+    off again after each); ``ens ts`` of the two members on the card and on
+    the CPU (gate: test NLLs within rtol ENS_RTOL at ``highest``), and their
+    averaged logits (gate: within ENS_RTOL of max |logit|: synthetic32's
+    classes separate, so the trained members' NLL rounds to 0 in fp32 and
+    says little)."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        dirs = []
+        for precision in ("highest", "default"):
+            records = []
+            with _log_times(records):
+                wall = _timed(lambda: _run_cli(["--device", "cuda", *ENS_TRAIN, "-mp", precision,
+                                                "-cr", tmp, "-cn", precision]))[1]
+            if _tf32_flags() != (False, False):
+                raise AssertionError(f"ens tr -mp {precision} left TF32 {_tf32_flags()}")
+            epochs = _epoch_seconds(records)
+            last = [line for _, line in records if "Valid NLL:" in line][-1]
+            nll = float(last.split("Valid NLL:")[1].split()[0])
+            acc = float(last.split("Valid ACC:")[1].split()[0])
+            if not math.isfinite(nll):
+                raise AssertionError(f"ens tr -mp {precision}: valid NLL {nll}")
+            print(f"[ens] tr -mp {precision}: {wall:.2f} s, epochs " + ", ".join(
+                f"{e}: {s:.3f} s" for e, s in sorted(epochs.items()))
+                + f"; best valid NLL {nll:.6f}, ACC {acc:.2f}")
+            out[precision] = dict(wall=wall, epochs=epochs, nll=nll, acc=acc)
+            dirs.append(str(Path(tmp) / precision))
+        (cuda, t_cuda) = _timed(lambda: _ens_test(dirs, "cuda"))
+        t0 = time.perf_counter()
+        cpu = _ens_test(dirs, "cpu")
+        t_cpu = time.perf_counter() - t0
+        fast = _ens_test(dirs, "cuda", "default")
+        print(f"[ens] ts of 2 members, {ENS_TEST_N} images: card {cuda} ({t_cuda:.2f} s), "
+              f"CPU {cpu} ({t_cpu:.2f} s), card -mp default {fast}")
+        if abs(cuda[0] - cpu[0]) > ENS_RTOL * abs(cpu[0]):
+            raise AssertionError(f"ens ts NLL: card {cuda[0]} against CPU {cpu[0]}")
+        if _tf32_flags() != (False, False):
+            raise AssertionError(f"ens ts -mp default left TF32 {_tf32_flags()}")
+        logits = {device: _member_logits(dirs, device) for device in ("cuda", "cpu")}
+        scale = float(np.max(np.abs(logits["cpu"])))
+        logit_err = float(np.max(np.abs(logits["cuda"] - logits["cpu"]))) / scale
+        print(f"[ens] averaged logits, card against CPU: {logit_err:.2e} of max|logit| "
+              f"{scale:.2f}")
+        if logit_err > ENS_RTOL:
+            raise AssertionError(f"ens logits: card {logit_err} from the CPU's")
+    out["ts"] = dict(cuda=cuda, cpu=cpu, default=fast, logit_err=logit_err)
+    return out
+
+
+def phase23_figures():
+    """The paper figures at the notebook's sizes on the card: each panel's
+    seconds and KS statistic (gate: initial <= KS_INITIAL_MAX, last and full
+    <= KS_TRAINED_MAX)."""
+    from snngp_torch.examples import paper_figures as fig
+
+    out = fig.main([*FIGURES, "--outdir", str(REPO / "build" / "figures")])
+    panels = out["panels"]
+    for part, panel in panels.items():
+        print(f"[figures] {part}: {panel['seconds']:.2f} s, KS {panel['ks']:.4f} at test "
+              f"idx {panel['idx']}")
+    if panels["initial"]["ks"] > KS_INITIAL_MAX:
+        raise AssertionError(f"initial KS {panels['initial']['ks']} > {KS_INITIAL_MAX}")
+    for part in ("last", "full"):
+        if panels[part]["ks"] > KS_TRAINED_MAX:
+            raise AssertionError(f"{part} KS {panels[part]['ks']} > {KS_TRAINED_MAX}")
+    return {part: dict(seconds=p["seconds"], ks=p["ks"]) for part, p in panels.items()}
+
+
+def phase23_members_check():
+    """FIG_CHECK_MEMBERS fully trained members from one host-drawn init (a
+    CPU generator and the host sigma draws), FIG_CHECK_STEPS steps, on the
+    card and on the CPU, in float32 and in float64. Gates, relative to max
+    |f| of the CPU's float64 run: the card's float32 within 1e-4 of the
+    CPU's float32; the card's float64 within 1e-10 of the CPU's. Each
+    float32 run's distance from float64 is printed (it includes the
+    rounding of the sigmas to float32)."""
+    import torch
+    from snngp_torch.examples import paper_figures as fig
+
+    params = fig.init_members(torch.Generator().manual_seed(FIG_CHECK_SEED),
+                              FIG_CHECK_MEMBERS, fig.WIDTH)
+    sigmas = fig.sample_sigmas(FIG_CHECK_SEED, 1.0, 1.0, FIG_CHECK_MEMBERS)
+    samples = {}
+    for device in ("cuda", "cpu"):
+        for dtype in (torch.float32, torch.float64):
+            data = tuple(a.astype(np.float64 if dtype == torch.float64 else np.float32)
+                         for a in fig._make_dataset())
+            p = tuple(tuple(t.to(dtype) for t in layer) for layer in params)
+            r, wall = _timed(lambda: fig.draw_corr(
+                "full", alpha=1.0, beta=1.0, ensemble_size=FIG_CHECK_MEMBERS,
+                train_steps=FIG_CHECK_STEPS, map_batch=FIG_CHECK_MEMBERS, device=device,
+                dataset=data, sigmas=sigmas, params=p))
+            samples[device, str(dtype)[6:]] = r["samples"].astype(np.float64)
+            print(f"[figures] {FIG_CHECK_MEMBERS} members, {FIG_CHECK_STEPS} full steps, "
+                  f"{device} {str(dtype)[6:]}: {wall:.2f} s")
+    ref = samples["cpu", "float64"]
+    scale = np.max(np.abs(ref))
+    err = {key: float(np.max(np.abs(s - ref)) / scale) for key, s in samples.items()}
+    card_cpu32 = float(np.max(np.abs(samples["cuda", "float32"] - samples["cpu", "float32"]))
+                       / scale)
+    print(f"[figures] against the CPU's float64, of max|f| {scale:.4f}: card float64 "
+          f"{err['cuda', 'float64']:.2e}, card float32 {err['cuda', 'float32']:.2e}, CPU "
+          f"float32 {err['cpu', 'float32']:.2e}; card float32 against CPU float32 "
+          f"{card_cpu32:.2e}")
+    if card_cpu32 > 1e-4:
+        raise AssertionError(f"float32 members: card {card_cpu32} from the CPU")
+    if err["cuda", "float64"] > 1e-10:
+        raise AssertionError(f"float64 members: card {err['cuda', 'float64']} from the CPU")
+    return dict(err=err, card_cpu32=card_cpu32)
+
+
 def _kernel_entry(name, source, replaces, launches, rows, head, worst_abs):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": worst_abs,
@@ -2506,6 +2721,13 @@ def main() -> int:
     myrtle = _read_launches("myrtle", ["myrtle", "myrtle_grads"])  # ends here
     _phase("17 (full tier)", phase17_full_tier, pipeline["hyper"])
     _phase("21 (gradient check)", phase21_mlii_gradient)
+    _reset_launches()                     # the ensemble and the figures start here
+    _phase(22, phase22_ensemble)
+    _phase(23, phase23_figures)
+    _phase("23 (members check)", phase23_members_check)
+    finite = _read_launches("ensemble + figures", [])   # end here
+    if any(finite.values()):
+        raise AssertionError(f"the ensemble and the figures launched {finite}; expected none")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

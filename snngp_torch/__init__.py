@@ -6,10 +6,11 @@ module for module: each ``snngp_torch.<path>`` is the counterpart of
 ``snngp.<path>``. This covers exact-GP regression (serving and ML-II
 training) and sparse variational classification of images:
 
-- ``snngp_torch.nn``      the NNGP kernel tier (Dense / Conv / ReLU / Erf /
-                          Flatten / residual combinators) and the MLP,
+- ``snngp_torch.nn``      the NNGP / NTK kernel tier (Dense / Conv / ReLU /
+                          Erf / Flatten / pooling / residual combinators)
+                          with its finite-width networks, and the MLP,
                           dense-ResNet, CNN and conv-WideResNet builders,
-                          which route Gram blocks to the fused Grams of
+                          which route NNGP Gram blocks to the fused Grams of
                           ``snngp_torch.ops``.
 - ``snngp_torch.ops``     Cholesky / eigh linear algebra, the marginal
                           likelihoods, the Student-t sampler, the softmax
@@ -30,7 +31,8 @@ training) and sparse variational classification of images:
 - ``snngp_torch.data``    the regression and classification datasets and
                           the host resize (numpy copies of ``snngp.data``;
                           importing ``snngp`` pulls in JAX).
-- ``snngp_torch.cli``     ``reg`` and ``cls`` x ``tr`` / ``ts`` / ``pr``
+- ``snngp_torch.cli``     ``reg`` and ``cls`` x ``tr`` / ``ts`` / ``pr``, ``reg
+                          fd`` and ``ens`` x ``tr`` / ``ts``
                           (``python -m snngp_torch``).
 - ``snngp_torch.sklearn`` ``SNNGPRegressor``, ``SNNGPClassifier`` (imported
                           on demand).

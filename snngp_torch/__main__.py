@@ -1,5 +1,6 @@
 """CLI entry point: ``python -m snngp_torch [--device DEV] {reg,cls} {tr,ts,pr}
-...`` (and ``reg fd``) (counterpart of the JAX package's ``run.py``).
+...``, ``reg fd`` and ``ens {tr,ts}`` (counterpart of the JAX package's
+``run.py``).
 
 ``--device`` (default ``cuda``) names the torch device every tensor lives
 on; it stands where ``run.py`` has ``--devices``. Asking for CUDA on a

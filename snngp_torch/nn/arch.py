@@ -1,8 +1,10 @@
 """Architecture builders (counterpart of ``snngp/nn/arch.py``: the MLP,
 dense-ResNet, CNN and conv-WideResNet networks).
 
-``get_*_layer`` compose the layer tier; ``get_*_kernel`` return a
-``kernel_fn(x1, x2=None, get="nngp")`` that sends every 2-D NNGP block to
+``get_*_layer`` compose the layer tier (its kernel recursion, and the
+finite-width ``init`` / ``apply`` at the ``width`` / ``channels`` / ``k``
+they take); ``get_*_kernel`` return a ``kernel_fn(x1, x2=None, get="nngp")``
+that sends every 2-D NNGP block to
 the fused Gram (:mod:`snngp_torch.ops.gram`), every CNN block of images
 with at most 1,024 pixels to the fused conv Gram
 (:mod:`snngp_torch.ops.conv_gram`) and every such WideResNet block to the
@@ -10,7 +12,9 @@ fused WideResNet Gram (:mod:`snngp_torch.ops.resnet_conv_gram`), and every
 Myrtle block of square power-of-two images from 8 x 8 to 32 x 32 to the
 fused Myrtle Gram (:mod:`snngp_torch.ops.myrtle_gram`). Each launches its
 CUDA kernels for CUDA tensors and runs their plain versions for CPU
-tensors. There is no size threshold on N: the JAX package's
+tensors. The fused Grams take ``get="nngp"`` only: ``get="ntk"`` and tuple
+requests go to the layer tier (the Myrtle kernel's to the full tier), as in
+the JAX package. There is no size threshold on N: the JAX package's
 ``SNNGP_PALLAS_MIN_N`` amortized TPU compile latency, which a prebuilt CUDA
 kernel does not have (nor the Myrtle dispatch's 2 GB full-tier threshold).
 """

@@ -27,7 +27,6 @@ fused Gram does not take.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import numpy as np
@@ -37,8 +36,6 @@ import torch.nn.functional as F
 __all__ = ["FullKernelState", "full_input_state", "ConvF", "ActF", "AvgPoolF",
            "GlobalAvgPoolF", "FlattenF", "DenseF", "serial_f", "full_kernel_fn",
            "get_myrtle_kernel", "scan_tiled_gram"]
-
-_TINY = 1e-30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,23 +108,12 @@ def _diag_var(cov):
     return torch.einsum("nijij->nij", cov)
 
 
-def _relu_tdot(nngp, v1, v2):
-    """E[relu'(u) relu'(v)] = (pi - theta) / (2 pi)."""
-    s = torch.sqrt(torch.clamp(v1 * v2, min=_TINY))
-    return (math.pi - torch.acos(torch.clamp(nngp / s, -1.0, 1.0))) / (2.0 * math.pi)
-
-
-def _erf_tdot(nngp, v1, v2):
-    """E[erf'(u) erf'(v)] = (4/pi) / sqrt((1+2v1)(1+2v2) - 4K^2)."""
-    det = (1.0 + 2.0 * v1) * (1.0 + 2.0 * v2) - 4.0 * nngp * nngp
-    return (4.0 / math.pi) / torch.sqrt(torch.clamp(det, min=_TINY))
-
-
 def ActF(act: str):
-    """The dual activation on every state; ``_relu_t`` is the layer tier's
-    arccos kernel with its analytic derivatives (finite at c = +-1, which
-    the same-input covariance meets on its spatial diagonal)."""
-    from snngp_torch.nn.layers import _erf_t, _relu_t
+    """The dual activation on every state, and its derivative's expectation
+    on the NTK: the layer tier's closed forms (``_relu_t`` carries the
+    analytic derivatives, finite at c = +-1, which the same-input covariance
+    meets on its spatial diagonal)."""
+    from snngp_torch.nn.layers import _erf_t, _erf_tdot, _relu_t, _relu_tdot
     t_fn = {"relu": _relu_t, "erf": _erf_t}[act]
     td_fn = {"relu": _relu_tdot, "erf": _erf_tdot}[act]
 

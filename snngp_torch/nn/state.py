@@ -8,7 +8,8 @@
 and j at the same pixel (the matched-pixel, "diagonal spatial" tier): convs
 with i.i.d. weights couple only equal filter offsets across the two inputs,
 so the recursion closes on this diagonal, and a Flatten + Dense readout is
-exact on it. The NTK field is not ported; ``ntk`` is carried as ``None``.
+exact on it. ``ntk`` carries the Neural Tangent Kernel through the same
+recursion when it is asked for (the paper-figure example's trained panels).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ __all__ = ["KernelState", "input_state"]
 @dataclasses.dataclass(frozen=True)
 class KernelState:
     """nngp: [N1, N2] or [N1, N2, H, W]; var1: [N1] or [N1, H, W]; var2:
-    [N2] or [N2, H, W]; ntk: always None in this tier."""
+    [N2] or [N2, H, W]; ntk: shaped like nngp, or None when not asked for."""
 
     nngp: torch.Tensor
     var1: torch.Tensor
@@ -36,10 +37,12 @@ class KernelState:
         return self.nngp.ndim == 4
 
 
-def input_state(x1: torch.Tensor, x2: Optional[torch.Tensor]) -> KernelState:
+def input_state(x1: torch.Tensor, x2: Optional[torch.Tensor], *,
+                ntk: bool = False) -> KernelState:
     """Layer-0 state: the per-feature second moment ``x1 . x2 / D`` (for
     images, the channel mean at each matched pixel), the NTK
-    parameterization of ``stax.Dense`` / ``stax.Conv``."""
+    parameterization of ``stax.Dense`` / ``stax.Conv``; with ``ntk`` the
+    NTK starts at zeros shaped like ``nngp``."""
     if x2 is None:
         x2 = x1
     if x1.ndim == 2:
@@ -53,4 +56,5 @@ def input_state(x1: torch.Tensor, x2: Optional[torch.Tensor]) -> KernelState:
         var2 = torch.mean(x2 * x2, dim=-1)
     else:
         raise ValueError(f"inputs must be [N, D] or [N, H, W, C]; got {tuple(x1.shape)}")
-    return KernelState(nngp=nngp, var1=var1, var2=var2)
+    return KernelState(nngp=nngp, var1=var1, var2=var2,
+                       ntk=torch.zeros_like(nngp) if ntk else None)

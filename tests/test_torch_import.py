@@ -21,7 +21,9 @@ MODULES = ["snngp_torch", "snngp_torch.__main__", "snngp_torch.cli.regression",
            "snngp_torch.data.resize", "snngp_torch.ops.resnet_conv_gram",
            "snngp_torch.nn.full", "snngp_torch.ops.myrtle_gram",
            "snngp_torch.examples.cifar_myrtle", "snngp_torch.models.mlii",
-           "snngp_torch.cli.find", "snngp_torch.examples.online_regression"]
+           "snngp_torch.cli.find", "snngp_torch.examples.online_regression",
+           "snngp_torch.cli.ensemble", "snngp_torch.nn.finite",
+           "snngp_torch.examples.paper_figures"]
 
 
 def _run(code):

@@ -50,6 +50,8 @@ def test_input_state_matches():
         np.testing.assert_allclose(to_numpy(getattr(got, field)),
                                    np.asarray(getattr(want, field)), rtol=1e-6)
     assert got.ntk is None
+    with_ntk = t_input_state(*to_torch(x1, x2), ntk=True)
+    np.testing.assert_array_equal(to_numpy(with_ntk.ntk), np.zeros((9, 7), np.float32))
 
 
 @pytest.mark.parametrize("layer", ["Relu", "Erf"])
@@ -78,9 +80,17 @@ def test_fanout_parallel_faninsum_identity():
 
 
 def test_kernel_fn_rejects_unported_requests():
+    """The NTK, once unported, now matches the JAX package's (atol 2e-6, the
+    MLP bar above); an unknown ``get`` and inputs that are neither [N, D]
+    nor [N, H, W, C] raise ``ValueError``, as in JAX."""
     (x,) = randn(14, (4, 3))
     kfn = TL.kernel_fn_of(tarch.get_mlp_layer(1))
-    with pytest.raises(NotImplementedError):
-        kfn(to_torch(x), get="ntk")
+    want = JL.kernel_fn_of(jarch.get_mlp_layer(1))(x, None, get="ntk")
+    np.testing.assert_allclose(to_numpy(kfn(to_torch(x), get="ntk")), np.asarray(want),
+                               atol=2e-6)
+    with pytest.raises(ValueError):
+        kfn(to_torch(x), get="nngp_diag")
+    with pytest.raises(ValueError):
+        kfn(to_torch(x), get=("nngp", "cov"))
     with pytest.raises(ValueError):     # neither [N, D] nor [N, H, W, C]
         kfn(torch.zeros(2, 4, 4))
