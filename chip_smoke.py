@@ -2,7 +2,8 @@
 """GPU smoke run of snngp_torch on one NVIDIA card: exact-GP serving and
 ML-II training, sparse variational classification of images with the CNN,
 the WideResNet and the Myrtle NNGP, the Myrtle Gram -> Cholesky ->
-Student-t pipeline, the finite-width ensemble and the paper figures.
+Student-t pipeline, the memory-lean fit and the device mesh of exact-GP
+regression, the finite-width ensemble and the paper figures.
 
     python3 chip_smoke.py
 
@@ -148,20 +149,45 @@ script exits non-zero:
    0.0607, the 5% critical value at n = 500; last and full <= 0.12); then 8
    members from one host-drawn init after 200 full-train steps on the card
    and on the CPU, in float32 and float64 (gate: float32 within 1e-4 of
-   max |f|, float64 within 1e-10).
+   max |f|, float64 within 1e-10);
+24. the memory-lean fit, ``fit_spr(memory_lean=True)``: at phase 2's size
+   against phase 2's float64 requests (gate: within 2x the default fp32
+   fit's error); at N = 110,000, D = 16 (phase 2's model; first K1's
+   symmetric launch there, 1.2e10 outputs, against its plain version on 64
+   rows, gate 1e-5, before the window): its peak device memory (gate: <=
+   1.10 x 4 N^2 bytes), the float64 backward error of alpha from K1 row
+   panels (gate: <= 1e-5), one 1,000-point request from the upper factor
+   (gate: peak above the factor <= 10% of its bytes) and the
+   Weinstein-Aronszajn witness of ``inplace_blocked_cholesky`` (K = I + X
+   X^T / 128, gate: logdet rtol 1e-4);
+25. the mesh of exact-GP regression, four shards of ``cuda:0`` (and 2 x 2):
+   ``sharded_gram`` at N = 32,768, D = 64 against the single-device K1 Gram
+   (gate: 1e-5 of max|K|), ``cyclic_cholesky`` and ``distributed_cholesky``
+   against cuSOLVER's factor (gates: 1e-5 of max|L|, a float64 backward
+   error max|L L^T - S| within 2x cuSOLVER's own, logdet rtol 1e-8), ``python -m
+   snngp_torch.examples.mesh_pipeline`` at N = 32,768 (its parity gate
+   against one device), ``SPR.loss``'s gradients on the mesh at phase 5's
+   size (gate: within 2x the single-device fp32 error against float64) and
+   ``distributed_mlii_value_and_grad`` at 256 images through K7's tangent
+   mode against ``full_gram_mlii_value_and_grad`` and against float64 on
+   its own row panels (gate: loss rtol 1e-5, gradients rtol 2e-3, atol
+   1e-6). The shards run one after another: these times are not a
+   multi-card time.
 
-Seven main paths run with the kernels' launch counts set to 0 just before
+Eight main paths run with the kernels' launch counts set to 0 just before
 and read just after: serving (phases 2-3), training (phases 5-6), the
 regression extras (phases 18-20; K1 and no other kernel), CNN
 classification (phases 9-10), WideResNet classification (phases 12-13),
 Myrtle classification with the pipeline and full-Gram ML-II (phases
-15-17 and 21's pipeline), and the ensemble with the figures (phases 22-23,
+15-17 and 21's pipeline), the lean and mesh regression (phases 24-25: K1,
+K2 and K7's tangent mode) and the ensemble with the figures (phases 22-23,
 which run cuDNN convolutions and cuBLAS products: none of K1-K7 may
 launch there); each fails if a kernel of its path never launched. Launches made to compare a kernel with its plain version or
 with autograd (phases 1, 4, 7, 8, 11 and 14, the gradient checks of
 phases 9, 12 and 15, run just before their windows, and phase 17's
 full-tier comparison and phase 21's gradient check, run just after the
-Myrtle window) are not counted.
+Myrtle window, and the references of phases 24-25, run before theirs)
+are not counted.
 Each phase prints its seconds. The line before the last is one JSON object
 describing the kernels; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when CUDA is not available or the
@@ -276,6 +302,28 @@ KS_INITIAL_MAX, KS_TRAINED_MAX = 0.0607, 0.12
 # Eight fully trained members from one host-drawn init, 200 steps, on the card
 # and on the CPU, in float32 and in float64.
 FIG_CHECK_MEMBERS, FIG_CHECK_STEPS, FIG_CHECK_SEED = 8, 200, 10
+# Phase 24: the memory-lean fit at N = 110,000 (phase 2's model; a 48.4 GB
+# fp32 Gram, the size past which the default fit's ~4 N^2 bytes leave an
+# 80 GB card), its peak device memory against 4 N^2 bytes, the float64
+# backward error of alpha from K1 row panels, one request from the upper
+# factor, and the Weinstein-Aronszajn witness K = I + X X^T / r at the same N,
+# whose logdet is an [r, r] float64 computation.
+LEAN_N, LEAN_ROWS, LEAN_PANEL = 110_000, 64, 1024
+LEAN_PEAK = 1.10           # x 4 N^2 bytes
+LEAN_BACKWARD = 1e-5       # backward error of alpha (n u = 6.6e-3 at N = 110,000)
+WA_R, WA_RTOL = 128, 1e-4
+# Phase 25: four shards of cuda:0 (and 2 x 2): the sharded Gram and the
+# factorizations at N = 32,768, D = 64 (the mesh pipeline's 8 x 8 images),
+# S = K + 10 I (the pipeline's eps, condition number ~1e3, where two fp32
+# factorization orders stay within its mean / NLL parity bars), then
+# SPR.loss at phase 5's size and full-Gram ML-II at 256 images.
+MESH_SHARDS, MESH_N, MESH_D, MESH_EPS, MESH_BLOCK = 4, 32_768, 64, 10.0, 2048
+MESH_LOGDET_RTOL = 1e-8
+MESH_FACTOR_RTOL = 1e-5   # max|L_mesh - L_cuSOLVER| / max|L_cuSOLVER|
+MESH_BACKWARD_X = 2.0     # max|L L^T - S| of a mesh factor, over cuSOLVER's own
+MESH_PIPELINE = ["--devices", str(MESH_SHARDS), "--n-train", str(MESH_N), "--n-test", "256",
+                 "--image-size", "8", "--eps", str(MESH_EPS)]
+MESH_MLII_N = 256         # full-Gram ML-II on the mesh: standard-normal images
 
 
 def _sync():
@@ -933,7 +981,7 @@ def phase2_serving(data):
                                  f"above 2x the plain fp32 error ({bar:.3e})")
     if launched != expected:
         raise AssertionError(f"kernel launched {launched} times, expected {expected}")
-    return timings, errs
+    return timings, errs, (mean64, var64)
 
 
 def _run_cli(argv):
@@ -1076,6 +1124,7 @@ def phase5_training(data):
     if not errs["kernel"] <= bar:
         raise AssertionError(f"kernel-path gradient error {errs['kernel']:.3e} above 2x "
                              f"the plain fp32 error ({bar:.3e})")
+    gradients = dict(g64=g64, kernel_err=errs["kernel"])
 
     X = x * 1.0
     y_raw = y * y_std + y_mean
@@ -1116,7 +1165,8 @@ def phase5_training(data):
         raise AssertionError("predictions not finite / std not positive")
     _warm_steps(reg.model_)
     _profile_step(reg.model_)
-    return dict(errs=errs, steps_ms=steps, fit_s=fit_s, losses=losses.tolist())
+    return dict(errs=errs, steps_ms=steps, fit_s=fit_s, losses=losses.tolist(),
+                gradients=gradients)
 
 
 def _warm_steps(model, n=5):
@@ -2453,6 +2503,386 @@ def phase21_mlii_gradient():
     return dict(normal=normal, uniform=uniform, mem=mem)
 
 
+# -- memory-lean fit and the mesh (exact-GP regression) ---------------------------------
+
+def _peak_since(base):
+    import torch
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _reset_peak():
+    """Empty the cache, reset the peak; returns the bytes allocated now."""
+    import torch
+    _sync()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _lean_data():
+    """Phase 2's data recipe at LEAN_N points: x [N, 16] standard normal,
+    standardized targets, one REQUEST_SIZE-point request."""
+    rng = np.random.RandomState(24)
+    x = rng.randn(LEAN_N, SERVE_D).astype(np.float32)
+    u = rng.randn(SERVE_D) / math.sqrt(SERVE_D)
+    y = np.sin(2.0 * x @ u) + 0.5 * np.cos(x[:, 0]) + 0.1 * rng.randn(LEAN_N)
+    x_req = rng.randn(REQUEST_SIZE, SERVE_D).astype(np.float32)
+    y_mean, y_std = y.mean(), y.std()
+    return x, ((y - y_mean) / y_std).astype(np.float32), x_req, y_mean, y_std
+
+
+def phase24_k1_rows(lean):
+    """Phase 24's comparison, run before its launch window: K1's symmetric
+    launch at N = LEAN_N (1.2e10 outputs, past 2^31) against its plain
+    version on LEAN_ROWS sampled rows (the first and last among them);
+    gate: KERNEL_REL_TOL of max |K| on those rows."""
+    import torch
+    from snngp_torch.ops import gram as G
+
+    x, y, _, y_mean, y_std = lean
+    model = _model(x, y, y_mean, y_std, fused=True, dtype=torch.float32)
+    (gram, t) = _timed(lambda: model._gram(model.kernel.get_kernel_fn()))
+    rows = np.unique(np.r_[0, LEAN_N - 1, np.random.RandomState(240).choice(
+        LEAN_N, LEAN_ROWS - 2, replace=False)])
+    idx = torch.as_tensor(rows, device="cuda")
+    got = gram[idx].double()
+    del gram
+    torch.cuda.empty_cache()       # no later allocation may split the freed 45 GiB
+    w, b, last = (v.detach() for v in model.kernel.get_params())
+    xd = model.x_data
+    vs = G.mlp_var_stack(xd, DEPTH, "relu", w, b)
+    scales = torch.stack([w * w, b * b, last * last,
+                          torch.tensor(1.0 / SERVE_D, device="cuda")])
+    want = G.gram_plain(xd[idx], xd, vs[:, idx], vs, scales, depth=DEPTH, act="relu",
+                        mode="mlp").double()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"[lean] K1 at N={LEAN_N} (symmetric launch, {LEAN_N ** 2:.3e} outputs): "
+          f"{t:.3f} s; {len(rows)} rows against the plain version: rel err {err:.3e}")
+    if not err <= KERNEL_REL_TOL:
+        raise AssertionError(f"K1 rows at N={LEAN_N}: error {err:.3e}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(gram_s=t, rows_err=err)
+
+
+def _requests(fitted, x_req):
+    import torch
+    xs = torch.as_tensor(x_req, device="cuda")
+    out = [fitted.predict(xs[i * REQUEST_SIZE:(i + 1) * REQUEST_SIZE], batch=PREDICT_BATCH)
+           for i in range(REQUESTS)]
+    return torch.cat([m for m, _ in out]), torch.cat([v for _, v in out])
+
+
+def _backward_error(model, fitted):
+    """max |(K + reg I) alpha - y| / (max row sum |K + reg I| max |alpha| +
+    max |y|), in float64, with K recomputed in LEAN_PANEL-row panels by K1
+    (x's rows against all of x); reg is the fit's eps mean(diag K)."""
+    import torch
+    from snngp_torch.models import params as P
+
+    x, y = model.x_data, model.y_data.double()
+    alpha = fitted.state["alpha"][:, 0].double()
+    kfn = model.kernel.get_kernel_fn()
+    kalpha = torch.empty_like(alpha)
+    rowsum = torch.empty_like(alpha)
+    trace = 0.0
+    for r0 in range(0, x.shape[0], LEAN_PANEL):
+        panel = model.kernel.K(kfn, x[r0:r0 + LEAN_PANEL], x).double()
+        kalpha[r0:r0 + panel.shape[0]] = panel @ alpha
+        rowsum[r0:r0 + panel.shape[0]] = panel.abs().sum(1)
+        trace += panel.diagonal(offset=r0).sum().item()
+        del panel
+    reg = P.constrained_read(model.eps, model.bij).item() * trace / x.shape[0]
+    resid = (kalpha + reg * alpha - y).abs().max().item()
+    scale = (rowsum + reg).max().item() * alpha.abs().max().item() + y.abs().max().item()
+    return resid / scale
+
+
+def phase24_lean(data, ref64, default_errs, lean):
+    """The memory-lean fit: at phase 2's N against phase 2's float64
+    requests (gate: mean and variance errors within 2x the default fp32
+    fit's); at N = LEAN_N its peak device memory (gate: <= LEAN_PEAK x 4
+    N^2 bytes), its backward error (gate: <= LEAN_BACKWARD), one request
+    from the upper factor (gate: finite, positive variances; peak above the
+    factor <= 10% of its bytes); the Weinstein-Aronszajn witness of
+    ``inplace_blocked_cholesky`` at N = LEAN_N (gate: logdet rtol WA_RTOL)."""
+    import torch
+    from snngp_torch.models import fit_spr
+    from snngp_torch.parallel.cholesky import inplace_blocked_cholesky
+
+    x, y, x_req, y_mean, y_std = data
+    model = _model(x, y, y_mean, y_std, fused=True, dtype=torch.float32)
+    fitted, t_fit = _timed(lambda: fit_spr(model, memory_lean=True, t_jitter=SERVE_T_JITTER))
+    mean, var = _requests(fitted, x_req)
+    mean64, var64 = ref64
+
+    def err(a, ref_):
+        return ((a.double() - ref_).abs().max() / ref_.abs().max()).item()
+
+    errs = (err(mean, mean64), err(var, var64))
+    print(f"[lean] N={SERVE_N}: fit {t_fit:.4f} s; against phase 2's float64: mean rel err "
+          f"{errs[0]:.3e} (default fp32 fit {default_errs[0]:.3e}), var rel err "
+          f"{errs[1]:.3e} (default {default_errs[1]:.3e})")
+    for i, what in enumerate(("mean", "var")):
+        if not errs[i] <= 2.0 * max(default_errs[i], 1e-6):
+            raise AssertionError(f"lean {what} error {errs[i]:.3e} above 2x the default "
+                                 f"fit's {default_errs[i]:.3e}")
+    del model, fitted, mean, var
+
+    xl, yl, xl_req, yl_mean, yl_std = lean
+    n = LEAN_N
+    model = _model(xl, yl, yl_mean, yl_std, fused=True, dtype=torch.float32)
+    base = _reset_peak()
+    fitted, t_fit = _timed(lambda: fit_spr(model, memory_lean=True, t_jitter=SERVE_T_JITTER))
+    peak = _peak_since(base)
+    nbytes = 4 * n * n
+    u = fitted.state["chol"]
+    finite = bool(torch.isfinite(torch.diagonal(u)).all()) and math.isfinite(
+        fitted.state["d"].item())
+    print(f"[lean] N={n} D={SERVE_D} depth {DEPTH} relu, Student-t: fit_spr(memory_lean=True) "
+          f"{t_fit:.2f} s (two K1 Grams, two in-place factorizations, three panel solves); "
+          f"peak {peak / 2**30:.2f} GiB = {peak / nbytes:.4f} x 4N^2 ({nbytes / 2**30:.2f} GiB)"
+          f"; d {fitted.state['d'].item():.4f}; finite {finite}")
+    if not (finite and peak <= LEAN_PEAK * nbytes):
+        raise AssertionError(f"lean fit at N={n}: peak {peak} bytes, finite {finite}")
+    eta, t_res = _timed(lambda: _backward_error(model, fitted))
+    print(f"[lean] backward error of alpha (float64 residual, K1 row panels of {LEAN_PANEL}): "
+          f"{eta:.3e} ({t_res:.2f} s)")
+    if not eta <= LEAN_BACKWARD:
+        raise AssertionError(f"backward error {eta:.3e} > {LEAN_BACKWARD}")
+    base = _reset_peak()
+    (mean, var), t_req = _timed(lambda: fitted.predict(
+        torch.as_tensor(xl_req, device="cuda"), batch=PREDICT_BATCH))
+    (mean, var), t_req2 = _timed(lambda: fitted.predict(
+        torch.as_tensor(xl_req, device="cuda"), batch=PREDICT_BATCH))
+    req_peak = _peak_since(base)
+    ok = bool(torch.isfinite(mean).all() and (var > 0).all())
+    print(f"[lean] one {REQUEST_SIZE}-point request from the upper factor: {t_req * 1e3:.1f} "
+          f"ms, again {t_req2 * 1e3:.1f} ms; peak above the factor "
+          f"{req_peak / 2**30:.3f} GiB = {req_peak / nbytes:.4f} of its bytes; finite and "
+          f"positive {ok}")
+    if not (ok and req_peak <= 0.10 * nbytes):
+        raise AssertionError(f"request from the upper factor: peak {req_peak}, ok {ok}")
+    del model, fitted, u, mean, var
+    _reset_peak()
+
+    gen = torch.Generator(device="cuda").manual_seed(241)
+    xw = torch.randn((n, WA_R), generator=gen, device="cuda")
+    want = torch.linalg.slogdet(torch.eye(WA_R, dtype=torch.float64, device="cuda")
+                                + xw.double().T @ xw.double() / WA_R)[1].item()
+    k, t_build = _timed(lambda: torch.mm(xw, xw.T).div_(WA_R))
+    k.diagonal().add_(1.0)
+    base = _reset_peak()
+    u, t_chol = _timed(lambda: inplace_blocked_cholesky(k))
+    chol_peak = _peak_since(base)
+    got = (2.0 * torch.log(torch.diagonal(u).double()).sum()).item()
+    rel = abs(got - want) / abs(want)
+    print(f"[lean] Weinstein-Aronszajn witness, K = I + X X^T / {WA_R} at N={n}: build "
+          f"{t_build:.2f} s, inplace_blocked_cholesky {t_chol:.2f} s ({n ** 3 / 3 / t_chol / 1e12:.1f}"
+          f" TFLOP/s), extra peak {chol_peak / 2**20:.1f} MiB; logdet {got:.6f} against "
+          f"{want:.6f}: rel {rel:.2e}")
+    del k, u, xw
+    torch.cuda.empty_cache()
+    if not rel <= WA_RTOL:
+        raise AssertionError(f"witness logdet rel error {rel:.3e} > {WA_RTOL}")
+    return dict(fit_s=t_fit, peak_ratio=peak / nbytes, backward_error=eta,
+                request_ms=1e3 * t_req2, request_peak=req_peak / nbytes, chol_s=t_chol,
+                wa_rel=rel, small_errs=errs)
+
+
+def _mesh(shape=None):
+    from snngp_torch.parallel import get_mesh
+    size = MESH_SHARDS if shape is None else int(np.prod(shape))
+    return get_mesh(shape=shape, devices=["cuda:0"] * size)
+
+
+def _mesh_gram_inputs():
+    import torch
+    from snngp_torch.nn import arch
+    x = np.random.RandomState(25).randn(MESH_N, MESH_D).astype(np.float32)
+    kfn = arch.get_mlp_kernel(3, act="relu", w_std=1.0, b_std=0.3, last_w_std=1.0)
+    return torch.as_tensor(x, device="cuda"), kfn
+
+
+def _mlii_mesh_data():
+    rng = np.random.RandomState(251)
+    return (rng.randn(MESH_MLII_N, 32, 32, 3).astype(np.float32),
+            rng.randn(MESH_MLII_N).astype(np.float32))
+
+
+def _mesh_aug():
+    from snngp_torch.ops import myrtle_gram as MG
+    return functools.partial(MG.myrtle_gram_scale_grads, depth=MYRTLE_DEPTH, act="relu",
+                             **MLII_HYPER)
+
+
+def _backward_err(lfac, s, rows=4096):
+    """max|L L^T - S| / max|S| of a lower factor, in float64 by row panels
+    over the lower triangle (S symmetric)."""
+    import torch
+    l64 = lfac.double()
+    worst = 0.0
+    for r0 in range(0, s.shape[0], rows):
+        r1 = min(r0 + rows, s.shape[0])
+        d = l64[r0:r1] @ l64[:r1].mT - s[r0:r1, :r1].double()
+        worst = max(worst, d.abs().max().item())
+    return worst / s.abs().max().item()
+
+
+def phase25_references():
+    """Phase 25's references, run before its launch window: the K1 Gram at
+    MESH_N x MESH_D (a symmetric launch), cuSOLVER's factor of it plus
+    MESH_EPS with its logdet and its backward error, and for full-Gram ML-II at MESH_MLII_N images (K7's tangent
+    mode), gp and tp: the single-device closed form on ``tiled_aug_gram``'s
+    tiles, and the float64 closed form on the row panels that
+    ``sharded_aug_gram`` gives the mesh."""
+    import torch
+    from snngp_torch.models.mlii import full_gram_mlii_value_and_grad, tiled_aug_gram
+    from snngp_torch.parallel.mesh import gather
+    from snngp_torch.parallel.mlii import sharded_aug_gram
+
+    x, kfn = _mesh_gram_inputs()
+    gram, t_gram = _timed(lambda: kfn(x, x, get="nngp"))
+    s = gram.clone()
+    s.diagonal().add_(MESH_EPS)
+    (chol, info), t_chol = _timed(lambda: torch.linalg.cholesky_ex(s))
+    logdet = (2.0 * torch.log(torch.diagonal(chol).double()).sum()).item()
+    backward = _backward_err(chol, s)
+    del s
+    xm, ym = _mlii_mesh_data()
+    xm = torch.as_tensor(xm, device="cuda")
+    tiles = tiled_aug_gram(_mesh_aug(), xm, block=MLII_BLOCK)
+    panels = [gather(p).cpu().numpy() for p in sharded_aug_gram(_mesh_aug(), xm, _mesh())]
+    last = MLII_HYPER["last_w_std"]
+    mlii = {}
+    for method, ab in (("gp", None), ("tp", MLII_AB)):
+        single = full_gram_mlii_value_and_grad(*tiles, ym, last_w_std=last, eps=MLII_EPS,
+                                               ab=ab, device="cuda")
+        loss64, grads64, cond = _closed_form_f64(*panels, ym, MLII_EPS, ab, last)
+        mlii[method] = dict(single=single, f64=(loss64, grads64), cond=cond)
+        print(f"[mesh] reference ML-II {method}: cond(S) {cond:.3e}; single device loss "
+              f"{single[0]:.7f}, float64 on the row panels {loss64:.7f}")
+    print(f"[mesh] references: K1 Gram N={MESH_N} D={MESH_D} {t_gram:.3f} s, cuSOLVER "
+          f"cholesky {t_chol:.3f} s (info {int(info)}), logdet {logdet:.6f}, backward "
+          f"error max|L L^T - S| / max|S| {backward:.3e}")
+    return dict(gram=gram, chol=chol, logdet=logdet, backward=backward, mlii=mlii)
+
+
+def phase25_mesh(data, refs, train_gradients):
+    """The mesh on one card: MESH_SHARDS shards of cuda:0 (and 2 x 2). Gates:
+    ``sharded_gram`` (row panels; 2-D tiles) within KERNEL_REL_TOL of max|K|
+    of the single-device K1 Gram; ``cyclic_cholesky`` and
+    ``distributed_cholesky`` (pjit): factors within MESH_FACTOR_RTOL of
+    max|L| of cuSOLVER's, backward errors within MESH_BACKWARD_X of
+    cuSOLVER's own, logdets within MESH_LOGDET_RTOL of its; ``mesh_pipeline`` at N = MESH_N passes its own parity gate;
+    ``SPR.loss``'s gradients on the mesh at phase 5's N within 2x the
+    single-device fp32 error against float64 autograd; and
+    ``distributed_mlii_value_and_grad`` at MESH_MLII_N images through K7's
+    tangent mode against ``full_gram_mlii_value_and_grad`` and against the
+    float64 closed form on its own row panels (loss rtol 1e-5, gradients
+    rtol 2e-3, atol 1e-6). The shards run one after another: these times are
+    not a multi-card time."""
+    import torch
+    from snngp_torch.examples import mesh_pipeline
+    from snngp_torch.parallel import distributed_cholesky, distributed_mlii_value_and_grad
+    from snngp_torch.parallel import sharded_gram
+    from snngp_torch.parallel.cholesky import blocked_cholesky, cyclic_cholesky
+    from snngp_torch.parallel.mesh import gather
+
+    out = {}
+    with torch.no_grad():
+        x, kfn = _mesh_gram_inputs()
+        ref = refs["gram"]
+        scale = ref.abs().max()
+        for label, mesh in (("1-D x4", _mesh()), ("2-D 2x2", _mesh((2, 2)))):
+            got, t = _timed(lambda: gather(sharded_gram(kfn, x, mesh)))
+            e = ((got - ref).abs().max() / scale).item()
+            print(f"[mesh] sharded_gram {label} at N={MESH_N} D={MESH_D}: {t:.3f} s; rel err "
+                  f"{e:.3e} against the single-device K1 Gram")
+            if not e <= KERNEL_REL_TOL:
+                raise AssertionError(f"sharded_gram {label}: error {e:.3e}")
+            out[f"gram {label}"] = (t, e)
+            del got
+        mesh = _mesh()
+        s = ref.clone()
+        s.diagonal().add_(MESH_EPS)
+        for label, fn in (("cyclic_cholesky", lambda: cyclic_cholesky(s, mesh,
+                                                                      block=MESH_BLOCK)),
+                          ("distributed_cholesky pjit", lambda: distributed_cholesky(
+                              s, mesh, block=MESH_BLOCK, strategy="pjit"))):
+            lfac, t = _timed(fn)
+            logdet = (2.0 * torch.log(torch.diagonal(lfac).double()).sum()).item()
+            rel = abs(logdet - refs["logdet"]) / abs(refs["logdet"])
+            lref = refs["chol"]
+            fwd = ((lfac - lref).abs().max() / lref.abs().max()).item()
+            bwd = _backward_err(lfac, s)
+            print(f"[mesh] {label} (block {MESH_BLOCK}) at N={MESH_N}: {t:.3f} s; logdet "
+                  f"{logdet:.6f}, rel {rel:.2e} against cuSOLVER's; factor max|L - L_ref| / "
+                  f"max|L_ref| {fwd:.3e}; backward error {bwd:.3e} (cuSOLVER's "
+                  f"{refs['backward']:.3e})")
+            if not rel <= MESH_LOGDET_RTOL:
+                raise AssertionError(f"{label}: logdet rel error {rel:.3e}")
+            if not fwd <= MESH_FACTOR_RTOL:
+                raise AssertionError(f"{label}: factor rel error {fwd:.3e}")
+            if not bwd <= MESH_BACKWARD_X * refs["backward"]:
+                raise AssertionError(f"{label}: backward error {bwd:.3e} against cuSOLVER's "
+                                     f"{refs['backward']:.3e}")
+            out[label] = (t, rel, fwd, bwd)
+            del lfac
+        del s, ref
+        refs.pop("gram")
+        refs.pop("chol")
+        torch.cuda.empty_cache()
+
+    result = mesh_pipeline.main(MESH_PIPELINE, mesh=mesh)
+    print(f"[mesh] mesh_pipeline N={MESH_N}: NLL {result['nll']:.6f} (one device "
+          f"{result['parity_nll']:.6f}); phases " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in result["phases_s"].items()))
+    out["pipeline"] = result
+    torch.cuda.empty_cache()
+
+    xs, ys, _, y_mean, y_std = data
+    model = _model(xs, ys, y_mean, y_std, fused=True, dtype=torch.float32, eps=TRAIN_EPS)
+    model.mesh = mesh                   # as reg tr with SNNGP_MESH_DEVICES
+    model.likelihood.chol_fn = functools.partial(blocked_cholesky, block=512)
+    (loss, names, g), t = _timed(lambda: _loss_and_grads(model))
+    g64 = train_gradients["g64"]
+    e = ((g - g64).norm() / g64.norm()).item()
+    bar = 2.0 * max(train_gradients["kernel_err"], 1e-6)
+    print(f"[mesh] SPR.loss on the mesh at N={SERVE_N}: loss {loss:.8f}, value and "
+          f"gradients {t:.3f} s; gradient rel err {e:.3e} against float64 (single-device "
+          f"fp32 {train_gradients['kernel_err']:.3e})")
+    if not e <= bar:
+        raise AssertionError(f"mesh gradient error {e:.3e} above {bar:.3e}")
+    out["loss"] = (t, e)
+    del model
+    torch.cuda.empty_cache()
+
+    xm, ym = _mlii_mesh_data()
+    xm = torch.as_tensor(xm, device="cuda")
+    for method, ab in (("gp", None), ("tp", MLII_AB)):
+        (loss, grads), t = _timed(lambda: distributed_mlii_value_and_grad(
+            _mesh_aug(), xm, ym, mesh, last_w_std=MLII_HYPER["last_w_std"], eps=MLII_EPS,
+            ab=ab))
+        ref = refs["mlii"][method]
+        for name in ("single", "f64"):
+            want_loss, want = ref[name]
+            rel = {k: abs(grads[k] - v) / abs(v) for k, v in want.items()}
+            print(f"[mesh] distributed_mlii_value_and_grad {method} at N={MESH_MLII_N} "
+                  f"(cond(S) {ref['cond']:.2e}): {t:.3f} s; against {name}: loss {loss:.7f} / "
+                  f"{want_loss:.7f}; grad rel " + " ".join(
+                      f"{k} {v:.2e}" for k, v in sorted(rel.items())))
+            if not abs(loss - want_loss) <= 1e-5 * abs(want_loss):
+                raise AssertionError(f"distributed ML-II {method}: loss {loss} against "
+                                     f"{name} {want_loss}")
+            for k, v in want.items():
+                if not abs(grads[k] - v) <= 1e-6 + 2e-3 * abs(v):
+                    raise AssertionError(f"distributed ML-II {method} d/d{k}: {grads[k]} "
+                                         f"against {name} {v}")
+        out[f"mlii {method}"] = t
+    return out
+
+
 # -- the finite-width ensemble and the paper figures (no kernel of K1-K7) -------------
 
 @contextlib.contextmanager
@@ -2670,7 +3100,7 @@ def main() -> int:
         data = _serving_data()
         _warm_up(data)
         _reset_launches()                 # serving path starts here
-        _phase(2, phase2_serving, data)
+        _, serve_errs, serve_ref64 = _phase(2, phase2_serving, data)
     _phase(3, phase3_cli)
     serving = _read_launches("serve", ["gram"])   # serving path ends here
 
@@ -2680,7 +3110,7 @@ def main() -> int:
     del x_train, cot
     torch.cuda.empty_cache()
     _reset_launches()                     # training path starts here
-    _phase(5, phase5_training, data)
+    train_out = _phase(5, phase5_training, data)
     _phase(6, phase6_train_cli)
     training = _read_launches("train", ["gram", "gram_grads"])  # training path ends here
 
@@ -2721,6 +3151,18 @@ def main() -> int:
     myrtle = _read_launches("myrtle", ["myrtle", "myrtle_grads"])  # ends here
     _phase("17 (full tier)", phase17_full_tier, pipeline["hyper"])
     _phase("21 (gradient check)", phase21_mlii_gradient)
+    lean = _lean_data()
+    with torch.inference_mode():
+        _phase("24 (K1 rows)", phase24_k1_rows, lean)
+        mesh_refs = _phase("25 (references)", phase25_references)
+    _reset_launches()                     # lean and mesh regression start here
+    with torch.inference_mode():
+        _phase(24, phase24_lean, data, serve_ref64, serve_errs["kernel"], lean)
+    _phase(25, phase25_mesh, data, mesh_refs, train_out["gradients"])
+    lean_mesh = _read_launches("lean and mesh regression",
+                               ["gram", "gram_grads", "myrtle_grads"])   # end here
+    del lean, mesh_refs
+    torch.cuda.empty_cache()
     _reset_launches()                     # the ensemble and the figures start here
     _phase(22, phase22_ensemble)
     _phase(23, phase23_figures)
@@ -2734,11 +3176,13 @@ def main() -> int:
 
     k1 = _kernel_entry("gram (K1, fused NNGP Gram)", "snngp_torch/csrc/gram.cu",
                        "snngp/ops/pallas/gram.py:180",
-                       serving["gram"] + training["gram"] + extras["gram"], k1_rows,
+                       serving["gram"] + training["gram"] + extras["gram"]
+                       + lean_mesh["gram"], k1_rows,
                        f"mlp/relu/{HEAD_SHAPE}", k1_abs)
     k2 = _kernel_entry("gram_grads (K2, scalar-tangent Gram backward, fused contraction)",
                        "snngp_torch/csrc/gram.cu", "snngp/ops/pallas/gram.py:249",
-                       training["gram_grads"], k2_rows, f"mlp/relu/{HEAD_SHAPE}/random",
+                       training["gram_grads"] + lean_mesh["gram_grads"], k2_rows,
+                       f"mlp/relu/{HEAD_SHAPE}/random",
                        max(r["abs_err"] for r in k2_rows.values()))
     k3 = _kernel_entry("conv_gram (K3, fused CNN NNGP Gram; one warp streams a pair's rows "
                        "through registers, symmetric launch for K(x, x))",
@@ -2763,13 +3207,15 @@ def main() -> int:
                        k56_rows["K6"], K6_HEAD, k56_abs["K6"])
     k7 = _kernel_entry("myrtle (K7, fused Myrtle-5/7/10 Gram, Delta-slab recursion)",
                        "snngp_torch/csrc/myrtle_gram.cu",
-                       "snngp/ops/pallas/myrtle_gram.py:278", myrtle["myrtle"],
+                       "snngp/ops/pallas/myrtle_gram.py:278",
+                       myrtle["myrtle"] + lean_mesh["myrtle"],
                        k7_rows["fwd"], K7_HEAD, k7_abs["fwd"])
     k7t = _kernel_entry("myrtle_grads (K7 scale-tangent mode, dK/dw and dK/db in one pass; "
                         "stage 1 streamed through registers, 16 warps, one block per pair "
                         "of K(x, x))",
                         "snngp_torch/csrc/myrtle_gram.cu",
-                        "snngp/ops/pallas/myrtle_gram.py:278", myrtle["myrtle_grads"],
+                        "snngp/ops/pallas/myrtle_gram.py:278",
+                        myrtle["myrtle_grads"] + lean_mesh["myrtle_grads"],
                         k7_rows["tangents"], K7_HEAD, k7_abs["tangents"])
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k7t]}))
     print(json.dumps({"ok": True, "device": {

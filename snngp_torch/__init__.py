@@ -31,6 +31,9 @@ training) and sparse variational classification of images:
 - ``snngp_torch.data``    the regression and classification datasets and
                           the host resize (numpy copies of ``snngp.data``;
                           importing ``snngp`` pulls in JAX).
+- ``snngp_torch.parallel`` the device mesh of one process: sharded Grams,
+                          blocked / in-place / cyclic / distributed
+                          Cholesky, the distributed ML-II step.
 - ``snngp_torch.cli``     ``reg`` and ``cls`` x ``tr`` / ``ts`` / ``pr``, ``reg
                           fd`` and ``ens`` x ``tr`` / ``ts``
                           (``python -m snngp_torch``).

@@ -1,13 +1,15 @@
-"""CLI entry point: ``python -m snngp_torch [--device DEV] {reg,cls} {tr,ts,pr}
-...``, ``reg fd`` and ``ens {tr,ts}`` (counterpart of the JAX package's
-``run.py``).
+"""CLI entry point: ``python -m snngp_torch [--device DEV] [--devices N]
+{reg,cls} {tr,ts,pr} ...``, ``reg fd`` and ``ens {tr,ts}`` (counterpart of
+the JAX package's ``run.py``).
 
 ``--device`` (default ``cuda``) names the torch device every tensor lives
-on; it stands where ``run.py`` has ``--devices``. Asking for CUDA on a
-machine without it is an error, not a quiet CPU run.
+on. Asking for CUDA on a machine without it is an error, not a quiet CPU
+run. ``--devices N`` sets ``SNNGP_MESH_DEVICES``, as ``run.py`` does: ``reg
+tr`` then trains on a mesh of N shards of that device type.
 """
 
 import argparse
+import os
 import sys
 
 import torch
@@ -18,7 +20,10 @@ import snngp_torch.cli
 def main(argv=None):
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", type=str, default="cuda")
+    pre.add_argument("--devices", type=int, default=None)
     pre_args, rest = pre.parse_known_args(argv)
+    if pre_args.devices is not None:
+        os.environ["SNNGP_MESH_DEVICES"] = str(pre_args.devices)
 
     device = torch.device(pre_args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -27,7 +32,7 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(
         prog="python -m snngp_torch",
-        description="Scale Mixtures of NNGP on PyTorch (pre-flag: --device)")
+        description="Scale Mixtures of NNGP on PyTorch (pre-flags: --device, --devices)")
     subparsers = parser.add_subparsers(dest="command", metavar="command", required=True)
     snngp_torch.cli.add_subparser(subparsers)
     args = parser.parse_args(rest)

@@ -18,13 +18,17 @@ Divergences from the JAX package:
   math and the same divisibility check;
 - ``-prof`` also splits the train phase into the ML-II step's own phases
   (see :func:`snngp_torch.utils.train_step`);
-- ``SNNGP_MESH_DEVICES`` > 1 raises ``NotImplementedError`` (the
-  multi-device path is not ported yet);
+- ``SNNGP_MESH_DEVICES`` = n > 1 (``python -m snngp_torch --devices n``)
+  trains on a mesh of n shards of the ``--device`` type
+  (:func:`snngp_torch.parallel.get_mesh`): n CUDA cards, which must exist,
+  or n shards of the CPU; as in JAX, the loss takes the sharded Gram and
+  the blocked factorization, and the predictive the single-device path;
 - the progress bar needs ``tqdm`` only if it can be imported.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from datetime import datetime
@@ -38,6 +42,8 @@ from snngp_torch.models import (SPR, FittedSPR, GaussianLikelihood, NNGPKernel,
                                 StudentTLikelihood, fit_spr)
 from snngp_torch.models.params import assign_by_suffix, get_by_suffix
 from snngp_torch.nn.arch import get_dense_resnet_kernel, get_mlp_kernel
+from snngp_torch.parallel import get_mesh
+from snngp_torch.parallel.cholesky import blocked_cholesky
 from snngp_torch.utils import (SGD, Adam, Checkpointer, Logger, Profiler,
                                ReduceLROnPlateau, get_context_summary, load_named,
                                load_training_state, progress, save_training_state,
@@ -194,8 +200,9 @@ def train_main(args):
 
         n_mesh = int(os.environ.get("SNNGP_MESH_DEVICES", "1"))
         if n_mesh > 1:
-            raise NotImplementedError(
-                f"SNNGP_MESH_DEVICES={n_mesh}: the multi-device path is not ported yet")
+            model.mesh = get_mesh(n_mesh, device=args.device)
+            model.likelihood.chol_fn = functools.partial(blocked_cholesky, block=512)
+            logger.log(f"Mesh: {n_mesh} devices (sharded Gram + blocked Cholesky)")
 
         optimizer = Adam(model) if args.optimizer == "adam" else SGD(model)
         scheduler = ReduceLROnPlateau(lr=args.lr, factor=args.lr_decay,

@@ -21,10 +21,16 @@ tiled assembly a step (K7's tangent mode on the card, ``--fused-block``
 tiles, a per-block profile cache, ``--mlii-panel`` S^{-1} panels),
 resumable under ``<--resume-gram>/mlii``.
 
+``--chol`` picks the factorization: ``inplace`` (``fit_spr(memory_lean=True)``,
+the Gram factored in its own device buffer) for ``auto`` at N >= 32,768,
+else ``xla`` (``torch.linalg``, cuSOLVER on the card). ``blocked``
+(:func:`snngp_torch.parallel.cholesky.blocked_cholesky`) runs only when
+asked for: the JAX script's ``auto`` takes it from N = 4,096, where it
+shards under GSPMD, but on one card it is panels of cuSOLVER's work.
+
 Not ported (they raise ``NotImplementedError``): ``--devices`` > 1 (the
-multi-device slice),
-``--chol blocked`` / ``inplace`` (``parallel/cholesky.py``), and the JAX
-dispatch knobs ``--scan-chunk`` / ``--remat``. ``--bf16`` is ignored on the
+sharded Myrtle Gram), and the JAX dispatch knobs ``--scan-chunk`` /
+``--remat``. ``--bf16`` is ignored on the
 fused path on the card, with the JAX script's message, and raises
 elsewhere (the bf16 pair state is not ported).
 """
@@ -46,6 +52,7 @@ from snngp_torch.nn.arch import get_myrtle_kernel
 from snngp_torch.nn.full import get_myrtle_kernel as full_myrtle
 from snngp_torch.nn.full import scan_tiled_gram
 from snngp_torch.ops.myrtle_gram import myrtle_gram_tiled
+from snngp_torch.parallel.cholesky import blocked_cholesky
 from snngp_torch.utils import Adam, Profiler
 
 
@@ -167,8 +174,9 @@ def _parser():
     ap.add_argument("--mlii-method", choices=["gp", "tp"], default="tp")
     ap.add_argument("--mlii-lr", type=float, default=1e-2)
     ap.add_argument("--chol", choices=["auto", "xla", "blocked", "inplace"], default="auto",
-                    help="factorization: torch.linalg (auto, xla); blocked and inplace "
-                         "(parallel/cholesky.py) are not ported")
+                    help="factorization: torch.linalg (xla), blocked panels (blocked), the "
+                         "memory-lean fit in the Gram's own buffer (inplace); auto = "
+                         "inplace at N >= 32768, else xla")
     ap.add_argument("--t-jitter", type=float, default=1e-6,
                     help="absolute jitter on the scaled Gram (b/a) K of the Student-t "
                          "data scale")
@@ -177,12 +185,15 @@ def _parser():
     return ap
 
 
+def _chol_route(chol, n_train):
+    """(memory_lean, chol_fn) of ``fit_spr`` for ``--chol`` at ``n_train``."""
+    memory_lean = chol == "inplace" or (chol == "auto" and n_train >= 32768)
+    return memory_lean, (blocked_cholesky if chol == "blocked" else None)
+
+
 def _check_unported(args):
     if args.devices > 1:
-        raise NotImplementedError("--devices > 1: the multi-device path is not ported yet")
-    if args.chol in ("blocked", "inplace"):
-        raise NotImplementedError(f"--chol {args.chol}: parallel/cholesky.py is not ported "
-                                  "yet; use auto or xla (torch.linalg)")
+        raise NotImplementedError("--devices > 1: the sharded Myrtle Gram is not ported yet")
     if args.scan_chunk or args.remat:
         raise NotImplementedError("--scan-chunk / --remat batch JAX dispatches; the port "
                                   "dispatches eagerly and does not take them")
@@ -257,14 +268,18 @@ def main(argv=None):
         return get_myrtle_kernel(args.depth, 1, "relu", w_std=w_std, b_std=b_std,
                                  last_w_std=last_w_std, trainable_inputs=False)
 
+    memory_lean, chol_fn = _chol_route(args.chol, args.n_train)
+
     kernel = NNGPKernel(kernel_builder, hyper["w_std"], hyper["b_std"], hyper["last_w_std"])
-    model = SPR(kernel, StudentTLikelihood(args.alpha, args.beta), x_train, y_train,
-                y_mean, y_std, eps=eps_rel).to(device)
+    model = SPR(kernel, StudentTLikelihood(args.alpha, args.beta, chol_fn=chol_fn), x_train,
+                y_train, y_mean, y_std, eps=eps_rel).to(device)
     y_test_n = torch.as_tensor((y[args.n_train:] - y_mean) / y_std, device=device)
     with torch.no_grad():
         with prof.phase("fit"):
-            fitted = fit_spr(model, gram=k_dd, var_floor=args.var_floor,
-                             t_jitter=args.t_jitter)
+            fitted = fit_spr(model, memory_lean=memory_lean, gram=k_dd,
+                             var_floor=args.var_floor, t_jitter=args.t_jitter)
+        if memory_lean:
+            del k_dd                      # the factor holds the one N x N buffer
         with prof.phase("predictive"):
             nll = fitted.test_nll_given(k_td, np.diagonal(k_tt).copy(), y_test_n)
     print(prof.report())

@@ -1,5 +1,5 @@
-"""Scale-mixture process models (counterpart of ``snngp/models/gp.py``,
-single device; rebuilds ``spax/models.py``).
+"""Scale-mixture process models (counterpart of ``snngp/models/gp.py``;
+rebuilds ``spax/models.py``).
 
 - :class:`SVSP` — sparse variational stochastic process: inducing-point
   variational classification; a Gaussian prior gives SVGP, an inverse-gamma
@@ -12,12 +12,15 @@ single device; rebuilds ``spax/models.py``).
   non-persistent buffers, so ``.to(device)`` moves them with the parameters
   and ``state_dict()`` holds the parameters only. ``loss`` is the ML-II
   objective (differentiable in every parameter); ``test_nll`` the
-  predictive NLL.
+  predictive NLL. On a ``mesh`` (:mod:`snngp_torch.parallel`) the train
+  Gram is built as row panels over the shards and every factorization of
+  it goes through the likelihood's ``chol_fn``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 from torch import nn
@@ -121,10 +124,16 @@ class SVSP(nn.Module):
 
 
 class SPR(nn.Module):
-    """Exact-inference stochastic process regression (spax/models.py:81-120)."""
+    """Exact-inference stochastic process regression (spax/models.py:81-120).
+
+    ``mesh`` (a :class:`snngp_torch.parallel.mesh.Mesh`) builds the train
+    Gram as row panels over its shards; the likelihood's ``chol_fn`` then
+    defaults to :func:`~snngp_torch.parallel.cholesky.blocked_cholesky` with
+    ``chol_block``, and the marginal likelihood and the predictive both
+    factor through it (``self.chol_fn``)."""
 
     def __init__(self, kernel, likelihood, x_data, y_data, y_mean, y_std, *,
-                 eps: float = 1e-6):
+                 eps: float = 1e-6, mesh=None, chol_block: int = 512):
         super().__init__()
         self.bij = positive()
         self.eps = P.constrained_init(eps, self.bij)
@@ -135,14 +144,30 @@ class SPR(nn.Module):
         self.register_buffer("y_data", torch.as_tensor(y_data, **f32), persistent=False)
         self.register_buffer("y_mean", torch.as_tensor(y_mean, **f32), persistent=False)
         self.register_buffer("y_std", torch.as_tensor(y_std, **f32), persistent=False)
+        self.mesh = mesh
+        if mesh is not None and getattr(likelihood, "chol_fn", None) is None:
+            from snngp_torch.parallel.cholesky import blocked_cholesky
+            likelihood.chol_fn = functools.partial(blocked_cholesky, block=chol_block)
+        self.chol_fn = getattr(likelihood, "chol_fn", None)
 
     @property
     def num_data(self) -> int:
         return self.x_data.shape[0]
 
     def _gram(self, kernel_fn):
-        """Full training Gram."""
-        return self.kernel.K(kernel_fn, self.x_data)
+        """Full training Gram; on a mesh, from its row panels (rows
+        zero-padded to a multiple of the mesh size, then sliced back)."""
+        if self.mesh is None:
+            return self.kernel.K(kernel_fn, self.x_data)
+        from snngp_torch.parallel.gram import sharded_gram
+        from snngp_torch.parallel.mesh import gather
+        n = self.num_data
+        pad = (-n) % self.mesh.size
+        x = self.x_data
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        gram = gather(sharded_gram(kernel_fn, x, self.mesh), x.device)
+        return gram[:n, :n] if pad else gram
 
     def loss(self, gram=None):
         """Negative marginal log-likelihood / N (spax/models.py:93-98), with
@@ -160,7 +185,7 @@ class SPR(nn.Module):
         eps = P.constrained_read(self.eps, self.bij)
         kernel_fn = self.kernel.get_kernel_fn()
         mean, cov = self.kernel.predict(kernel_fn, self.x_data,
-                                        self.y_data[:, None], x, eps=eps)
+                                        self.y_data[:, None], x, eps=eps, chol_fn=self.chol_fn)
 
         require = self.likelihood.require
         if require:

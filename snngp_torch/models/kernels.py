@@ -45,6 +45,9 @@ class NNGPKernel(nn.Module):
         """N1 x N2 NNGP Gram block (spax/kernels.py:23-27)."""
         return kernel_fn(x, x if x2 is None else x2, get="nngp")
 
-    def predict(self, kernel_fn, x, y, x_test, eps=1e-6):
-        """Exact GP posterior (spax/kernels.py:29-32); nt-relative diag_reg."""
-        return gp_predict(kernel_fn, x, y, x_test, diag_reg=eps, compute_cov=True)
+    def predict(self, kernel_fn, x, y, x_test, eps=1e-6, chol_fn=None):
+        """Exact GP posterior (spax/kernels.py:29-32); nt-relative diag_reg.
+        ``chol_fn`` swaps in a blocked or distributed factorization of the
+        train Gram (:mod:`snngp_torch.parallel.cholesky`)."""
+        return gp_predict(kernel_fn, x, y, x_test, diag_reg=eps, compute_cov=True,
+                          chol_fn=chol_fn)

@@ -46,9 +46,14 @@ class Likelihood(nn.Module):
 class GaussianLikelihood(Likelihood):
     require = None
 
+    def __init__(self, chol_fn=None):
+        super().__init__()
+        # chol_fn swaps in a blocked / distributed factorization on a mesh
+        self.chol_fn = chol_fn
+
     def prior_logpdf(self, x, cov):
         """Zero-mean MVN marginal log-likelihood (spax/likelihoods.py:25-28)."""
-        return mvn_logpdf(x, cov)
+        return mvn_logpdf(x, cov, chol_fn=self.chol_fn)
 
     def logpdf(self, x, mean, cov, aux):
         """Diagonal-Normal predictive density (spax/likelihoods.py:30-33)."""
@@ -58,8 +63,9 @@ class GaussianLikelihood(Likelihood):
 class StudentTLikelihood(Likelihood):
     require = ["cov_data", "y_data"]
 
-    def __init__(self, alpha: float, beta: float):
+    def __init__(self, alpha: float, beta: float, chol_fn=None):
         super().__init__()
+        self.chol_fn = chol_fn
         self.bij = positive()
         self.a = P.constrained_init(alpha, self.bij)
         self.b = P.constrained_init(beta, self.bij)
@@ -72,7 +78,8 @@ class StudentTLikelihood(Likelihood):
         """Multivariate-t marginal, df = 2a, scale (b/a) K
         (spax/likelihoods.py:45-50)."""
         a, b = self._ab()
-        return multivariate_t_logpdf(x, torch.zeros_like(x), (b / a) * cov, 2 * a)
+        return multivariate_t_logpdf(x, torch.zeros_like(x), (b / a) * cov, 2 * a,
+                                     chol_fn=self.chol_fn)
 
     def logpdf(self, x, mean, cov, aux):
         """Conditional-t predictive (spax/likelihoods.py:52-65):
@@ -84,7 +91,7 @@ class StudentTLikelihood(Likelihood):
         cov_data, y_data = aux
         df = 2 * a
         cond_df = df + cov_data.shape[-1]
-        chol = cholesky(add_jitter((b / a) * cov_data, 1e-6))
+        chol = (self.chol_fn or cholesky)(add_jitter((b / a) * cov_data, 1e-6))
         d = df + chol_quad_form(chol, y_data)
         sigma = torch.sqrt(torch.diagonal((d / cond_df) * (b / a) * cov))
         return student_t_logpdf(x, cond_df, mean, sigma)

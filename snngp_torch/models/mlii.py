@@ -238,22 +238,33 @@ def full_gram_mlii_value_and_grad(k, dkw, dkb, y, *, last_w_std, eps, ab=None,
     aa_dkb = _quad_host(dkb, alpha_h)
     aa_norm = float(np.sum(alpha_h.astype(np.float64) ** 2))
 
-    c_inv, c_aa = gram_cotangent_coeffs(q_f, n, ab=ab)
+    return closed_form_value_and_grad(q_f, logdet_f, n, sinv_dkw, sinv_dkb, tr_sinv, aa_dkw,
+                                      aa_dkb, aa_norm, last_w_std=last_w_std, eps=eps, ab=ab)
+
+
+def closed_form_value_and_grad(q, logdet_s, n, sinv_dkw, sinv_dkb, tr_sinv, aa_dkw, aa_dkb,
+                               aa_norm, *, last_w_std, eps, ab=None
+                               ) -> Tuple[float, Dict[str, float]]:
+    """The loss and constrained-space gradients from the scalars of one step:
+    q = y^T S^{-1} y, logdet S, <S^{-1}, dK/dw_std>, <S^{-1}, dK/db_std>,
+    tr S^{-1}, alpha^T dK/dw_std alpha, alpha^T dK/db_std alpha and
+    |alpha|^2 (shared with :mod:`snngp_torch.parallel.mlii`)."""
+    c_inv, c_aa = gram_cotangent_coeffs(q, n, ab=ab)
     grads = {
         "w_std": c_inv * sinv_dkw + c_aa * aa_dkw,
         "b_std": c_inv * sinv_dkb + c_aa * aa_dkb,
         # dK/dlast = (2/last) K; <S^{-1}, K> = N - eps tr(S^{-1}) and
         # alpha^T K alpha = q - eps |alpha|^2 (S alpha = y): no contraction.
         "last_w_std": (2.0 / float(last_w_std)) * (
-            c_inv * (n - float(eps) * tr_sinv) + c_aa * (q_f - float(eps) * aa_norm)),
+            c_inv * (n - float(eps) * tr_sinv) + c_aa * (q - float(eps) * aa_norm)),
         "eps": c_inv * tr_sinv + c_aa * aa_norm,     # tr(G): dS/deps = I
     }
     if ab is None:
-        loss = float(marginal_nll_from_scalars(q_f, logdet_f, n))
+        loss = float(marginal_nll_from_scalars(q, logdet_s, n))
     else:
-        scalars = torch.tensor([float(ab[0]), float(ab[1])], requires_grad=True)
-        with torch.enable_grad():
-            loss_v = marginal_nll_from_scalars(q_f, logdet_f, n, ab=(scalars[0], scalars[1]))
+        with torch.inference_mode(False), torch.enable_grad():
+            scalars = torch.tensor([float(ab[0]), float(ab[1])], requires_grad=True)
+            loss_v = marginal_nll_from_scalars(q, logdet_s, n, ab=(scalars[0], scalars[1]))
             (dab,) = torch.autograd.grad(loss_v, scalars)
         loss = float(loss_v.detach())
         grads["a"], grads["b"] = float(dab[0]), float(dab[1])

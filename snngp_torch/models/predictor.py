@@ -24,12 +24,20 @@ Student-t factor, so that :meth:`FittedSPR.extend` grows the training set by
 a bordered-block update of the factors
 (:func:`~snngp_torch.ops.linalg.chol_append`) instead of a refit.
 
-A state that holds the upper factor (``chol_lower = 0``, written by the JAX
-package's ``fit_spr(memory_lean=True)``) loads and serves, and extends if
-it is extendable. Fitting one is not ported (``memory_lean=True`` raises
-``NotImplementedError``): that path is the in-place blocked factorization
-for Grams past a 16 GB chip, and an 80 GB card holds a 50k fp32 Gram and
-its factor.
+``fit_spr(memory_lean=True)`` holds one N x N buffer: the Gram is
+regularized, scaled and factored in its own storage
+(:func:`~snngp_torch.parallel.cholesky.inplace_blocked_cholesky`), and the
+fitted state carries the UPPER factor (``chol_lower = 0``). Its solves, and
+every solve of :class:`FittedSPR` against an upper factor, go through the
+panel solve :func:`~snngp_torch.parallel.cholesky.blocked_triangular_solve`
+(``torch.cholesky_solve`` copies its factor). Such states, written by either
+package, load and serve, and extend if they are extendable.
+
+Divergence from the JAX package: for a Student-t likelihood the lean fit
+needs the Gram twice (the scaled Gram's factor for ``d``, then the main
+factor). Without ``gram`` it computes the Gram a second time on the device
+(the fused Gram is bitwise repeatable) where JAX stages it to the host and
+uploads it again; a given ``gram`` is staged to the host as in JAX.
 """
 
 from __future__ import annotations
@@ -42,9 +50,10 @@ import torch
 
 from snngp_torch.models import params as P
 from snngp_torch.models.likelihoods import normal_logpdf, student_t_logpdf
-from snngp_torch.ops.linalg import (add_diag_reg, add_jitter, chol_append,
+from snngp_torch.ops.linalg import (_add_diag_reg_, add_diag_reg, add_jitter, chol_append,
                                     chol_quad_form, chol_solve, cholesky, inv_psd,
                                     pinv_psd_eigh)
+from snngp_torch.parallel.cholesky import blocked_triangular_solve, inplace_blocked_cholesky
 from snngp_torch.ops.softmax import get_correct_count, test_log_likelihood
 
 __all__ = ["fit_spr", "FittedSPR", "fit_svsp", "FittedSVSP"]
@@ -79,22 +88,29 @@ def fit_spr(model, memory_lean: bool = False, extendable: bool = False,
     diagonal) and, for a Student-t likelihood, the factor of the scaled
     Gram (``chol_t``, a second [N, N]).
 
-    ``memory_lean=True`` (the upper-factor fit) is not ported and raises;
-    with ``extendable`` it is a ``ValueError``, as in the JAX package.
+    ``memory_lean=True`` holds one N x N device buffer at a time: the Gram
+    is regularized (and, for the Student-t ``d``, scaled) and factored in
+    its own storage, and the state carries the UPPER factor (``chol_lower =
+    0``). A device ``gram`` of the model's dtype is factored in its own
+    storage (JAX donates it); a Student-t fit stages a given ``gram`` to the
+    host and uploads it twice, and without one computes the Gram twice.
+    Not together with ``extendable`` (a ``ValueError``, as in the JAX
+    package). The model's ``chol_fn`` (a blocked or distributed
+    factorization) factors the default path's Grams.
     """
     if extendable and memory_lean:
         raise ValueError("extendable fits keep extra factors resident; "
                          "memory_lean exists to avoid exactly that — pick one")
-    if memory_lean:
-        raise NotImplementedError("memory_lean fitting is not ported; upper-factor "
-                                  "states written by the JAX package load and serve")
     eps = P.constrained_read(model.eps, model.bij)
     kernel_fn = model.kernel.get_kernel_fn()
 
     like = model.x_data
+    if memory_lean:
+        return _fit_spr_lean(model, kernel_fn, eps, gram, var_floor, t_jitter)
+    chol_fn = model.chol_fn or cholesky
     k_dd = (model._gram(kernel_fn) if gram is None
             else torch.as_tensor(gram, dtype=like.dtype, device=like.device))
-    chol = cholesky(add_diag_reg(k_dd, eps))                    # [N, N]
+    chol = chol_fn(add_diag_reg(k_dd, eps))                     # [N, N]
     alpha = chol_solve(chol, model.y_data[:, None])             # [N, 1]
 
     state = {
@@ -110,12 +126,60 @@ def fit_spr(model, memory_lean: bool = False, extendable: bool = False,
     if model.likelihood.require:  # Student-t conditional predictive
         a, b = model.likelihood._ab()
         df = 2.0 * a
-        chol_t = cholesky(add_jitter((b / a) * k_dd, t_jitter))
+        chol_t = chol_fn(add_jitter((b / a) * k_dd, t_jitter))
         state["d"] = df + chol_quad_form(chol_t, model.y_data)
         state["cond_df"] = df + model.num_data
         state["scale_ba"] = b / a
         if extendable:
             state["chol_t"] = chol_t
+    return FittedSPR(model, state)
+
+
+@torch.no_grad()
+def _fit_spr_lean(model, kernel_fn, eps, gram, var_floor, t_jitter) -> "FittedSPR":
+    """``fit_spr(memory_lean=True)``: every factorization in the Gram's own
+    buffer, every solve by panels; one N x N buffer at a time."""
+    like = model.x_data
+    y = model.y_data
+
+    def upload(host):
+        """A device copy of host data: the host array stays as it was."""
+        return torch.as_tensor(np.asarray(host), dtype=like.dtype).to(like.device, copy=True)
+
+    def device_gram():
+        """The Gram the fit may overwrite: the kernel's, the caller's device
+        tensor itself, or an upload of the caller's host array."""
+        if gram is None:
+            return model._gram(kernel_fn)
+        if isinstance(gram, torch.Tensor):
+            return torch.as_tensor(gram, dtype=like.dtype, device=like.device)
+        return upload(gram)
+
+    state = {"y_mean": model.y_mean, "y_std": model.y_std,
+             "chol_lower": torch.tensor(0, dtype=torch.int32, device=like.device)}
+    if var_floor:
+        state["var_floor"] = torch.tensor(var_floor, dtype=like.dtype, device=like.device)
+    host = None
+    if model.likelihood.require:  # Student-t: the scaled Gram's factor, then freed
+        if gram is not None:      # staged, so that neither factorization consumes it
+            host = (gram.detach().cpu().numpy() if isinstance(gram, torch.Tensor)
+                    else np.asarray(gram))
+        a, b = model.likelihood._ab()
+        df = 2.0 * a
+        k = device_gram() if host is None else upload(host)
+        k.mul_(b / a).diagonal().add_(t_jitter)
+        u_t = inplace_blocked_cholesky(k)
+        del k
+        at = blocked_triangular_solve(u_t, y, trans=True)
+        del u_t
+        state["d"] = df + torch.sum(at * at)
+        state["cond_df"] = df + model.num_data
+        state["scale_ba"] = b / a
+    u = inplace_blocked_cholesky(_add_diag_reg_(
+        device_gram() if host is None else upload(host), eps))
+    z = blocked_triangular_solve(u, y[:, None], trans=True)
+    state["chol"] = u
+    state["alpha"] = blocked_triangular_solve(u, z, trans=False)
     return FittedSPR(model, state)
 
 
@@ -279,15 +343,16 @@ class FittedSPR:
 
     def _whiten_with(self, chol, b):
         """L^{-1} b for a factor of this state's orientation: with the upper
-        U = L^T, one lower solve on U^T."""
-        return torch.linalg.solve_triangular(chol if self._chol_lower else chol.mT, b,
-                                             upper=False)
+        U = L^T, U^{-T} b by the panel solve (no copy of the factor)."""
+        if self._chol_lower:
+            return torch.linalg.solve_triangular(chol, b, upper=False)
+        return blocked_triangular_solve(chol, b, trans=True)
 
     def _solve(self, chol, b):
         """A^{-1} b for a factor of this state's orientation."""
         if self._chol_lower:
             return chol_solve(chol, b)
-        return torch.cholesky_solve(b, chol, upper=True)
+        return blocked_triangular_solve(chol, blocked_triangular_solve(chol, b, trans=True))
 
     # -- persistence ------------------------------------------------------
 

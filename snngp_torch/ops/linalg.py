@@ -62,14 +62,26 @@ def _add_to_diagonal(mat: torch.Tensor, value) -> torch.Tensor:
     return out
 
 
+def _diag_reg_value(mat: torch.Tensor, diag_reg):
+    """diag_reg * mean(diag(K)): the regularizer :func:`add_diag_reg` adds."""
+    scale = torch.diagonal(mat, dim1=-2, dim2=-1).sum(-1) / mat.shape[-1]
+    return (diag_reg * scale)[..., None]
+
+
 def add_jitter(mat: torch.Tensor, eps=1e-6) -> torch.Tensor:
     return _add_to_diagonal(mat, eps)
 
 
 def add_diag_reg(mat: torch.Tensor, diag_reg) -> torch.Tensor:
     """K + diag_reg * mean(diag(K)) * I — neural_tangents' relative diag_reg."""
-    scale = torch.diagonal(mat, dim1=-2, dim2=-1).sum(-1) / mat.shape[-1]
-    return _add_to_diagonal(mat, (diag_reg * scale)[..., None])
+    return _add_to_diagonal(mat, _diag_reg_value(mat, diag_reg))
+
+
+def _add_diag_reg_(mat: torch.Tensor, diag_reg) -> torch.Tensor:
+    """:func:`add_diag_reg` in ``mat``'s own buffer (the memory-lean fit's
+    step: no N x N copy); the same values bit for bit."""
+    mat.diagonal(dim1=-2, dim2=-1).add_(_diag_reg_value(mat, diag_reg))
+    return mat
 
 
 def cholesky(mat: torch.Tensor) -> torch.Tensor:
@@ -145,12 +157,15 @@ def gp_predict(
     x_test: torch.Tensor,
     diag_reg=1e-6,
     compute_cov: bool = True,
+    chol_fn=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Exact NNGP posterior: mean = K*^T (K + r I)^-1 y,
-    cov = K** - K*^T (K + r I)^-1 K*, with the trace-relative ``diag_reg``."""
+    cov = K** - K*^T (K + r I)^-1 K*, with the trace-relative ``diag_reg``.
+    ``chol_fn`` swaps in another factorization of the train Gram (a blocked
+    or distributed one, :mod:`snngp_torch.parallel.cholesky`)."""
     k_dd = kernel_fn(x_train, x_train, get="nngp")
     k_td = kernel_fn(x_test, x_train, get="nngp")
-    chol = cholesky(add_diag_reg(k_dd, diag_reg))
+    chol = (chol_fn or cholesky)(add_diag_reg(k_dd, diag_reg))
     mean = k_td @ chol_solve(chol, y_train)
     if not compute_cov:
         return mean, None
@@ -160,12 +175,12 @@ def gp_predict(
     return mean, cov
 
 
-def mvn_logpdf(y: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
+def mvn_logpdf(y: torch.Tensor, cov: torch.Tensor, chol_fn=None) -> torch.Tensor:
     """Zero-mean multivariate normal log-density via one Cholesky: the
     log-determinant from the factor's diagonal, the quadratic form from one
-    triangular solve."""
+    triangular solve. ``chol_fn`` swaps in another factorization."""
     n = y.shape[-1]
-    chol = cholesky(cov)
+    chol = (chol_fn or cholesky)(cov)
     quad = chol_quad_form(chol, y)
     return -0.5 * (quad + chol_logdet(chol) + n * math.log(2.0 * math.pi))
 

@@ -101,16 +101,18 @@ def multivariate_t(df, mean: torch.Tensor, cov: torch.Tensor,
     return mean + torch.einsum("...ij,...j->...i", factor, t_samples)
 
 
-def multivariate_t_logpdf(x: torch.Tensor, loc, shape_mat: torch.Tensor, df) -> torch.Tensor:
+def multivariate_t_logpdf(x: torch.Tensor, loc, shape_mat: torch.Tensor, df,
+                          chol_fn=None) -> torch.Tensor:
     """Multivariate Student-t log-density (``spax/utils.py:160-183``).
 
     log p(x) = -((df+n)/2) log(1 + (1/df) y^T y) - (n/2) log(df pi)
                + lgamma((df+n)/2) - lgamma(df/2) - sum log diag(L)
-    with L = chol(shape) and y = L^{-1}(x - loc); ``x`` is [n].
+    with L = chol(shape) and y = L^{-1}(x - loc); ``x`` is [n]. ``chol_fn``
+    swaps in another factorization.
     """
     n = x.shape[-1]
     half = 0.5 * (df + n)
-    chol = cholesky(shape_mat)
+    chol = (chol_fn or cholesky)(shape_mat)
     diff = x - loc
     y = torch.linalg.solve_triangular(chol, diff[..., None], upper=False)[..., 0]
     quad = torch.sum(y * y, dim=-1)

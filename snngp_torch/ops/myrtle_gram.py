@@ -124,12 +124,15 @@ def _profiles_with_tangents(x, groups, act, w_std, b_std):
     (the JAX package's ``jax.jvp``; ``_relu_t`` carries its analytic JVP,
     finite on the spatial diagonal where c = 1). Returns (profiles,
     tangents) with tangents[l] of shape [N, 2, r, r], axis 1 = (d/dw, d/db)."""
-    w = torch.as_tensor(w_std, dtype=x.dtype, device=x.device)
-    b = torch.as_tensor(b_std, dtype=x.dtype, device=x.device)
-    p, dw = torch.func.jvp(lambda ww: myrtle_var_profiles(x, groups, act, ww, b),
-                           (w,), (torch.ones_like(w),))
-    _, db = torch.func.jvp(lambda bb: myrtle_var_profiles(x, groups, act, w, bb),
-                           (b,), (torch.ones_like(b),))
+    # Forward-mode AD outside inference mode, where a caller's
+    # torch.inference_mode() changed the tangents on the card (torch 2.11).
+    with torch.inference_mode(False):
+        w = torch.as_tensor(w_std, dtype=x.dtype, device=x.device)
+        b = torch.as_tensor(b_std, dtype=x.dtype, device=x.device)
+        p, dw = torch.func.jvp(lambda ww: myrtle_var_profiles(x, groups, act, ww, b),
+                               (w,), (torch.ones_like(w),))
+        _, db = torch.func.jvp(lambda bb: myrtle_var_profiles(x, groups, act, w, bb),
+                               (b,), (torch.ones_like(b),))
     return list(p), [torch.stack([a, c], dim=1) for a, c in zip(dw, db)]
 
 

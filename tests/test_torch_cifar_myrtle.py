@@ -87,17 +87,44 @@ def test_example_matches_the_jax_script(jax_run, fused, tmp_path, monkeypatch, c
     assert "Traceback" not in out
 
 
-# Full-scope ML-II runs (tests/test_torch_mlii.py); across devices it is the
-# multi-device slice's (parallel/mlii.py) and still raises.
+# Full-scope ML-II runs (tests/test_torch_mlii.py); across devices it needs
+# the sharded Myrtle Gram and still raises, as --devices does.
 @pytest.mark.parametrize("flags", [["--mlii", "1", "--mlii-scope", "full", "--devices", "2"],
-                                   ["--devices", "2"], ["--chol", "blocked"],
-                                   ["--chol", "inplace"], ["--scan-chunk", "4"], ["--remat"],
+                                   ["--devices", "2"], ["--scan-chunk", "4"], ["--remat"],
                                    ["--bf16"]])
 def test_unported_flags_raise(flags, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError):
         example.main(["--device", "cpu", "--image-size", "8", "--n-train", "8",
                       "--n-test", "8", *flags])
+
+
+@pytest.mark.parametrize("chol", ["blocked", "inplace"])
+def test_chol_routes_match_xla(chol, tmp_path, monkeypatch):
+    """--chol blocked (blocked_cholesky) and inplace (the memory-lean fit)
+    give the NLL of --chol xla: rtol 1e-5, one fp32 Gram factored three
+    ways, regularized by eps = 1e-1 absolute (condition number ~1e2)."""
+    monkeypatch.chdir(tmp_path)
+    args = ["--device", "cpu", "--image-size", "8", "--n-train", "48", "--n-test", "8",
+            "--fused", "on", "--fused-block", "16", "--eps", "1e-1", "--t-jitter", "1e-1"]
+    want = example.main([*args, "--chol", "xla"])["nll"]
+    got = example.main([*args, "--chol", chol])["nll"]
+    assert np.isfinite(want)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("chol, n, lean, blocked", [
+    ("auto", 4095, False, False), ("auto", 4096, False, False),
+    ("auto", 32767, False, False), ("auto", 32768, True, False),
+    ("xla", 65536, False, False), ("blocked", 64, False, True),
+    ("inplace", 64, True, False)])
+def test_chol_route_per_n(chol, n, lean, blocked):
+    """--chol auto is the memory-lean fit from N = 32,768 and cuSOLVER below;
+    blocked_cholesky runs only when --chol blocked asks for it."""
+    memory_lean, chol_fn = example._chol_route(chol, n)
+    assert memory_lean is lean
+    assert (chol_fn is example.blocked_cholesky) is blocked
+    assert blocked or chol_fn is None
 
 
 def test_cuda_device_without_cuda_is_an_error(tmp_path, monkeypatch):

@@ -23,7 +23,10 @@ MODULES = ["snngp_torch", "snngp_torch.__main__", "snngp_torch.cli.regression",
            "snngp_torch.examples.cifar_myrtle", "snngp_torch.models.mlii",
            "snngp_torch.cli.find", "snngp_torch.examples.online_regression",
            "snngp_torch.cli.ensemble", "snngp_torch.nn.finite",
-           "snngp_torch.examples.paper_figures"]
+           "snngp_torch.examples.paper_figures", "snngp_torch.parallel",
+           "snngp_torch.parallel.mesh", "snngp_torch.parallel.gram",
+           "snngp_torch.parallel.cholesky", "snngp_torch.parallel.mlii",
+           "snngp_torch.examples.mesh_pipeline"]
 
 
 def _run(code):

@@ -169,12 +169,12 @@ def test_checkpoint_cross_loads(writer, tmp_path):
 
 
 def test_unported_fit_options_raise():
-    # Fitting memory-lean is not ported (its states load: test_torch_extend.py);
-    # extendable fits are, and not together with memory_lean, as in JAX.
+    # memory_lean fits (the upper factor; test_torch_memory_lean.py) and
+    # extendable fits do, but not together, as in JAX.
     x, y, _, _ = _data()
     model = _torch_model("gp", x, y)
-    with pytest.raises(NotImplementedError):
-        fit_spr(model, memory_lean=True)
+    with torch.no_grad():
+        assert int(fit_spr(model, memory_lean=True).state["chol_lower"]) == 0
     with pytest.raises(ValueError, match="pick one"):
         fit_spr(model, memory_lean=True, extendable=True)
     with torch.no_grad():

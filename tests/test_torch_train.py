@@ -315,10 +315,22 @@ def test_reg_tr_scan_chunk_and_profile_keep_the_math(trained, tmp_path):
                    "-cr", str(tmp_path), "-cn", "bad"])
 
 
-def test_reg_tr_mesh_is_not_ported_and_the_failure_is_reraised(tmp_path, monkeypatch):
+def test_reg_tr_mesh_is_not_ported_and_the_failure_is_reraised(trained, tmp_path,
+                                                               monkeypatch):
+    # The mesh is ported (tests/test_torch_mesh.py): two CPU shards log the
+    # NLLs of one device. A failure, such as a malformed device count, is
+    # still logged and re-raised.
     monkeypatch.setenv("SNNGP_MESH_DEVICES", "2")
-    with pytest.raises(NotImplementedError, match="SNNGP_MESH_DEVICES"):
+    torch_cli(["--device", "cpu", "reg", "tr", *CLI_ARGS, "-t", "20", "-cr", str(tmp_path),
+               "-cn", "mesh"])
+    log = str(tmp_path / "mesh" / "train.log")
+    assert "Mesh: 2 devices" in open(log).read()
+    np.testing.assert_allclose(_log_numbers(log),
+                               _log_numbers(os.path.join(trained, "torch", "train.log")),
+                               rtol=RTOL)
+    monkeypatch.setenv("SNNGP_MESH_DEVICES", "two")
+    with pytest.raises(ValueError, match="two"):
         torch_cli(["--device", "cpu", "reg", "tr", *CLI_ARGS, "-t", "2", "-cr",
-                   str(tmp_path), "-cn", "mesh"])
-    text = open(tmp_path / "mesh" / "train.log").read()
+                   str(tmp_path), "-cn", "bad"])
+    text = open(tmp_path / "bad" / "train.log").read()
     assert "Traceback" in text and "Stopped" in text
