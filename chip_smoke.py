@@ -2,8 +2,9 @@
 """GPU smoke run of snngp_torch on one NVIDIA card: exact-GP serving and
 ML-II training, sparse variational classification of images with the CNN,
 the WideResNet and the Myrtle NNGP, the Myrtle Gram -> Cholesky ->
-Student-t pipeline, the memory-lean fit and the device mesh of exact-GP
-regression, the finite-width ensemble and the paper figures.
+Student-t pipeline, the memory-lean fit, the device mesh of exact-GP
+regression and of classification and the pipeline, the finite-width
+ensemble and the paper figures.
 
     python3 chip_smoke.py
 
@@ -172,22 +173,46 @@ script exits non-zero:
    mode against ``full_gram_mlii_value_and_grad`` and against float64 on
    its own row panels (gate: loss rtol 1e-5, gradients rtol 2e-3, atol
    1e-6). The shards run one after another: these times are not a
-   multi-card time.
+   multi-card time;
+26. the batch-sharded ELBO (``SVSP.loss(..., mesh=)``: k_bi and k_bb as row
+   panels over the shards, k_ii on the lead device) at phases 9, 12 and 15's
+   shapes: its gradient on one batch against their float64 references
+   (CNN svgp / svtp and WideResNet svgp on four shards of ``cuda:0``,
+   Myrtle-5 svgp at batch 10 on two; gate: within 2x the single-device
+   fp32 kernel path's error), then 5 timed steps each of CNN svgp, CNN svtp
+   with frozen inducing inputs, WideResNet svgp and Myrtle-5 svtp on four
+   shards beside the single-device steps (gates: finite losses; exactly 9
+   K3 a step (and 9 K4 when frozen), 36 K5 and 27 K6, or 9 K7 and 9 K7
+   tangent passes);
+27. ``cls tr -m svtp -dn synthetic32 -e 1`` at phase 10's sizes through
+   ``train_main(args, mesh=...)`` on four shards, then ``cls ts`` of its
+   checkpoint on one device (gates: the log's ``Mesh: 4 devices
+   (batch-sharded ELBO)`` and finite nELBOs; the NLL within phase 10's Monte
+   Carlo tolerance of phase 10's);
+28. ``cifar_myrtle --fused on`` at phase 17's sizes without ML-II, with the
+   four shards handed in (``main(argv, mesh=)``): after the window its
+   gathered Grams against the single-device ones (gate: 1e-5 of max|K|)
+   and its NLL within 1e-4 of the same command on one device, or else each
+   route's NLL against a float64 fit of its own Grams, the mesh route's
+   error within 2x the single-device route's (it prints which gate held).
 
-Eight main paths run with the kernels' launch counts set to 0 just before
+Nine main paths run with the kernels' launch counts set to 0 just before
 and read just after: serving (phases 2-3), training (phases 5-6), the
 regression extras (phases 18-20; K1 and no other kernel), CNN
 classification (phases 9-10), WideResNet classification (phases 12-13),
 Myrtle classification with the pipeline and full-Gram ML-II (phases
 15-17 and 21's pipeline), the lean and mesh regression (phases 24-25: K1,
-K2 and K7's tangent mode) and the ensemble with the figures (phases 22-23,
+K2 and K7's tangent mode), classification and the pipeline on the mesh
+(phases 26-28: K3-K7 and K7's tangent mode, no K1 or K2) and the ensemble
+with the figures (phases 22-23,
 which run cuDNN convolutions and cuBLAS products: none of K1-K7 may
 launch there); each fails if a kernel of its path never launched. Launches made to compare a kernel with its plain version or
 with autograd (phases 1, 4, 7, 8, 11 and 14, the gradient checks of
 phases 9, 12 and 15, run just before their windows, and phase 17's
 full-tier comparison and phase 21's gradient check, run just after the
-Myrtle window, and the references of phases 24-25, run before theirs)
-are not counted.
+Myrtle window, the references of phases 24-25 and 28, run before their
+windows, and phase 28's comparisons, run after its window) are not
+counted.
 Each phase prints its seconds. The line before the last is one JSON object
 describing the kernels; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when CUDA is not available or the
@@ -324,6 +349,17 @@ MESH_BACKWARD_X = 2.0     # max|L L^T - S| of a mesh factor, over cuSOLVER's own
 MESH_PIPELINE = ["--devices", str(MESH_SHARDS), "--n-train", str(MESH_N), "--n-test", "256",
                  "--image-size", "8", "--eps", str(MESH_EPS)]
 MESH_MLII_N = 256         # full-Gram ML-II on the mesh: standard-normal images
+# Phases 26-28: classification and the pipeline on four shards of cuda:0. The
+# ELBO at the CIFAR shape of phases 9, 12 and 15 (Myrtle's float64 reference
+# is at batch 10: two shards), timed over MESH_ELBO_STEPS steps; cls tr at
+# phase 10's sizes; the pipeline at phase 17's sizes without ML-II (phase
+# 17's NLL is at its fitted scales, so a one-device run is the reference).
+MESH_ELBO_STEPS = 5
+MESH_MYRTLE_SHARDS = 2
+MESH_CLS_N, MESH_CLS_TEST = 512, 128
+MESH_CLS_PIPELINE = ["--image-size", "32", "--depth", "5", "--n-train", str(MESH_CLS_N),
+                     "--n-test", str(MESH_CLS_TEST), "--fused", "on"]
+PIPELINE_RTOL = 1e-4      # the mesh example's parity bar
 
 
 def _sync():
@@ -1562,12 +1598,13 @@ def _svsp_gradient_check(method, x, y, z, num_class, network="cnn", nb=SVSP_NB):
     if not errs["kernel"] <= 2.0 * max(errs["plain fp32"], 1e-6):
         raise AssertionError(f"{method}: kernel-path gradient error {errs['kernel']:.3e} "
                              f"above 2x the plain fp32 error {errs['plain fp32']:.3e}")
-    return errs
+    return dict(errs=errs, g64=g64)
 
 
-def _svsp_stepper(method, x, y, z, num_class, trainable_inputs, network="cnn"):
+def _svsp_stepper(method, x, y, z, num_class, trainable_inputs, network="cnn", mesh=None):
     """A fresh model and a function taking one ELBO step as ``cls tr`` takes
-    it (its batches, masks and Adam; svtp trains with last_w_std frozen)."""
+    it (its batches, masks and Adam; svtp trains with last_w_std frozen),
+    the batch's Gram blocks sharded over ``mesh`` when one is given."""
     import argparse
     import torch
     from snngp_torch.cli.classification import _optimizers
@@ -1586,20 +1623,20 @@ def _svsp_stepper(method, x, y, z, num_class, trainable_inputs, network="cnn"):
         return svsp_train_step(model, opts, [1e-2],
                                torch.as_tensor(xb.astype(np.float32), device="cuda"),
                                torch.as_tensor(yb, device="cuda"), x.shape[0],
-                               SVSP_SAMPLES, gen, prof)
+                               SVSP_SAMPLES, gen, prof, mesh=mesh)
 
     return step
 
 
 def _svsp_steps(label, method, x, y, z, num_class, want, trainable_inputs=True,
-                network="cnn", steps=SVSP_STEPS):
+                network="cnn", steps=SVSP_STEPS, mesh=None):
     """``steps`` timed ELBO steps after one untimed one; ``want`` maps each
     kernel to its launches a step (every other kernel: none). Returns the
     per-step phase times (ms)."""
     import torch
     from snngp_torch.utils import Profiler
 
-    step = _svsp_stepper(method, x, y, z, num_class, trainable_inputs, network)
+    step = _svsp_stepper(method, x, y, z, num_class, trainable_inputs, network, mesh)
     step()
     _sync()
     torch.cuda.reset_peak_memory_stats()
@@ -2690,9 +2727,9 @@ def phase24_lean(data, ref64, default_errs, lean):
                 wa_rel=rel, small_errs=errs)
 
 
-def _mesh(shape=None):
+def _mesh(shape=None, shards=MESH_SHARDS):
     from snngp_torch.parallel import get_mesh
-    size = MESH_SHARDS if shape is None else int(np.prod(shape))
+    size = shards if shape is None else int(np.prod(shape))
     return get_mesh(shape=shape, devices=["cuda:0"] * size)
 
 
@@ -2881,6 +2918,267 @@ def phase25_mesh(data, refs, train_gradients):
                                          f"against {name} {v}")
         out[f"mlii {method}"] = t
     return out
+
+
+# -- classification and the pipeline on the mesh (K3-K7, once per shard) ---------------
+
+def _mesh_elbo_cases():
+    """(label, method, network, inducing images, batch, shards) of phase 26's
+    gradient gates: phase 9's, 12's and 15's references. Myrtle's batch of
+    MYRTLE_CHECK_NB takes MESH_MYRTLE_SHARDS shards."""
+    from snngp_torch.cli.classification import _inducing_init
+
+    x, y, z, num_class = _svsp_data()
+    z_small, _ = _inducing_init(x, y, num_class, MYRTLE_CHECK_NI)
+    return (x, y, num_class,
+            (("cnn svgp", "svgp", "cnn", z, SVSP_NB, MESH_SHARDS),
+             ("cnn svtp", "svtp", "cnn", z, SVSP_NB, MESH_SHARDS),
+             ("resnet svgp", "svgp", "resnet", z, SVSP_NB, MESH_SHARDS),
+             ("myrtle svgp", "svgp", "myrtle", z_small, MYRTLE_CHECK_NB,
+              MESH_MYRTLE_SHARDS)))
+
+
+def phase26_mesh_elbo(checks, single):
+    """The batch-sharded ELBO (``SVSP.loss(..., mesh=)``) on shards of
+    cuda:0 at the CIFAR shape: its gradient on one batch against the float64
+    references of phases 9, 12 and 15 (gate: within 2x the single-device
+    fp32 kernel path's error), then MESH_ELBO_STEPS timed steps each of CNN
+    svgp, CNN svtp with frozen inducing inputs, WideResNet svgp and Myrtle-5
+    svtp on four shards (gates: finite losses and exactly the launches a
+    step of row-panel Grams: k_bi and k_bb one launch a shard, k_ii one),
+    each beside the single-device step of its phase."""
+    import torch
+
+    x, y, num_class, cases = _mesh_elbo_cases()
+    out = {}
+    for label, method, network, z, nb, shards in cases:
+        ref = checks[label]
+        model = _svsp_model(method, z, num_class, network=network, eps=1e-2)
+        draws = _cast_draws(_svsp_draws(method, num_class, nb), torch.float32)
+        xb = torch.as_tensor(x[:nb], device="cuda", dtype=torch.float32)
+        yb = torch.as_tensor(y[:nb], device="cuda")
+        (loss, g), t = _timed(lambda: _mesh_loss_and_grads(model, xb, yb, x.shape[0], draws,
+                                                           _mesh(shards=shards)))
+        g64 = ref["g64"]
+        e = ((g - g64).norm() / g64.norm()).item()
+        bar = 2.0 * max(ref["errs"]["kernel"], 1e-6)
+        print(f"[mesh-cls] {label} ELBO on {shards} shards (batch {nb}, {z.shape[0]} "
+              f"inducing): loss {loss:.8f}, {t:.3f} s; gradient rel err {e:.3e} against "
+              f"float64 (single-device fp32 {ref['errs']['kernel']:.3e})")
+        if not (math.isfinite(loss) and e <= bar):
+            raise AssertionError(f"{label} on the mesh: loss {loss}, gradient error {e:.3e} "
+                                 f"above {bar:.3e}")
+        out[f"{label} gradient"] = e
+        del model
+        torch.cuda.empty_cache()
+
+    x, y, z, num_class = _svsp_data()
+    mesh = _mesh()
+    blocks = 2 * MESH_SHARDS + 1           # k_bi and k_bb panels, k_ii
+    configs = (("cnn svgp", "svgp", "cnn", True, {"conv_gram": blocks}, "svgp"),
+               ("cnn svtp frozen", "svtp", "cnn", False,
+                {"conv_gram": blocks, "conv_gram_grads": blocks}, "svtp frozen"),
+               ("resnet svgp", "svgp", "resnet", True,
+                {"resnet_tail": blocks * (1 + 3 * (SVSP_DEPTH > 1)),
+                 "resnet_strided": 3 * blocks}, "resnet svgp"),
+               ("myrtle svtp", "svtp", "myrtle", False,
+                {"myrtle": blocks, "myrtle_grads": blocks}, "myrtle svtp"))
+    for label, method, network, trainable, want, one in configs:
+        got = _svsp_steps(f"mesh {label}", method, x, y, z, num_class, want, trainable,
+                          network=network, steps=MESH_ELBO_STEPS, mesh=mesh)
+        print(f"[mesh-cls] {label} step on {MESH_SHARDS} shards of one card "
+              f"{got['step_ms']:.2f} ms against {single[one]['step_ms']:.2f} ms on one "
+              "device (the shards run one after another: not a multi-card time)")
+        out[label] = got
+    return out
+
+
+def _mesh_loss_and_grads(model, xb, yb, num_train, draws, mesh):
+    """The ELBO on the mesh and its gradients, in _svsp_gradient_check's
+    order (sorted parameter names), as one float64 vector."""
+    import torch
+    loss = model.loss(xb, yb, num_train, SVSP_SAMPLES, draws=draws, mesh=mesh)
+    loss.backward()
+    g = torch.cat([p.grad.double().flatten() for _, p in sorted(model.named_parameters())])
+    return loss.item(), g
+
+
+def _cls_args(argv):
+    """``python -m snngp_torch --device cuda <argv>``'s parsed arguments."""
+    import argparse
+    import torch
+    import snngp_torch.cli
+
+    parser = argparse.ArgumentParser(prog="python -m snngp_torch")
+    snngp_torch.cli.add_subparser(parser.add_subparsers(dest="command", required=True))
+    args = parser.parse_args(argv)
+    args.device = torch.device("cuda")
+    return args
+
+
+def phase27_cls_mesh(cls10):
+    """``cls tr -m svtp -dn synthetic32 -e 1`` at phase 10's sizes through
+    ``train_main(args, mesh=...)`` on four shards of cuda:0, then ``cls ts``
+    of its checkpoint on one device (gates: the log says ``Mesh: 4 devices
+    (batch-sharded ELBO)`` and its nELBOs are finite; the test NLL within
+    phase 10's Monte Carlo tolerance of phase 10's run)."""
+    from snngp_torch.cli.classification import train_main
+
+    work = REPO / "build" / "chip_smoke" / "cls_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    args = _cls_args(["cls", "tr", "-m", "svtp", "-dn", "synthetic32", "-e", "1", "-ni",
+                      str(SVSP_NI), "-nb", str(SVSP_NB), "-nh", str(SVSP_DEPTH), "-cr",
+                      str(work), "-cn", "mesh", "-q"])
+    t0 = time.perf_counter()
+    train_main(args, mesh=_mesh())
+    t_tr = time.perf_counter() - t0
+    ckpt = work / "mesh"
+    text = (ckpt / "train.log").read_text()
+    nelbos = [float(ln.split("nELBO:")[1].split()[0]) for ln in text.splitlines()
+              if "nELBO:" in ln and "NLL:" not in ln]
+    if ("Traceback" in text or f"Mesh: {MESH_SHARDS} devices (batch-sharded ELBO)" not in text
+            or not nelbos or not all(math.isfinite(v) for v in nelbos)):
+        raise AssertionError(text)
+    t0 = time.perf_counter()
+    _run_cli(["--device", "cuda", "cls", "ts", "-dn", "synthetic32", "-cd", str(ckpt), "-nd",
+              str(CLS_TEST_N), "-q"])
+    t_ts = time.perf_counter() - t0
+    nll = _cls_nll(ckpt / "test")
+    diff = abs(nll - cls10["nll"]["cuda"])
+    print(f"[mesh-cls] cls tr on {MESH_SHARDS} shards: {t_tr:.2f} s (one device, phase 10: "
+          f"{cls10['times']['cuda']:.2f} s), last nELBO {nelbos[-1]:.5f}; cls ts on one "
+          f"device {t_ts:.2f} s: NLL {nll:.5f} against phase 10's {cls10['nll']['cuda']:.5f}, "
+          f"|diff| {diff:.2e} (MC tolerance {cls10['tol']:.2e})")
+    if not diff <= cls10["tol"]:
+        raise AssertionError(f"cls tr on the mesh: NLL {nll} against {cls10['nll']['cuda']}")
+    return dict(nll=nll, tr_s=t_tr, ts_s=t_ts)
+
+
+def _pipeline_data():
+    """The pipeline's train / test images (seeded synthetic, 32 x 32 x 3) on
+    the card, and its normalized targets, as ``cifar_myrtle.main`` makes
+    them at MESH_CLS_N / MESH_CLS_TEST."""
+    import torch
+    from snngp_torch.examples import cifar_myrtle
+
+    x, y = cifar_myrtle.load_images(MESH_CLS_N + MESH_CLS_TEST, 32, seed=0)
+    y_mean, y_std = np.float32(np.mean(y[:MESH_CLS_N])), np.float32(np.std(y[:MESH_CLS_N]))
+    x = torch.as_tensor(x, device="cuda")
+    return x[:MESH_CLS_N], x[MESH_CLS_N:], (y - y_mean) / y_std, y_mean, y_std
+
+
+def _pipeline_nll64(grams, data):
+    """The pipeline's Student-t NLL from these fp32 Grams with the fit and
+    the predictive in float64 (its defaults: eps 1e-4 absolute, a = b = 2,
+    t-jitter and var floor 1e-6)."""
+    import torch
+    from snngp_torch.models import SPR, NNGPKernel, StudentTLikelihood, fit_spr
+    from snngp_torch.nn.arch import get_myrtle_kernel
+
+    k_dd, k_td, k_tt = grams
+    x_train, _, y_n, y_mean, y_std = data
+    kernel = NNGPKernel(lambda w, b, l: get_myrtle_kernel(MYRTLE_DEPTH, 1, "relu", w_std=w,
+                                                          b_std=b, last_w_std=l),
+                        MLII_HYPER["w_std"], MLII_HYPER["b_std"], MLII_HYPER["last_w_std"])
+    eps_rel = 1e-4 / (float(np.trace(k_dd)) / MESH_CLS_N)
+    model = SPR(kernel, StudentTLikelihood(2.0, 2.0), x_train.cpu().numpy(), y_n[:MESH_CLS_N],
+                y_mean, y_std, eps=eps_rel).to(device="cuda", dtype=torch.float64)
+    with torch.no_grad():
+        fitted = fit_spr(model, gram=k_dd.astype(np.float64), var_floor=1e-6, t_jitter=1e-6)
+        y_test = torch.as_tensor(y_n[MESH_CLS_N:], device="cuda", dtype=torch.float64)
+        return float(fitted.test_nll_given(k_td.astype(np.float64),
+                                           np.diagonal(k_tt).astype(np.float64), y_test))
+
+
+def phase28_references():
+    """Phase 28's references, run before its launch window: the pipeline at
+    MESH_CLS_PIPELINE on one device (NLL) and its three Grams there, by
+    ``myrtle_gram_tiled`` as the fused route assembles them."""
+    from snngp_torch.examples import cifar_myrtle
+    from snngp_torch.ops.myrtle_gram import myrtle_gram_tiled
+
+    one = cifar_myrtle.main(["--device", "cuda", *MESH_CLS_PIPELINE])
+    data = _pipeline_data()
+    x_train, x_test = data[:2]
+    kw = dict(depth=MYRTLE_DEPTH, act="relu", **MLII_HYPER)
+    grams = (myrtle_gram_tiled(x_train, **kw), myrtle_gram_tiled(x_test, x_train, **kw),
+             myrtle_gram_tiled(x_test, **kw))
+    print(f"[mesh-pipeline] reference on one device: NLL {one['nll']:.6f}; phases "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in one["phases_s"].items()))
+    return dict(nll=one["nll"], phases_s=one["phases_s"], grams=grams, data=data)
+
+
+def phase28_pipeline_mesh():
+    """``cifar_myrtle --fused on`` at MESH_CLS_PIPELINE (phase 17's sizes,
+    no ML-II) with four shards of cuda:0 handed in (``main(argv, mesh=)``):
+    the Grams as K7 row panels, the blocked factorization of ``SPR(mesh=)``."""
+    from snngp_torch.examples import cifar_myrtle
+
+    result = cifar_myrtle.main(["--device", "cuda", *MESH_CLS_PIPELINE], mesh=_mesh())
+    print(f"[mesh-pipeline] on {MESH_SHARDS} shards of one card: NLL {result['nll']:.6f}; "
+          "phases " + ", ".join(f"{k} {v:.3f} s" for k, v in result["phases_s"].items()))
+    if not math.isfinite(result["nll"]):
+        raise AssertionError(f"pipeline on the mesh: NLL {result['nll']}")
+    return result
+
+
+def phase28_check(refs, result):
+    """Phase 28's comparisons, run after the window: the gathered
+    ``myrtle_gram_sharded`` Grams against the single-device ones (gate:
+    KERNEL_REL_TOL of max|K|), and the NLL: within PIPELINE_RTOL of the
+    single-device run (the mesh example's parity bar), or else each route's
+    NLL against a float64 fit of its own Grams, the mesh route's error
+    within 2x the single-device route's. Prints which gate held."""
+    import torch
+    from snngp_torch.ops.myrtle_gram import myrtle_gram_sharded
+    from snngp_torch.parallel.mesh import gather
+
+    x_train, x_test = refs["data"][:2]
+    mesh = _mesh()
+    kw = dict(depth=MYRTLE_DEPTH, act="relu", **MLII_HYPER)
+    with torch.no_grad():
+        grams = tuple(gather(myrtle_gram_sharded(a, b, mesh, **kw)).cpu().numpy()
+                      for a, b in ((x_train, None), (x_test, x_train), (x_test, None)))
+    for name, got, want in zip(("train", "cross", "test"), grams, refs["grams"]):
+        e = float(np.abs(got - want).max() / np.abs(want).max())
+        print(f"[mesh-pipeline] gathered {name} Gram {got.shape}: rel err {e:.3e} against "
+              "one device")
+        if not e <= KERNEL_REL_TOL:
+            raise AssertionError(f"mesh {name} Gram: rel err {e:.3e}")
+    nll, one = result["nll"], refs["nll"]
+    rel = abs(nll - one) / abs(one)
+    f64_one, f64_mesh = (_pipeline_nll64(g, refs["data"]) for g in (refs["grams"], grams))
+    err_one, err_mesh = abs(one - f64_one), abs(nll - f64_mesh)
+    f64_bar = 2.0 * max(err_one, 1e-7 * abs(f64_one))
+    print(f"[mesh-pipeline] NLL on the mesh {nll:.7f}, one device {one:.7f}: rel {rel:.3e} "
+          f"(parity bar {PIPELINE_RTOL:g}); against float64 fits of each route's Grams "
+          f"({f64_mesh:.7f}, {f64_one:.7f}): mesh {err_mesh:.3e}, one device {err_one:.3e}")
+    if rel <= PIPELINE_RTOL:
+        print("[mesh-pipeline] NLL gate: parity with one device holds")
+    elif err_mesh <= f64_bar:
+        print("[mesh-pipeline] NLL gate: parity missed; the float64 gate holds")
+    else:
+        raise AssertionError(f"pipeline NLL on the mesh {nll} against one device {one}: "
+                             f"rel {rel:.3e}; float64 error {err_mesh:.3e} above {f64_bar:.3e}")
+    return dict(rel=rel, err_mesh=err_mesh, err_one=err_one)
+
+
+def mesh_cls_window(checks, single, cls10):
+    """Phase 28's references, then phases 26-28 in their own launch window
+    (K3-K7 and K7's tangent mode must launch, K1 and K2 must not), then
+    phase 28's comparisons. Returns the window's launch counts."""
+    refs = _phase("28 (references)", phase28_references)
+    _reset_launches()                     # classification and pipeline on the mesh start here
+    _phase(26, phase26_mesh_elbo, checks, single)
+    _phase(27, phase27_cls_mesh, cls10)
+    result = _phase(28, phase28_pipeline_mesh)
+    counts = _read_launches("classification and pipeline on the mesh",
+                            ["conv_gram", "conv_gram_grads", "resnet_tail", "resnet_strided",
+                             "myrtle", "myrtle_grads"])   # end here
+    if counts["gram"] or counts["gram_grads"]:
+        raise AssertionError(f"the classification mesh launched {counts}; expected K3-K7")
+    _phase("28 (check)", phase28_check, refs, result)
+    return counts
 
 
 # -- the finite-width ensemble and the paper figures (no kernel of K1-K7) -------------
@@ -3126,25 +3424,26 @@ def main() -> int:
     with torch.inference_mode():
         k3_rows, k3_abs = _phase(7, phase7_k3_vs_plain)
     k4_rows = _phase(8, phase8_k4_vs_plain)
-    _phase("9 (gradient checks)", phase9_svsp_gradients)
+    checks = _phase("9 (gradient checks)", phase9_svsp_gradients)
+    checks = {f"cnn {m}": v for m, v in checks.items()}
     torch.cuda.empty_cache()
     _reset_launches()                     # classification path starts here
-    _phase(9, phase9_svsp)
-    _phase(10, phase10_cls_cli)
+    single = _phase(9, phase9_svsp)
+    cls10 = _phase(10, phase10_cls_cli)
     classify = _read_launches("classify", ["conv_gram", "conv_gram_grads"])  # ends here
 
     with torch.inference_mode():
         k56_rows, k56_abs = _phase(11, phase11_k5_k6_vs_plain)
-    _phase("12 (gradient check)", phase12_resnet_gradient)
+    checks["resnet svgp"] = _phase("12 (gradient check)", phase12_resnet_gradient)
     _reset_launches()                     # WideResNet classification path starts here
-    _phase(12, phase12_resnet_svsp)
+    single.update(_phase(12, phase12_resnet_svsp))
     _phase(13, phase13_resnet_cli)
     resnet = _read_launches("classify-resnet", ["resnet_tail", "resnet_strided"])  # ends
 
     k7_rows, k7_abs = _phase(14, phase14_k7_vs_plain)
-    _phase("15 (gradient check)", phase15_myrtle_gradient)
+    checks["myrtle svgp"] = _phase("15 (gradient check)", phase15_myrtle_gradient)
     _reset_launches()                     # Myrtle classification + pipeline path starts here
-    _phase(15, phase15_myrtle_svsp)
+    single.update(_phase(15, phase15_myrtle_svsp))
     _phase(16, phase16_myrtle_cli)
     pipeline = _phase(17, phase17_pipeline)
     _phase(21, phase21_mlii)
@@ -3162,6 +3461,9 @@ def main() -> int:
     lean_mesh = _read_launches("lean and mesh regression",
                                ["gram", "gram_grads", "myrtle_grads"])   # end here
     del lean, mesh_refs
+    torch.cuda.empty_cache()
+    mesh_cls = mesh_cls_window(checks, single, cls10)
+    del checks
     torch.cuda.empty_cache()
     _reset_launches()                     # the ensemble and the figures start here
     _phase(22, phase22_ensemble)
@@ -3187,35 +3489,40 @@ def main() -> int:
     k3 = _kernel_entry("conv_gram (K3, fused CNN NNGP Gram; one warp streams a pair's rows "
                        "through registers, symmetric launch for K(x, x))",
                        "snngp_torch/csrc/conv_gram.cu",
-                       "snngp/ops/pallas/conv_gram.py:64", classify["conv_gram"], k3_rows,
+                       "snngp/ops/pallas/conv_gram.py:64",
+                       classify["conv_gram"] + mesh_cls["conv_gram"], k3_rows,
                        K34_HEAD, k3_abs)
     k4 = _kernel_entry("conv_gram_grads (K4, scalar-tangent CNN Gram backward, fused "
                        "contraction; one warp streams a pair's rows through registers, "
                        "symmetric launch for K(x, x))", "snngp_torch/csrc/conv_gram.cu",
-                       "snngp/ops/pallas/conv_gram.py:180", classify["conv_gram_grads"],
+                       "snngp/ops/pallas/conv_gram.py:180",
+                       classify["conv_gram_grads"] + mesh_cls["conv_gram_grads"],
                        k4_rows, K34_HEAD, max(r["abs_err"] for r in k4_rows.values()))
     k5 = _kernel_entry("resnet_tail (K5, fused WideResNet stride-1 residual blocks; one warp "
                        "streams a pair's rows through registers, symmetric launch for K(x, x))",
                        "snngp_torch/csrc/resnet_conv_gram.cu",
-                       "snngp/ops/pallas/resnet_conv_gram.py:130", resnet["resnet_tail"],
+                       "snngp/ops/pallas/resnet_conv_gram.py:130",
+                       resnet["resnet_tail"] + mesh_cls["resnet_tail"],
                        k56_rows["K5"], K5_HEAD, k56_abs["K5"])
     k6 = _kernel_entry("resnet_strided (K6, fused WideResNet stride-2 group-boundary block, "
                        "at the reduced resolution; one warp streams a pair's rows through "
                        "registers, symmetric launch for K(x, x))",
                        "snngp_torch/csrc/resnet_conv_gram.cu",
-                       "snngp/ops/pallas/resnet_conv_gram.py:54", resnet["resnet_strided"],
+                       "snngp/ops/pallas/resnet_conv_gram.py:54",
+                       resnet["resnet_strided"] + mesh_cls["resnet_strided"],
                        k56_rows["K6"], K6_HEAD, k56_abs["K6"])
     k7 = _kernel_entry("myrtle (K7, fused Myrtle-5/7/10 Gram, Delta-slab recursion)",
                        "snngp_torch/csrc/myrtle_gram.cu",
                        "snngp/ops/pallas/myrtle_gram.py:278",
-                       myrtle["myrtle"] + lean_mesh["myrtle"],
+                       myrtle["myrtle"] + lean_mesh["myrtle"] + mesh_cls["myrtle"],
                        k7_rows["fwd"], K7_HEAD, k7_abs["fwd"])
     k7t = _kernel_entry("myrtle_grads (K7 scale-tangent mode, dK/dw and dK/db in one pass; "
                         "stage 1 streamed through registers, 16 warps, one block per pair "
                         "of K(x, x))",
                         "snngp_torch/csrc/myrtle_gram.cu",
                         "snngp/ops/pallas/myrtle_gram.py:278",
-                        myrtle["myrtle_grads"] + lean_mesh["myrtle_grads"],
+                        myrtle["myrtle_grads"] + lean_mesh["myrtle_grads"]
+                        + mesh_cls["myrtle_grads"],
                         k7_rows["tangents"], K7_HEAD, k7_abs["tangents"])
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k7t]}))
     print(json.dumps({"ok": True, "device": {

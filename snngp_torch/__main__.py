@@ -5,7 +5,7 @@ the JAX package's ``run.py``).
 ``--device`` (default ``cuda``) names the torch device every tensor lives
 on. Asking for CUDA on a machine without it is an error, not a quiet CPU
 run. ``--devices N`` sets ``SNNGP_MESH_DEVICES``, as ``run.py`` does: ``reg
-tr`` then trains on a mesh of N shards of that device type.
+tr`` and ``cls tr`` then train on a mesh of N shards of that device type.
 """
 
 import argparse

@@ -36,8 +36,11 @@ Divergences from the JAX package:
   the inducing inputs' gradient, and so their Adam moments, are then zero
   (the JAX package computes and masks them); every parameter takes the
   same values;
-- ``SNNGP_MESH_DEVICES`` > 1 raises ``NotImplementedError`` (the
-  multi-device path is a later slice of the port);
+- with ``SNNGP_MESH_DEVICES`` > 1 (or a mesh handed to :func:`train_main`)
+  the ELBO of each training batch the mesh divides is partitioned by hand,
+  as GSPMD partitions it there: its two batch Gram blocks are row panels
+  over the shards, gathered on the parameters' device
+  (``SVSP.loss(..., mesh=)``); the same math and draws;
 - the progress bars need ``tqdm`` only if it can be imported.
 """
 
@@ -55,6 +58,7 @@ from snngp_torch.models import (SVSP, GaussianPrior, InverseGammaPrior, NNGPKern
                                 fit_svsp)
 from snngp_torch.models.params import get_by_suffix
 from snngp_torch.nn.arch import get_cnn_kernel, get_conv_resnet_kernel, get_myrtle_kernel
+from snngp_torch.parallel.mesh import get_mesh
 from snngp_torch.utils import (SGD, Adam, Checkpointer, DataLoader, Logger,
                                ReduceLROnPlateau, get_context_summary, load_named,
                                load_training_state, progress, save_training_state,
@@ -216,7 +220,10 @@ def _inducing_init(x_train, y_train, num_class, num_inducing):
     return points, per_class
 
 
-def train_main(args):
+def train_main(args, mesh=None):
+    """``cls tr``. ``mesh`` (a :class:`snngp_torch.parallel.mesh.Mesh`, such
+    as four shards of one card) takes the place of the one that
+    ``SNNGP_MESH_DEVICES`` > 1 would build over ``--device``."""
     device = args.device
     _check_myrtle_depth(args.network, args.num_hiddens)   # before the log opens
     dataset = get_train_dataset(
@@ -247,10 +254,6 @@ def train_main(args):
             logger.log(f"Resized to ({h}, {w}, {c}) -> ({new_h}, {new_w}, {c})")
 
         args.network, _ = _base_kernel(args.network)
-        n_mesh = int(os.environ.get("SNNGP_MESH_DEVICES", "1"))
-        if n_mesh > 1:
-            raise NotImplementedError(
-                f"SNNGP_MESH_DEVICES={n_mesh}: the multi-device path is not ported yet")
 
         inducing_points, num_inducing_class = _inducing_init(x_train, y_train, num_class,
                                                              args.num_inducing)
@@ -259,6 +262,11 @@ def train_main(args):
                             args.w_std, args.b_std, args.last_w_std, args.alpha,
                             args.beta, num_class, inducing_points, args.epsilon,
                             trainable_inputs=not args.freeze_inducing).to(device)
+        n_mesh = int(os.environ.get("SNNGP_MESH_DEVICES", "1"))
+        if mesh is None and n_mesh > 1:
+            mesh = get_mesh(n_mesh, device=device)
+        if mesh is not None:
+            logger.log(f"Mesh: {mesh.size} devices (batch-sharded ELBO)")
         if args.network == "myrtle":
             logger.log("Myrtle kernel: inducing inputs fixed at their "
                        "class-proportional init (scalar-only kernel gradients)")
@@ -323,8 +331,13 @@ def train_main(args):
             for idx, (x_batch, y_batch) in enumerate(progress(
                     train_loader, args.quite, desc="Train", leave=False)):
                 xb, yb = _to_device(x_batch, y_batch, device)
+                # As the JAX CLI: only the loop without -sck shards, and only
+                # a batch the mesh divides.
+                shard = (mesh is not None and not args.scan_epoch
+                         and xb.shape[0] % mesh.size == 0)
                 nelbo = float(svsp_train_step(model, optimizers, lrs(), xb, yb, num_train,
-                                              args.num_sample, generator))
+                                              args.num_sample, generator,
+                                              mesh=mesh if shard else None))
                 total_nelbo += nelbo * x_batch.shape[0]
                 if not args.scan_epoch and (idx + 1) % log_interval == 0:
                     logger.log(f"       [{idx + 1:4d}]  {_params_str(model, nelbo, args.method)}",

@@ -28,11 +28,23 @@ else ``xla`` (``torch.linalg``, cuSOLVER on the card). ``blocked``
 asked for: the JAX script's ``auto`` takes it from N = 4,096, where it
 shards under GSPMD, but on one card it is panels of cuSOLVER's work.
 
-Not ported (they raise ``NotImplementedError``): ``--devices`` > 1 (the
-sharded Myrtle Gram), and the JAX dispatch knobs ``--scan-chunk`` /
-``--remat``. ``--bf16`` is ignored on the
-fused path on the card, with the JAX script's message, and raises
-elsewhere (the bf16 pair state is not ported).
+``--devices N`` (or a mesh handed to :func:`main`, such as four shards of
+one card) evaluates the Grams on a mesh: with ``--fused`` as row panels of
+:func:`snngp_torch.ops.myrtle_gram.myrtle_gram_sharded` (no
+``--resume-gram``, no ``--fused-block``), else each ``--tile`` row strip of
+the full tier through :func:`snngp_torch.parallel.gram.sharded_gram`. The
+rows of each Gram must divide the mesh. ``SPR(mesh=)`` then factors through
+the blocked Cholesky whatever ``--chol`` says, ``auto`` never takes the
+memory-lean fit, and ``inplace`` is refused. An ML-II fit runs on one
+device first, as in the JAX script.
+
+``--bf16`` runs the full tier (``--fused off``) in bfloat16, raises
+``--eps`` to at least 1e-2 and scores the predictive with an extra
+1e-2 y_std^2 of variance (the JAX script's numerics-validation quirk). On
+the fused path on the card it is ignored, with the JAX script's message;
+with ``--fused on`` off the card it raises (K7's bf16 pair state is not
+ported). The JAX dispatch knobs ``--scan-chunk`` / ``--remat`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,11 +60,14 @@ from snngp_torch.data.classification import _load_cifar10_dir
 from snngp_torch.data.resize import bilinear_resize
 from snngp_torch.models import SPR, GaussianLikelihood, NNGPKernel, StudentTLikelihood, fit_spr
 from snngp_torch.models import params as P
+from snngp_torch.models.likelihoods import student_t_logpdf
 from snngp_torch.nn.arch import get_myrtle_kernel
 from snngp_torch.nn.full import get_myrtle_kernel as full_myrtle
 from snngp_torch.nn.full import scan_tiled_gram
-from snngp_torch.ops.myrtle_gram import myrtle_gram_tiled
+from snngp_torch.ops.myrtle_gram import myrtle_gram_sharded, myrtle_gram_tiled
+from snngp_torch.parallel import get_mesh, sharded_gram
 from snngp_torch.parallel.cholesky import blocked_cholesky
+from snngp_torch.parallel.mesh import gather
 from snngp_torch.utils import Adam, Profiler
 
 
@@ -146,12 +161,13 @@ def _parser():
     ap.add_argument("--eps", type=float, default=1e-4,
                     help="absolute regularizer of the train Gram (K + eps I)")
     ap.add_argument("--bf16", action="store_true",
-                    help="the JAX package's bf16 pair state: not ported")
+                    help="the full tier in bfloat16 (eps raised to 1e-2); ignored on the "
+                         "fused path on the card")
     ap.add_argument("--scan-chunk", type=int, default=0,
                     help="JAX dispatch knob (lax.scan chunks): not ported")
     ap.add_argument("--remat", action="store_true", help="JAX dispatch knob: not ported")
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard the Gram over devices: not ported (one device)")
+                    help="evaluate the Grams on a mesh of this many devices of --device")
     ap.add_argument("--fused", choices=["auto", "on", "off"], default="auto",
                     help="assemble the Grams with the fused Myrtle Gram (K7 on the "
                          "card); auto = a CUDA device and an image side of 8, 16 or 32")
@@ -185,28 +201,61 @@ def _parser():
     return ap
 
 
-def _chol_route(chol, n_train):
-    """(memory_lean, chol_fn) of ``fit_spr`` for ``--chol`` at ``n_train``."""
-    memory_lean = chol == "inplace" or (chol == "auto" and n_train >= 32768)
+def _chol_route(chol, n_train, mesh=None):
+    """(memory_lean, chol_fn) of ``fit_spr`` for ``--chol`` at ``n_train``
+    (on a ``mesh``, ``SPR`` installs the blocked factorization for a
+    ``chol_fn`` of None)."""
+    if chol == "inplace" and mesh is not None:
+        raise SystemExit("--chol inplace is a single-device kernel (donated fori-loop "
+                         "carry); with --devices use --chol blocked, which shards under "
+                         "GSPMD.")
+    memory_lean = chol == "inplace" or (chol == "auto" and n_train >= 32768
+                                        and mesh is None)
     return memory_lean, (blocked_cholesky if chol == "blocked" else None)
 
 
+def _strips(kernel_fn, x1, x2, tile, mesh):
+    """K(x1, x2) from the full tier on a mesh, one [tile, N2] row strip at a
+    time through ``sharded_gram`` (the JAX script's ``tiled_gram``), into a
+    host array."""
+    n1 = x1.shape[0]
+    if n1 % tile:
+        raise ValueError("pad inputs to the tile size")
+    out = np.zeros((n1, x2.shape[0]), np.float32)
+    with torch.no_grad():
+        for i in range(0, n1, tile):
+            strip = gather(sharded_gram(kernel_fn, x1[i:i + tile], mesh, x2=x2))
+            out[i:i + tile] = strip.float().cpu().numpy()
+    return out
+
+
 def _check_unported(args):
-    if args.devices > 1:
-        raise NotImplementedError("--devices > 1: the sharded Myrtle Gram is not ported yet")
     if args.scan_chunk or args.remat:
         raise NotImplementedError("--scan-chunk / --remat batch JAX dispatches; the port "
                                   "dispatches eagerly and does not take them")
 
 
-def main(argv=None):
+def main(argv=None, mesh=None):
     """Run the pipeline; returns {"nll", "phases_s", "hyper", "mlii_s"} (the
-    last the wall time of the ML-II fit, 0 without ``--mlii``)."""
+    last the wall time of the ML-II fit, 0 without ``--mlii``). ``mesh``
+    takes the place of the one ``--devices`` would build."""
     args = _parser().parse_args(argv)
     _check_unported(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: CUDA is not available")
     device = torch.device(args.device)
+    if mesh is None and args.devices > 1:
+        mesh = get_mesh(args.devices, device=device)
+    fused = (args.fused == "on"
+             or (args.fused == "auto" and device.type == "cuda"
+                 and args.image_size in (8, 16, 32)))
+    bf16 = args.bf16 and not fused
+    if args.bf16 and fused:
+        if device.type != "cuda":
+            raise NotImplementedError("--bf16 with --fused on: K7's bf16 pair state is not "
+                                      "ported (ROADMAP Queue 1 item 9); use --fused off")
+        print("[cifar_myrtle] --bf16 ignored on the fused path (the kernel's pair state "
+              "is fp32); Gram stays fp32, keeping the fp32-sized eps.")
 
     x, y = load_images(args.n_train + args.n_test, args.image_size, seed=0)
     x_train, x_test = x[:args.n_train], x[args.n_train:]
@@ -225,19 +274,20 @@ def main(argv=None):
             args, x_train[:n_fit], y_train[:n_fit], device)
     mlii_s = time.perf_counter() - t0
 
-    fused = (args.fused == "on"
-             or (args.fused == "auto" and device.type == "cuda"
-                 and args.image_size in (8, 16, 32)))
-    if args.bf16:
-        if not (fused and device.type == "cuda"):
-            raise NotImplementedError("--bf16: the bf16 pair state is not ported")
-        print("[cifar_myrtle] --bf16 ignored on the fused path (the kernel's pair state "
-              "is fp32); Gram stays fp32, keeping the fp32-sized eps.")
+    # bf16 Gram entries carry ~1e-2 relative noise: the solve needs a
+    # regularizer to match (the JAX script's rule).
+    if bf16 and args.eps < 1e-2:
+        args.eps = 1e-2
     xt_train = torch.as_tensor(x_train, device=device)
     xt_test = torch.as_tensor(x_test, device=device)
     prof = Profiler()
 
-    if fused:
+    if fused and mesh is not None:
+        def gram(a, b, symmetric, name=""):
+            shards = myrtle_gram_sharded(a, None if symmetric else b, mesh, depth=args.depth,
+                                         act="relu", **hyper)
+            return gather(shards).cpu().numpy()
+    elif fused:
         if args.resume_gram:
             os.makedirs(args.resume_gram, exist_ok=True)
 
@@ -248,9 +298,12 @@ def main(argv=None):
                                      act="relu", block=args.fused_block, log=print,
                                      resume_path=resume, **hyper)
     else:
-        kfn = full_myrtle(args.depth, 1, "relu", **hyper)
+        kfn = full_myrtle(args.depth, 1, "relu", dtype=torch.bfloat16 if bf16 else None,
+                          **hyper)
 
         def gram(a, b, symmetric, name=""):
+            if mesh is not None:
+                return _strips(kfn, a, b, args.tile, mesh)
             return scan_tiled_gram(kfn, a, None if symmetric else b, tile=args.tile)
 
     with prof.phase("gram_train"):
@@ -268,11 +321,11 @@ def main(argv=None):
         return get_myrtle_kernel(args.depth, 1, "relu", w_std=w_std, b_std=b_std,
                                  last_w_std=last_w_std, trainable_inputs=False)
 
-    memory_lean, chol_fn = _chol_route(args.chol, args.n_train)
+    memory_lean, chol_fn = _chol_route(args.chol, args.n_train, mesh)
 
     kernel = NNGPKernel(kernel_builder, hyper["w_std"], hyper["b_std"], hyper["last_w_std"])
     model = SPR(kernel, StudentTLikelihood(args.alpha, args.beta, chol_fn=chol_fn), x_train,
-                y_train, y_mean, y_std, eps=eps_rel).to(device)
+                y_train, y_mean, y_std, eps=eps_rel, mesh=mesh).to(device)
     y_test_n = torch.as_tensor((y[args.n_train:] - y_mean) / y_std, device=device)
     with torch.no_grad():
         with prof.phase("fit"):
@@ -281,7 +334,17 @@ def main(argv=None):
         if memory_lean:
             del k_dd                      # the factor holds the one N x N buffer
         with prof.phase("predictive"):
-            nll = fitted.test_nll_given(k_td, np.diagonal(k_tt).copy(), y_test_n)
+            k_tt_diag = np.diagonal(k_tt).copy()
+            if bf16:
+                # The JAX script's bf16 quirk: ~1e-2 relative Gram noise takes
+                # an additive variance the library's scoring does not model.
+                mean_d, var_d = fitted.predict_given(k_td, k_tt_diag)
+                var_d = var_d + 1e-2 * float(y_std) ** 2
+                y_den = y_test_n * float(y_std) + float(y_mean)
+                nll = -torch.mean(student_t_logpdf(y_den, fitted.state["cond_df"], mean_d,
+                                                   torch.sqrt(var_d)))
+            else:
+                nll = fitted.test_nll_given(k_td, k_tt_diag, y_test_n)
     print(prof.report())
     total = sum(prof.totals.values())
     print(f"\nN={args.n_train} Myrtle-{args.depth} ({args.image_size}x{args.image_size}) "

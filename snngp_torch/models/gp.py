@@ -44,15 +44,22 @@ class SVSP(nn.Module):
 
     The random draws of ``loss`` / ``test_acc_nll`` come from ``generator``
     (a ``torch.Generator`` on the parameters' device) or are injected as
-    ``draws`` (see :mod:`snngp_torch.models.priors`). ``mesh`` / ``chol_fn``
-    (the distributed factorization) are not ported yet."""
+    ``draws`` (see :mod:`snngp_torch.models.priors`).
+
+    ``chol_fn`` routes both inducing-side inverses through a factorization
+    (:mod:`snngp_torch.parallel.cholesky`) in place of the eigh
+    pseudo-inverse; ``mesh`` without a ``chol_fn`` installs
+    :func:`~snngp_torch.parallel.cholesky.blocked_cholesky` with
+    ``chol_block``, as the JAX package does. ``mesh`` shards nothing here:
+    ``loss(..., mesh=)`` shards a batch's Gram blocks."""
 
     def __init__(self, prior, kernel, inducing_variable, *, num_latent_gps: int = 1,
-                 eps: float = 1e-6, chol_fn=None, mesh=None):
+                 eps: float = 1e-6, chol_fn=None, mesh=None, chol_block: int = 512):
         super().__init__()
-        if chol_fn is not None or mesh is not None:
-            raise NotImplementedError("chol_fn / mesh: the multi-device path is not "
-                                      "ported yet")
+        if chol_fn is None and mesh is not None:
+            from snngp_torch.parallel.cholesky import blocked_cholesky
+            chol_fn = functools.partial(blocked_cholesky, block=chol_block)
+        self.chol_fn = chol_fn
         self.bij = positive()
         self.num_latent_gps = num_latent_gps
         self.prior = prior
@@ -67,36 +74,64 @@ class SVSP(nn.Module):
     def num_inducing(self) -> int:
         return self.inducing_variable.shape[0]
 
-    def _posterior_pieces(self, x_batch, phase=_no_phase):
+    def _posterior_pieces(self, x_batch, phase=_no_phase, mesh=None):
         """The Gram blocks and solves shared by the loss and test paths:
         (A_B [B, I], B_B [B, B], k_rel_inv, k_bi, k_ii, k_ii_inv, q_mu,
         q_sqrt) with A_B = k_bi (k_ii + eps I)^-1 (absolute-eps jitter,
         spax/models.py:40) and B_B = k_bb - k_bi (k_ii + r I)^-1 k_ib with
         the trace-relative r (spax/models.py:43 via kernel.predict), the
         latter through the eigh pseudo-inverse (see
-        :func:`~snngp_torch.ops.linalg.pinv_psd_eigh`)."""
+        :func:`~snngp_torch.ops.linalg.pinv_psd_eigh`) or, with a
+        ``chol_fn``, through its factor L as V^T V, V = L^-1.
+
+        On a 1-D ``mesh`` of P shards (P must divide B) k_bi and k_bb are
+        the row panels of :func:`~snngp_torch.parallel.gram.sharded_gram`,
+        one [B / P, I] and one [B / P, B] a shard, gathered on the
+        parameters' device, where k_ii and everything after the Grams run
+        (the partition GSPMD gives the JAX package's ELBO over a
+        batch-sharded minibatch). The panels' backward runs on their
+        shards."""
         z = self.inducing_variable
         eps = P.constrained_read(self.eps, self.bij)
         q_sqrt = P.constrained_read(self.q_sqrt, self.bij)
         with phase("gram"):
             kernel_fn = self.kernel.get_kernel_fn()
-            k_bi = self.kernel.K(kernel_fn, x_batch, z)          # [B, I]
+            if mesh is None:
+                k_bi = self.kernel.K(kernel_fn, x_batch, z)      # [B, I]
+                k_bb = self.kernel.K(kernel_fn, x_batch)         # [B, B]
+            else:
+                from snngp_torch.parallel.gram import sharded_gram
+                from snngp_torch.parallel.mesh import gather
+                k_bi = gather(sharded_gram(kernel_fn, x_batch, mesh, x2=z), z.device)
+                k_bb = gather(sharded_gram(kernel_fn, x_batch, mesh), z.device)
             k_ii = self.kernel.K(kernel_fn, z)                   # [I, I]
-            k_bb = self.kernel.K(kernel_fn, x_batch)             # [B, B]
         with phase("posterior"):
             # The lift is a no-op while (k_ii + eps I) is numerically PD.
-            k_ii_inv = inv_psd(psd_safety_lift(add_jitter(k_ii, eps)))
+            k_ii_inv = inv_psd(psd_safety_lift(add_jitter(k_ii, eps)), self.chol_fn)
             a_b = k_bi @ k_ii_inv
-            k_rel_inv = pinv_psd_eigh(add_diag_reg(k_ii, eps))
+            k_rel_inv = self._rel_inv(add_diag_reg(k_ii, eps))
             b_b = k_bb - k_bi @ k_rel_inv @ k_bi.T
         return a_b, b_b, k_rel_inv, k_bi, k_ii, k_ii_inv, self.q_mu, q_sqrt
 
+    def _rel_inv(self, k_rel):
+        """(k_ii + r I)^-1: the eigh pseudo-inverse, or with a ``chol_fn``
+        V^T V from V = L^-1, without the safety lift (as in the JAX
+        package: an fp32-indefinite k_ii gives NaN there)."""
+        if self.chol_fn is None:
+            return pinv_psd_eigh(k_rel)
+        chol = self.chol_fn(k_rel)
+        eye = torch.eye(chol.shape[0], dtype=chol.dtype, device=chol.device)
+        v = torch.linalg.solve_triangular(chol, eye, upper=False)
+        return v.T @ v
+
     def loss(self, x_batch, y_batch, num_train, num_samples, generator=None, draws=None,
-             aux=False, phase=_no_phase):
+             aux=False, phase=_no_phase, mesh=None):
         """Negative ELBO per data point (spax/models.py:30-56). ``phase``
         (a profiler's ``phase``) names the gram / posterior /
-        sampling+likelihood intervals."""
-        a_b, b_b, _, _, k_ii, k_ii_inv, q_mu, q_sqrt = self._posterior_pieces(x_batch, phase)
+        sampling+likelihood intervals; ``mesh`` shards the batch's Gram
+        blocks (see :meth:`_posterior_pieces`)."""
+        a_b, b_b, _, _, k_ii, k_ii_inv, q_mu, q_sqrt = self._posterior_pieces(
+            x_batch, phase, mesh)
         with phase("posterior"):
             mean = q_mu @ a_b.T                                  # [C, B]
             cov = torch.einsum("ij,cj,kj->cik", a_b, q_sqrt, a_b) + b_b[None, :, :]

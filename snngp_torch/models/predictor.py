@@ -51,8 +51,7 @@ import torch
 from snngp_torch.models import params as P
 from snngp_torch.models.likelihoods import normal_logpdf, student_t_logpdf
 from snngp_torch.ops.linalg import (_add_diag_reg_, add_diag_reg, add_jitter, chol_append,
-                                    chol_quad_form, chol_solve, cholesky, inv_psd,
-                                    pinv_psd_eigh)
+                                    chol_quad_form, chol_solve, cholesky, inv_psd)
 from snngp_torch.parallel.cholesky import blocked_triangular_solve, inplace_blocked_cholesky
 from snngp_torch.ops.softmax import get_correct_count, test_log_likelihood
 
@@ -381,16 +380,17 @@ class FittedSPR:
 def fit_svsp(model) -> "FittedSVSP":
     """One-time inducing-side solve for an :class:`snngp_torch.models.gp.SVSP`
     with the parameters it holds: the inducing Gram's jittered inverse, its
-    relative-reg eigh pseudo-inverse (as ``SVSP._posterior_pieces``
-    computes them) and the ``q_mu`` solve."""
+    relative-reg inverse (the eigh pseudo-inverse, or through the model's
+    ``chol_fn`` when it has one, as ``SVSP._posterior_pieces`` computes
+    them) and the ``q_mu`` solve."""
     z = model.inducing_variable.detach()
     eps = P.constrained_read(model.eps, model.bij)
     kernel_fn = model.kernel.get_kernel_fn()
     k_ii = model.kernel.K(kernel_fn, z)
-    k_rel_inv = pinv_psd_eigh(add_diag_reg(k_ii, eps))
+    k_rel_inv = model._rel_inv(add_diag_reg(k_ii, eps))
     state = {
         "z": z,
-        "k_ii_inv": inv_psd(add_jitter(k_ii, eps)),
+        "k_ii_inv": inv_psd(add_jitter(k_ii, eps), model.chol_fn),
         "k_rel_inv": k_rel_inv,
         "w": k_rel_inv @ model.q_mu.T,                           # [I, C]
         "q_sqrt": P.constrained_read(model.q_sqrt, model.bij),

@@ -234,7 +234,7 @@ def scan_tiled_gram(kernel_fn, x1, x2=None, *, tile: int = 16, chunk: int = 64,
         for i in range(0, n1, tile):
             for j in range(i if symmetric else 0, n2, tile):
                 blk = kernel_fn(x1[i:i + tile], x2_eff[j:j + tile], get="nngp")
-                blk = blk.detach().cpu().numpy()
+                blk = blk.detach().float().cpu().numpy()   # numpy has no bfloat16
                 out[i:i + tile, j:j + tile] = blk
                 if symmetric and j > i:
                     out[j:j + tile, i:i + tile] = blk.T

@@ -189,12 +189,17 @@ def _sym(mat: torch.Tensor) -> torch.Tensor:
     return (mat + mat.mT) * 0.5
 
 
-def inv_psd(mat: torch.Tensor) -> torch.Tensor:
+def inv_psd(mat: torch.Tensor, chol_fn=None) -> torch.Tensor:
     """Explicit PSD inverse through the lower Cholesky factor of ``mat``
     (its lower triangle, as ``cho_factor(lower=True)`` reads it), for sites
     where the reference materializes ``jnp.linalg.inv`` (spax/models.py:40).
-    NaN where ``mat`` is not PD, as in JAX."""
-    chol = _nan_where_failed(*torch.linalg.cholesky_ex(mat))
+    NaN where ``mat`` is not PD, as in JAX. ``chol_fn`` swaps in another
+    factorization (a blocked or distributed one,
+    :mod:`snngp_torch.parallel.cholesky`)."""
+    if chol_fn is not None:
+        chol = chol_fn(mat)
+    else:
+        chol = _nan_where_failed(*torch.linalg.cholesky_ex(mat))
     return torch.cholesky_inverse(chol, upper=False)
 
 
@@ -202,8 +207,13 @@ def psd_safety_lift(mat: torch.Tensor, mult: float = 1.0) -> torch.Tensor:
     """Diagonal lift that makes a symmetric matrix safely factorizable: its
     smallest eigenvalue is raised to ``mult * eps_dtype * max_eig`` when it
     is below that floor; an exact no-op otherwise (boost 0). The eigenvalues
-    are detached: gradients flow through ``mat`` as without the guard."""
-    ev = torch.linalg.eigvalsh(_sym(mat.detach()))
+    are detached: gradients flow through ``mat`` as without the guard. A
+    matrix that holds NaN or inf is returned as it is: JAX's eigvalsh
+    gives NaN there and the lift spreads it, where torch's raises."""
+    sym = _sym(mat.detach())
+    if not bool(torch.isfinite(sym).all()):
+        return mat
+    ev = torch.linalg.eigvalsh(sym)
     lo, hi = ev[..., 0], ev[..., -1]
     floor = mult * torch.finfo(mat.dtype).eps * hi
     boost = torch.clamp(floor - lo, min=0.0)

@@ -47,7 +47,8 @@ last. See ``csrc/myrtle_gram.cu`` for the kernel's side.
   and the scale cotangents from the tangent mode).
 - :func:`myrtle_gram_scale_grads` returns (K, dK/dw_std, dK/db_std);
   :func:`myrtle_gram_tiled` assembles a large Gram block by block into host
-  memory, resumable from an ``.npy`` memmap.
+  memory, resumable from an ``.npy`` memmap; :func:`myrtle_gram_sharded`
+  evaluates it as shards over a device mesh.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ from snngp_torch.ops.tiled import assemble_tiles
 __all__ = ["MYRTLE_GROUPS", "myrtle_var_profiles", "myrtle_profile_tangents",
            "myrtle_gram_plain", "myrtle_gram_tangents_plain", "myrtle_gram_cuda",
            "myrtle_gram_tangents_cuda", "myrtle_gram", "myrtle_gram_scale_grads",
-           "myrtle_gram_tiled", "pack_profiles", "LAUNCHES"]
+           "myrtle_gram_tiled", "myrtle_gram_sharded", "pack_profiles", "LAUNCHES"]
 
 MYRTLE_GROUPS = {5: (1, 1, 1), 7: (2, 2, 1), 10: (3, 3, 2)}
 
@@ -712,3 +713,23 @@ def myrtle_gram_tiled(x1, x2=None, *, depth: int = 5, act: str = "relu", w_std=1
                             done_path=done_path, log=log, label="myrtle_gram_tiled",
                             what="block")
     return out
+
+
+def myrtle_gram_sharded(x1: torch.Tensor, x2: Optional[torch.Tensor], mesh, *, depth: int = 5,
+                        act: str = "relu", w_std=1.0, b_std=0.0, last_w_std=1.0, dtype=None):
+    """The fused Myrtle Gram as shards over ``mesh``, in
+    :func:`~snngp_torch.parallel.gram.sharded_gram`'s layout: row panels on a
+    1-D mesh (shard d runs one K7 launch of its rows of ``x1`` against all of
+    ``x2``), tiles on a 2-D mesh (a square mesh's diagonal tiles of K(x, x)
+    are K7's symmetric launch). ``x2=None`` is K(x1, x1). The leading dims
+    must divide the mesh axes; :func:`~snngp_torch.parallel.mesh.gather`
+    joins the shards."""
+    from snngp_torch.parallel.gram import sharded_gram
+
+    def kernel_fn(a, b, get="nngp"):
+        if get != "nngp":
+            raise ValueError(f"the fused Myrtle Gram computes the nngp only, not {get!r}")
+        return myrtle_gram(a, b, depth=depth, act=act, w_std=w_std, b_std=b_std,
+                           last_w_std=last_w_std, dtype=dtype)
+
+    return sharded_gram(kernel_fn, x1, mesh, x2=x2)

@@ -49,7 +49,7 @@ def train_step(model, optimizer, lr, prof=None):
 
 
 def svsp_train_step(model, optimizers, lrs, x_batch, y_batch, num_train, num_samples,
-                    generator=None, prof=None):
+                    generator=None, prof=None, mesh=None):
     """One ELBO step on ``model`` (an ``SVSP``): the negative ELBO per data
     point, its gradient, one update of each optimizer at its learning rate
     (``-lr2`` trains with two: every parameter but the prior's at ``lrs[0]``,
@@ -60,12 +60,16 @@ def svsp_train_step(model, optimizers, lrs, x_batch, y_batch, num_train, num_sam
     five synchronized phases: ``gram`` (the three Gram blocks, K3 on the
     card), ``posterior`` (the inducing inverses, the eigh pseudo-inverse and
     the safety lifts), ``sampling+likelihood`` (the posterior draws, the
-    softmax likelihood and the KL), ``backward`` and ``optimizer``."""
+    softmax likelihood and the KL), ``backward`` and ``optimizer``.
+
+    ``mesh`` shards the batch's Gram blocks over its shards
+    (``SVSP.loss(..., mesh=)``); the caller passes it only for a batch
+    whose size the mesh divides."""
     phase = prof.phase if prof is not None else (lambda name: contextlib.nullcontext())
     for opt in optimizers:
         opt.zero_grad()
     loss = model.loss(x_batch, y_batch, num_train, num_samples, generator=generator,
-                      phase=phase)
+                      phase=phase, mesh=mesh)
     with phase("backward"):
         loss.backward()
     with phase("optimizer"):

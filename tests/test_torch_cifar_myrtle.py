@@ -87,11 +87,9 @@ def test_example_matches_the_jax_script(jax_run, fused, tmp_path, monkeypatch, c
     assert "Traceback" not in out
 
 
-# Full-scope ML-II runs (tests/test_torch_mlii.py); across devices it needs
-# the sharded Myrtle Gram and still raises, as --devices does.
-@pytest.mark.parametrize("flags", [["--mlii", "1", "--mlii-scope", "full", "--devices", "2"],
-                                   ["--devices", "2"], ["--scan-chunk", "4"], ["--remat"],
-                                   ["--bf16"]])
+# --devices (with and without full-scope ML-II) and --bf16 off the fused
+# path run (tests/test_torch_mesh_cls_cli.py); the JAX dispatch knobs raise.
+@pytest.mark.parametrize("flags", [["--scan-chunk", "4"], ["--remat"]])
 def test_unported_flags_raise(flags, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError):

@@ -180,20 +180,30 @@ def test_freeze_inducing_keeps_the_inducing_inputs(tmp_path):
 
 @pytest.mark.parametrize("network", ["myrtle"])
 def test_unported_networks_raise_and_log(network, tmp_path, monkeypatch):
-    # Every network is ported; what is not (the multi-device path) still
-    # raises, and the failure is logged before it is re-raised.
-    monkeypatch.setenv("SNNGP_MESH_DEVICES", "4")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _port([*_epochs(TRAIN, 1), "-n", network, "-nh", "5", "-cr", str(tmp_path),
-               "-cn", "x"])
+    # Every network and the mesh are ported; a failure inside the run (here
+    # -r 2 halves the 8 x 8 images to 4 x 4, which Myrtle's three pools do
+    # not take) is logged before it is re-raised.
+    monkeypatch.setenv("SNNGP_MESH_DEVICES", "1")
+    with pytest.raises(ValueError, match="AvgPool"):
+        _port([*_epochs(TRAIN, 1), "-n", network, "-nh", "5", "-r", "2", "-cr",
+               str(tmp_path), "-cn", "x"])
     text = open(tmp_path / "x" / "train.log").read()
     assert "Traceback" in text and "Stopped" in text
 
 
 def test_mesh_is_not_ported(tmp_path, monkeypatch):
+    # The mesh is ported: SNNGP_MESH_DEVICES=4 trains with the batch-sharded
+    # ELBO (batches of 40; tests/test_torch_mesh_cls_cli.py holds it against
+    # one device) and its checkpoint scores in cls ts.
     monkeypatch.setenv("SNNGP_MESH_DEVICES", "4")
-    with pytest.raises(NotImplementedError, match="SNNGP_MESH_DEVICES"):
-        _port([*TRAIN, "-cr", str(tmp_path), "-cn", "x"])
+    nb = TRAIN.index("-nb") + 1
+    _port([*TRAIN[:nb], "40", *TRAIN[nb + 1:], "-cr", str(tmp_path), "-cn", "x"])
+    text = open(tmp_path / "x" / "train.log").read()
+    assert "Mesh: 4 devices (batch-sharded ELBO)" in text and "Traceback" not in text
+    nelbo = float(text.split("[  1]  nELBO:")[1].split()[0])
+    assert np.isfinite(nelbo)
+    monkeypatch.setenv("SNNGP_MESH_DEVICES", "1")
+    assert np.isfinite(_test_nll(str(tmp_path / "x"), _port))
 
 
 def test_cuda_device_without_cuda_is_an_error(tmp_path):

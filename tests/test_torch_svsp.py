@@ -21,6 +21,8 @@ Tolerances:
 - the sampler statistics: 5 standard errors of the moment estimates.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +47,8 @@ from snngp_torch.nn.arch import get_cnn_kernel as tcnn
 from snngp_torch.ops import linalg as tlinalg
 from snngp_torch.ops import softmax as tsoftmax
 from snngp_torch.ops.mvt import TDraws, draw_t, multivariate_t as tmvt, standard_t
+from snngp_torch.parallel import get_mesh
+from snngp_torch.parallel.cholesky import blocked_cholesky
 from snngp_torch.sklearn import SNNGPClassifier
 from snngp_torch.utils import Adam, Profiler, svsp_train_step
 
@@ -264,11 +268,23 @@ def test_test_acc_nll_and_its_gradients_match(method):
 
 
 def test_mesh_and_chol_fn_are_not_ported():
+    # Both are ported: SVSP(chol_fn=) keeps the factorization, SVSP(mesh=)
+    # installs the blocked one with chol_block (tests/test_torch_mesh_cls.py
+    # holds both against the JAX package); on this well-conditioned inducing
+    # Gram the ELBO equals the eigh path's (rtol 1e-5).
     z = np.zeros((2, 4, 4, 1), np.float32)
-    with pytest.raises(NotImplementedError):
-        TSVSP(TG(), TK(lambda *a: None), z, chol_fn=lambda m: m)
-    with pytest.raises(NotImplementedError):
-        TSVSP(TG(), TK(lambda *a: None), z, mesh=object())
+    chol = functools.partial(blocked_cholesky, block=2)
+    assert TSVSP(TG(), TK(lambda *a: None), z, chol_fn=chol).chol_fn is chol
+    meshed = TSVSP(TG(), TK(lambda *a: None), z, mesh=get_mesh(2, device="cpu"),
+                   chol_block=4)
+    assert meshed.chol_fn.func is blocked_cholesky and meshed.chol_fn.keywords == {"block": 4}
+    jm, tm, params, x, y = _models("svtp", SHAPES["8x8x1"])
+    draws = _draws("svtp", params, random.PRNGKey(3), (S, C, B))
+    with torch.no_grad():
+        want = tm.loss(to_torch(x), torch.as_tensor(y), 100, S, draws=draws)
+        tm.chol_fn = chol
+        got = tm.loss(to_torch(x), torch.as_tensor(y), 100, S, draws=draws)
+    _close(got, to_numpy(want))
 
 
 def test_svsp_train_step_reports_each_phase():
