@@ -97,7 +97,16 @@ script exits non-zero:
    bitwise equal, every symmetric launch (``same``, both modes) bitwise
    symmetric in K and its tangents; both timed (one call each) at 200 x
    200 pairs of 32 x 32 x 3, Myrtle-5, relu, beside their plain versions,
-   their bounds and the bound's share of the kernel's time;
+   their bounds and the bound's share of the kernel's time; then K7's bf16
+   pair-state variant (``myrtle_gram_cuda(state=torch.bfloat16)``) at
+   Myrtle-5 (rectangular) and Myrtle-7 (ragged symmetric) x relu / erf at
+   8 x 8 and 16 x 16 and at the head shape (gate: within 1e-4 of max|K| of
+   its bf16 plain version on the card; its distance from the fp32 kernel
+   within [0.5x, 2x] the plain bf16 version's, the upper side floored at
+   1e-3; finite; two launches
+   bitwise equal; symmetric launches bitwise symmetric), with the bf16 and
+   fp32 forwards timed in turns at the head shape and the bf16 plain
+   version once;
 15. Myrtle SVSP at full width (synthetic32, 200 frozen inducing images,
    batches of 100, Myrtle-5 relu): the ELBO's gradient against float64
    through K7's plain versions at 20 inducing images and batch 10 (gate:
@@ -110,8 +119,11 @@ script exits non-zero:
 17. the pipeline, ``python -m snngp_torch.examples.cifar_myrtle --device
    cuda --image-size 32 --depth 5 --n-train 512 --n-test 128 --fused on
    --mlii 3 --mlii-n 128`` on seeded synthetic images: its per-phase
-   report and a finite NLL, launching K7 only; then K7 against the full
-   tier on a 64-image block (gate: 2e-5 of max|K|);
+   report and a finite NLL, launching K7 only; then the same sizes with
+   ``--bf16 --t-jitter 1e-2`` and no ML-II (gate: a finite NLL, bf16 in
+   effect, 3 launches of K7's bf16 variant and none of the fp32 kernel);
+   then K7 against the full tier on a 64-image block (gate: 2e-5 of
+   max|K|);
 18. extendable serving at phase 2's size: ``fit_spr(extendable=True)``,
    then ``FittedSPR.extend`` by 1,000 points; its predictive on a
    1,000-point request against a float64 factorization of the same
@@ -194,14 +206,24 @@ script exits non-zero:
    gathered Grams against the single-device ones (gate: 1e-5 of max|K|)
    and its NLL within 1e-4 of the same command on one device, or else each
    route's NLL against a float64 fit of its own Grams, the mesh route's
-   error within 2x the single-device route's (it prints which gate held).
+   error within 2x the single-device route's (it prints which gate held);
+29. ``python -m snngp_torch -f 0.05`` and ``--fraction=0.5`` with a
+   ``reg tr`` of phase 6's flags in a process of their own: each command
+   completes (gate: finite NLLs), an allocation above the cap raises
+   out-of-memory and one below it does not (gate);
+30. ``snngp_torch.utils.profiling.trace`` around one K1 launch, right
+   after phase 1 (gate: the Chrome trace it writes names ``gram_kernel``
+   and ``trace`` does not warn) and again after phase 29, where
+   torch.profiler can lose a capture's kernel records (gate: the trace
+   names ``gram_kernel`` or ``trace`` warned that it lacks kernels).
 
 Nine main paths run with the kernels' launch counts set to 0 just before
 and read just after: serving (phases 2-3), training (phases 5-6), the
 regression extras (phases 18-20; K1 and no other kernel), CNN
 classification (phases 9-10), WideResNet classification (phases 12-13),
-Myrtle classification with the pipeline and full-Gram ML-II (phases
-15-17 and 21's pipeline), the lean and mesh regression (phases 24-25: K1,
+Myrtle classification with the pipeline, its bf16 run and full-Gram ML-II
+(phases 15-17 and 21's pipeline; K7, its tangent mode and its bf16
+variant), the lean and mesh regression (phases 24-25: K1,
 K2 and K7's tangent mode), classification and the pipeline on the mesh
 (phases 26-28: K3-K7 and K7's tangent mode, no K1 or K2) and the ensemble
 with the figures (phases 22-23,
@@ -214,7 +236,8 @@ Myrtle window, the references of phases 24-25 and 28, run before their
 windows, and phase 28's comparisons, run after its window) are not
 counted.
 Each phase prints its seconds. The line before the last is one JSON object
-describing the kernels; the last line is ``{"ok": true, "device": {...}}``.
+describing the kernels (K1-K7, K7's tangent mode and its bf16 variant);
+the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when CUDA is not available or the
 ``snngp_torch`` package is not beside this script. Imports nothing of JAX.
 """
@@ -251,6 +274,10 @@ HEAD_SHAPE = "10000x16 sym"
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12
 H100_FP64_PER_S = 34e12
+# Packed bf16 add / mul / FMA on the CUDA cores: 256 results a clock an SM,
+# twice fp32's 128 (the CUDA C++ Programming Guide's arithmetic throughput
+# table, compute capability 9.0), so twice the fp32 peak.
+H100_BF16_PER_S = 2 * H100_FP32_PER_S
 SERVE_N, SERVE_D = 10_000, 16
 REQUESTS, REQUEST_SIZE, PREDICT_BATCH = 4, 1_000, 4096
 SERVE_EPS = 1e-3           # relative diag_reg of the main factorization
@@ -545,11 +572,13 @@ def k2_ops(n1, n2, d, depth, act, mode, same):
     return _pairs(n1, n2, same) * per, _pairs(n1, n2, same) * 6 + folds
 
 
-def bound_ms(nbytes, fp32_ops, fp64_ops=0):
+def bound_ms(nbytes, fp32_ops, fp64_ops=0, bf16_ops=0):
     """Least time on an H100 SXM: the larger of the bytes over 3.35 TB/s and
-    the operations over 67 TFLOP/s fp32 (34 TFLOP/s fp64); and which bounds."""
+    the operations over 67 TFLOP/s fp32 (34 TFLOP/s fp64, 134 TFLOP/s
+    packed bf16 on the CUDA cores); and which bounds."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = (fp32_ops / H100_FP32_PER_S + fp64_ops / H100_FP64_PER_S) * 1e3
+    t_ops = (fp32_ops / H100_FP32_PER_S + fp64_ops / H100_FP64_PER_S
+             + bf16_ops / H100_BF16_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2174,6 +2203,168 @@ def phase14_k7_vs_plain():
     return rows, worst
 
 
+# The bf16 variant against its bf16 plain version, of max|K|: both round at
+# the same points (measured: 0 at 8 x 8 and 16 x 16, 9e-6 at the head shape),
+# and the fp32 kernel is 2e-3 - 6e-3 from the bf16 plain version, so a bf16
+# request that ran the fp32 kernel fails by 20x or more.
+K7_BF16_TOL = 1e-4
+# The variant's distance from the fp32 kernel lies within [0.5x, 2x] the bf16
+# plain version's (the upper side floored at 1e-3 of max|K|).
+K7_BF16_FLOOR = 1e-3
+K7_BF16_PIPELINE = ["--image-size", "32", "--depth", "5", "--n-train", "512", "--n-test",
+                    "128", "--fused", "on", "--bf16", "--t-jitter", "1e-2"]
+
+
+def k7_bf16_ops(n1, n2, h, c, depth, act, same):
+    """(fp32, fp64, bf16) operations of the function K7's bf16 variant
+    computes (JAX's bf16 recursion), counted as k7_ops does but by type and
+    without the conversions the kernel chose: the moment (fp32, then cast),
+    the pools (fp32) and, per entry and conv, the dual activation's divide,
+    sqrtf and acosf / asinf (no bf16 form: 4 for relu, 3 for erf) at the
+    fp32 rate; the rest of each conv (the stencil's 4 adds and / 9, w2 *,
+    + b2 and the activation's other arithmetic) in bf16; the GAP's fp64
+    adds."""
+    from snngp_torch.ops.myrtle_gram import MYRTLE_GROUPS
+
+    g0, g1, g2 = MYRTLE_GROUPS[depth]
+    act_ops = _dual_act_ops(act, False)
+    wide = 4 if act == "relu" else 3
+    e1, e2, e3 = h ** 4, (h // 2) ** 4, (h // 4) ** 4
+    convs = g0 * e1 + g1 * e2 + g2 * e3
+    pairs = _pairs(n1, n2, same)
+    fp32 = e1 * (2 * c + 1) + 2 * (e1 + e2) + wide * convs
+    bf16 = (7 + act_ops - wide) * convs
+    return pairs * fp32, pairs * e3, pairs * bf16
+
+
+def _k7_bf16_cases():
+    """(label, n1, n2, h, same, depth, act): Myrtle-5 (rectangular) and
+    Myrtle-7 (symmetric, ragged: an odd image count), relu and erf, at
+    8 x 8 and 16 x 16."""
+    cases = []
+    for h, rect, sym in ((8, (3, 4), 5), (16, (2, 3), 3)):
+        for depth in (5, 7):
+            for act in ("relu", "erf"):
+                same = depth == 7
+                n1, n2 = (sym, sym) if same else rect
+                cases.append((f"{n1}x{n2} {h}x{h}x3 myrtle-{depth}" + (" sym" if same else ""),
+                              n1, n2, h, same, depth, act))
+    return cases
+
+
+def _k7_bf16_check(label, x1, x2, depth, act, time_it=False):
+    """K7's bf16 variant on one case. Gates: within K7_BF16_TOL of max|K|
+    of its bf16 plain version on the card; its distance from the fp32
+    kernel within [0.5x, 2x] the plain bf16 version's (the upper side
+    floored at K7_BF16_FLOOR); finite;
+    two launches the same bits; a symmetric launch bitwise symmetric. With
+    ``time_it`` it times the bf16 and the fp32 kernel in turns (fp32, bf16,
+    bf16, fp32) and the bf16 plain version once, beside the bound."""
+    import torch
+    from snngp_torch.ops import myrtle_gram as MG
+
+    same = x2 is x1
+    args = _myrtle_args(x1, x2, depth, act, False)
+    kw = dict(depth=depth, act=act, same=same)
+
+    def kernel(state):
+        return MG.myrtle_gram_cuda(*args, **kw, state=state)
+
+    got = kernel(torch.bfloat16)
+    again = kernel(torch.bfloat16)
+    f32 = kernel(None)
+    times = {"fp32": [], "bf16": []}
+    if time_it:
+        for name in ("fp32", "bf16", "bf16", "fp32"):
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            kernel(torch.bfloat16 if name == "bf16" else None)
+            stop.record()
+            stop.synchronize()
+            times[name].append(start.elapsed_time(stop))
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    plain = MG.myrtle_gram_plain(*args, depth=depth, act=act, state=torch.bfloat16)
+    events[1].record()
+    _sync()
+    scale = f32.abs().max().item()
+    vs_plain = (got - plain).abs().max().item() / scale
+    d_kernel = (got - f32).abs().max().item() / scale
+    d_plain = (plain - f32).abs().max().item() / scale
+    finite = bool(torch.isfinite(got).all())
+    repeat = torch.equal(got, again)
+    sym = (got - got.T).abs().max().item() if same else float("nan")
+    row = dict(rel_err=vs_plain, abs_err=(got - plain).abs().max().item(),
+               vs_fp32=d_kernel, plain_vs_fp32=d_plain)
+    timing = ""
+    if time_it:
+        row["ms"] = sum(times["bf16"]) / 2
+        row["fp32_ms"] = sum(times["fp32"]) / 2
+        row["plain_ms"] = events[0].elapsed_time(events[1])
+        n1, n2, h, c = x1.shape[0], x2.shape[0], x1.shape[1], x1.shape[3]
+        nbytes = _read_bytes(args) + 4 * got.numel()
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, *k7_bf16_ops(n1, n2, h, c, depth, act, same))
+        timing = (f"  bf16 kernel {row['ms']:.3f} ms ({times['bf16'][0]:.3f}, "
+                  f"{times['bf16'][1]:.3f})  fp32 kernel {row['fp32_ms']:.3f} ms "
+                  f"({times['fp32'][0]:.3f}, {times['fp32'][1]:.3f})  bf16 plain "
+                  f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
+                  f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.2f}% of the "
+                  f"bf16 kernel's time)")
+    print(f"[K7 bf16] {act:4s} {label:28s} vs bf16 plain {vs_plain:.2e}  vs fp32 kernel: "
+          f"kernel {d_kernel:.2e}, plain {d_plain:.2e}{timing}  repeat {repeat}  "
+          f"max|K-K^T| {sym:.3e}")
+    low, high = 0.5 * d_plain, 2.0 * max(d_plain, K7_BF16_FLOOR)
+    if not (finite and vs_plain <= K7_BF16_TOL and low <= d_kernel <= high and repeat
+            and (not same or sym == 0.0)):
+        raise AssertionError(f"K7 bf16 {act} {label}: vs plain {vs_plain} (tol "
+                             f"{K7_BF16_TOL}), vs fp32 {d_kernel} (within [{low}, {high}]), "
+                             f"finite {finite}, repeat {repeat}, max|K-K^T| {sym}")
+    return row
+
+
+def phase14_k7_bf16():
+    """K7's bf16 variant against its bf16 plain version and the fp32 kernel
+    (_k7_bf16_cases, then the head shape of phase 14: 200 x 200 pairs of
+    32 x 32 x 3, Myrtle-5, relu, symmetric), with the bf16 and fp32
+    kernels timed in turns there. Returns (rows, worst abs error)."""
+    import torch
+
+    rng = np.random.RandomState(141)
+    rows = {}
+    with torch.inference_mode():
+        for label, n1, n2, h, same, depth, act in _k7_bf16_cases():
+            x1, x2 = _conv_inputs(rng, n1, n2, h, h, 3, same)
+            rows[f"{act}/{label}"] = _k7_bf16_check(label, x1, x2, depth, act)
+        x = torch.as_tensor(rng.randn(SVSP_NI, 32, 32, 3).astype(np.float32), device="cuda")
+        rows[K7_HEAD] = _k7_bf16_check(K7_HEAD[5:], x, x, 5, "relu", time_it=True)
+    torch.cuda.empty_cache()
+    return rows, max(r["abs_err"] for r in rows.values())
+
+
+def phase17_bf16_pipeline():
+    """``cifar_myrtle --fused on --bf16 --t-jitter 1e-2`` at phase 17's sizes
+    (no ML-II): the three Grams by K7's bf16 variant only (gate: 3 bf16
+    launches and no fp32 K7 launch), bf16 in effect, a finite NLL."""
+    from snngp_torch.examples import cifar_myrtle
+
+    before = _launches()
+    t0 = time.perf_counter()
+    result = cifar_myrtle.main(["--device", "cuda", *K7_BF16_PIPELINE])
+    wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    print(f"[pipeline bf16] {wall:.2f} s; phases " + "  ".join(
+        f"{k} {v:.3f} s" for k, v in result["phases_s"].items())
+        + f"; NLL {result['nll']:.5f}; launches {launched}")
+    if not (math.isfinite(result["nll"]) and result["bf16_effective"]):
+        raise AssertionError(f"bf16 pipeline: NLL {result['nll']}, bf16 in effect "
+                             f"{result['bf16_effective']}")
+    if launched["myrtle_bf16"] != 3 or any(v for k, v in launched.items()
+                                           if k != "myrtle_bf16"):
+        raise AssertionError(f"the bf16 pipeline launched {launched}; expected 3 K7 bf16")
+    return dict(result, wall_s=wall, launched=launched)
+
+
 def phase15_myrtle_gradient():
     """Phase 15's comparison, run before its launch window: the Myrtle svgp
     ELBO's gradient (the kernel path svtp shares) against float64 through
@@ -3362,6 +3553,102 @@ def phase23_members_check():
     return dict(err=err, card_cpu32=card_cpu32)
 
 
+# One process: ``python -m snngp_torch -f 0.05 --device cuda reg tr ...`` (run as
+# __main__ by runpy, as ``python -m`` does), then allocations above and below
+# the cap; then the same command under ``-f 0.5`` and an allocation above the
+# first cap. Prints one JSON line.
+FRACTION_PROBE = r"""
+import json, runpy, sys
+import torch
+
+def cli(argv):
+    sys.argv = ["snngp_torch", *argv]
+    runpy.run_module("snngp_torch", run_name="__main__", alter_sys=True)
+
+def alloc(share):
+    try:
+        torch.empty(int(share * total), dtype=torch.uint8, device="cuda")
+        return "ok"
+    except torch.cuda.OutOfMemoryError:
+        return "oom"
+    finally:
+        torch.cuda.empty_cache()
+
+total = torch.cuda.get_device_properties(0).total_memory
+cmd = sys.argv[1:]
+out = {}
+cli(["-f", "0.05", *cmd, "-cn", "capped"])
+out["capped"] = {"above 0.05": alloc(0.08), "below 0.05": alloc(0.02)}
+cli(["--fraction=0.5", *cmd, "-cn", "half"])
+out["half"] = {"above 0.05": alloc(0.3), "above 0.5": alloc(0.6)}
+print(json.dumps(out))
+"""
+
+
+def phase29_fraction():
+    """``python -m snngp_torch -f 0.05`` and ``--fraction=0.5`` on the card,
+    in a process of their own: a ``reg tr`` of phase 6's flags completes
+    under each cap (gate: finite NLLs); an allocation above the cap raises
+    out-of-memory and one below it does not (gate)."""
+    work = REPO / "build" / "chip_smoke" / "fraction"
+    shutil.rmtree(work, ignore_errors=True)
+    cmd = ["--device", "cuda", "reg", "tr", *CLI_TRAIN, "-t", "5", "-cr", str(work), "-dr",
+           str(work / "data")]
+    proc = subprocess.run([sys.executable, "-c", FRACTION_PROBE, *cmd], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the -f probe failed:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    nll = {name: _best_nll(work / name / "train.log") for name in ("capped", "half")}
+    print(f"[fraction] -f 0.05: {out['capped']}, reg tr best NLL {nll['capped']:.5f}; "
+          f"--fraction=0.5: {out['half']}, reg tr best NLL {nll['half']:.5f}")
+    want = {"capped": {"above 0.05": "oom", "below 0.05": "ok"},
+            "half": {"above 0.05": "ok", "above 0.5": "oom"}}
+    if out != want or not all(math.isfinite(v) for v in nll.values()):
+        raise AssertionError(f"-f caps: {out} (want {want}), NLLs {nll}")
+    return dict(out, nll=nll)
+
+
+def phase30_trace(late=False):
+    """``snngp_torch.utils.profiling.trace`` around one K1 launch (K(x, x)
+    of 2,048 x 16). Early in the process (gate) the trace file exists,
+    names K1's kernel and ``trace`` does not warn. Late in it (``late``,
+    after phase 29), torch.profiler can lose a capture's kernel records
+    (PERF.md section 7): the gate is then that the trace names K1's kernel
+    or ``trace`` warned that it lacks kernels, never a silent loss."""
+    import tempfile
+    import warnings
+
+    import torch
+    from snngp_torch.ops import gram as G
+    from snngp_torch.utils.profiling import trace
+
+    x = torch.as_tensor(np.random.RandomState(30).randn(2048, 16).astype(np.float32),
+                        device="cuda")
+    before = G.LAUNCHES["gram"]
+    _sync()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with torch.inference_mode(), trace(tmp) as logdir:
+                G.mlp_gram(x, x, depth=DEPTH, act="relu", w_std=W_STD, b_std=B_STD,
+                           last_w_std=LAST_W_STD)
+        if G.LAUNCHES["gram"] != before + 1:
+            raise AssertionError("the traced block did not launch K1 once")
+        files = sorted(Path(logdir).glob("*.json"))
+        text = files[-1].read_text() if files else ""
+    named = "gram_kernel" in text
+    lost = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)
+            and "recorded" in str(w.message)]
+    print(f"[trace] {'late' if late else 'early'}: {len(files)} trace file(s), {len(text)} "
+          f"bytes; names gram_kernel: {named}; lost-kernels warning: {lost or None}")
+    if not files or not ((named or lost) if late else (named and not lost)):
+        raise AssertionError(f"the profiler trace of a K1 launch: named {named}, warned "
+                             f"{lost} (late in the process {late})")
+    return dict(files=len(files), bytes=len(text), named=named, warned=bool(lost))
+
+
 def _kernel_entry(name, source, replaces, launches, rows, head, worst_abs):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": worst_abs,
@@ -3395,6 +3682,8 @@ def main() -> int:
     _phase(0, phase0_setup)
     with torch.inference_mode():
         k1_rows, k1_abs = _phase(1, phase1_kernel_vs_plain)
+    _phase(30, phase30_trace)
+    with torch.inference_mode():
         data = _serving_data()
         _warm_up(data)
         _reset_launches()                 # serving path starts here
@@ -3441,13 +3730,15 @@ def main() -> int:
     resnet = _read_launches("classify-resnet", ["resnet_tail", "resnet_strided"])  # ends
 
     k7_rows, k7_abs = _phase(14, phase14_k7_vs_plain)
+    k7b_rows, k7b_abs = _phase("14 (bf16)", phase14_k7_bf16)
     checks["myrtle svgp"] = _phase("15 (gradient check)", phase15_myrtle_gradient)
     _reset_launches()                     # Myrtle classification + pipeline path starts here
     single.update(_phase(15, phase15_myrtle_svsp))
     _phase(16, phase16_myrtle_cli)
     pipeline = _phase(17, phase17_pipeline)
+    _phase("17 (bf16)", phase17_bf16_pipeline)
     _phase(21, phase21_mlii)
-    myrtle = _read_launches("myrtle", ["myrtle", "myrtle_grads"])  # ends here
+    myrtle = _read_launches("myrtle", ["myrtle", "myrtle_grads", "myrtle_bf16"])  # ends here
     _phase("17 (full tier)", phase17_full_tier, pipeline["hyper"])
     _phase("21 (gradient check)", phase21_mlii_gradient)
     lean = _lean_data()
@@ -3472,6 +3763,8 @@ def main() -> int:
     finite = _read_launches("ensemble + figures", [])   # end here
     if any(finite.values()):
         raise AssertionError(f"the ensemble and the figures launched {finite}; expected none")
+    _phase(29, phase29_fraction)
+    _phase("30 (late)", phase30_trace, True)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -3524,7 +3817,14 @@ def main() -> int:
                         myrtle["myrtle_grads"] + lean_mesh["myrtle_grads"]
                         + mesh_cls["myrtle_grads"],
                         k7_rows["tangents"], K7_HEAD, k7_abs["tangents"])
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k7t]}))
+    k7b = _kernel_entry("myrtle_bf16 (K7 with a bf16 pair state: myrtle_gram_kernel's bf16 "
+                        "variant, fp32 arithmetic rounded to bf16 at the plain version's "
+                        "points, fp32 pools and GAP)",
+                        "snngp_torch/csrc/myrtle_gram.cu",
+                        "snngp/ops/pallas/myrtle_gram.py:278",
+                        myrtle["myrtle_bf16"] + lean_mesh["myrtle_bf16"]
+                        + mesh_cls["myrtle_bf16"], k7b_rows, K7_HEAD, k7b_abs)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k7t, k7b]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

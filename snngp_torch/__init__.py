@@ -31,7 +31,7 @@ training) and sparse variational classification of images:
 - ``snngp_torch.data``    the regression and classification datasets and
                           the host resize (numpy copies of ``snngp.data``;
                           importing ``snngp`` pulls in JAX).
-- ``snngp_torch.parallel`` the device mesh of one process: sharded Grams,
+- ``snngp_torch.parallel`` (imported with the package) the device mesh of one process: sharded Grams,
                           blocked / in-place / cyclic / distributed
                           Cholesky, the distributed ML-II step.
 - ``snngp_torch.cli``     ``reg`` and ``cls`` x ``tr`` / ``ts`` / ``pr``, ``reg
@@ -40,7 +40,7 @@ training) and sparse variational classification of images:
 - ``snngp_torch.sklearn`` ``SNNGPRegressor``, ``SNNGPClassifier`` (imported
                           on demand).
 
-Importing this package never imports JAX.
+Importing this package never imports JAX and does not initialize CUDA.
 """
 
 import torch as _torch
@@ -54,9 +54,10 @@ _torch.backends.cudnn.allow_tf32 = False
 from snngp_torch import nn  # noqa: E402
 from snngp_torch import ops  # noqa: E402
 from snngp_torch import models  # noqa: E402
+from snngp_torch import parallel  # noqa: E402
 from snngp_torch import utils  # noqa: E402
 from snngp_torch import data  # noqa: E402
 
 __version__ = "0.1.0"
 
-__all__ = ["nn", "ops", "models", "utils", "data", "__version__"]
+__all__ = ["nn", "ops", "models", "parallel", "utils", "data", "__version__"]

@@ -73,6 +73,17 @@
 // writes the tangent Grams themselves (dK/dlast = (2 / last) K needs no
 // kernel); three states take 160 KB at 32 x 32, one block an SM.
 //
+// The forward's bf16 variant (myrtle_gram_kernel<ACT, G0, true>, the JAX
+// package's myrtle_gram(dtype=bf16), snngp/ops/pallas/myrtle_gram.py:309-
+// 352) carries the pair state in bf16: stage 1's registers are
+// __nv_bfloat16, and every op of the recursion rounds to bf16 at the plain
+// version's points (State<true> below); the moment, the pools and the GAP
+// sum in fp32 (float64 for the GAP) and the output is fp32. Its shared
+// memory is the fp32 forward's: the ring and stage 3 accumulate each
+// pooled entry's partial sums in fp32 (rounded once, when read), so a
+// bf16 ring would round each of up to nine partial sums instead. Both
+// variants take 64 registers, which bounds them to two blocks an SM.
+//
 // What bounds the recursion: per entry and conv the IEEE divides,
 // sqrtf and acosf (and, in the tangent mode, the partials) and the
 // stencil's dependent adds, a chain with one or two loads and shuffles in
@@ -81,6 +92,7 @@
 // of the side-a moment and profile loads, and tensor cores: the work is
 // transcendental and elementwise, with no matrix product to give wgmma.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -194,6 +206,50 @@ __device__ __forceinline__ int wave_of(int d) {
   return (((d % 4) + 4) % 4 == 1) ? 1 : 2;
 }
 
+// The pair state's type (St) and its rounding. The fp32 state is float and
+// every function here is the identity. The bf16 state (the forward's bf16
+// variant) holds stage 1's registers as __nv_bfloat16 and rounds to bf16
+// at the plain version's points (ops/myrtle_gram.py::_PlainRecursion): the
+// arithmetic itself is fp32, each op's result rounded once (cvt.rn), as
+// PyTorch's bf16 ops round on the CPU. Packed __nv_bfloat162 FMAs would
+// fuse w2 * S + b2 into one rounding and leave the plain version's order;
+// and the divide, sqrtf and acosf of the dual activation have no bf16
+// form. The stage-2 ring and stage 3 stay fp32 accumulators (the pools sum
+// in fp32 and round once per pooled entry, when its stage first reads
+// it); the values they hold after a conv are bf16 values.
+template <bool BF16>
+struct State {
+  using St = float;
+  static __device__ __forceinline__ float get(float v) { return v; }
+  static __device__ __forceinline__ float put(float v) { return v; }
+  static __device__ __forceinline__ float round(float v) { return v; }
+  static __device__ __forceinline__ float shfl_up(float v) {
+    return __shfl_up_sync(0xffffffffu, v, 1);
+  }
+  static __device__ __forceinline__ float shfl_down(float v) {
+    return __shfl_down_sync(0xffffffffu, v, 1);
+  }
+};
+
+template <>
+struct State<true> {
+  using St = __nv_bfloat16;
+  static __device__ __forceinline__ float get(St v) { return __bfloat162float(v); }
+  static __device__ __forceinline__ St put(float v) { return __float2bfloat16_rn(v); }
+  static __device__ __forceinline__ float round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  // Shuffles move a bf16 as the low 16 bits of a 32-bit word.
+  static __device__ __forceinline__ St shfl_up(St v) {
+    const unsigned u = __shfl_up_sync(0xffffffffu, (unsigned)__bfloat16_as_ushort(v), 1);
+    return __ushort_as_bfloat16((unsigned short)u);
+  }
+  static __device__ __forceinline__ St shfl_down(St v) {
+    const unsigned u = __shfl_down_sync(0xffffffffu, (unsigned)__bfloat16_as_ushort(v), 1);
+    return __ushort_as_bfloat16((unsigned short)u);
+  }
+};
+
 struct Args {
   const float* x1;      // [n1, h, h, c]
   const float* x2;      // [n2, h, h, c]
@@ -228,10 +284,16 @@ __device__ __forceinline__ int layer_offset(const Args& A, int l) {
 
 // g convs (layers l0 .. l0 + g - 1) on one slab (di, dj) at resolution r
 // whose NS = 1 + NT state planes st[] hold ni x nj entries; tmp is the
-// warp's column-sum plane. Warp-wide; one __syncwarp after each pass.
-template <int ACT, int NT>
+// warp's column-sum plane. Warp-wide; one __syncwarp after each pass. With
+// a bf16 state (NT = 0 only) every op rounds, and so does each read of the
+// state: the first conv of a stage reads the fp32 pooled sums and rounds
+// each once, later convs read bf16 values, which rounding leaves as they
+// are.
+template <int ACT, int NT, bool BF16>
 __device__ void slab_convs(const Args& A, const Pair<NT>& P, float* const* st, float* tmp,
                            int r, int di, int dj, int l0, int g, int lane) {
+  static_assert(NT == 0 || !BF16, "the bf16 state is the forward's");
+  using N = State<BF16>;
   const int ni = span(r, di), nj = span(r, dj), i0 = lo(di), j0 = lo(dj);
   const int n = ni * nj;
   const Div div(nj);
@@ -243,21 +305,22 @@ __device__ void slab_convs(const Args& A, const Pair<NT>& P, float* const* st, f
       const float* z = st[s];
       for (int e = lane; e < n; e += 32) {
         const int v = e - div(e) * nj;
-        float acc = z[e] + ((v >= 1) ? z[e - 1] : 0.0f);
-        tmp[e] = acc + ((v < nj - 1) ? z[e + 1] : 0.0f);
+        float acc = N::round(N::round(z[e]) + ((v >= 1) ? N::round(z[e - 1]) : 0.0f));
+        tmp[e] = N::round(acc + ((v < nj - 1) ? N::round(z[e + 1]) : 0.0f));
       }
       __syncwarp();
       for (int e = lane; e < n; e += 32) {
         const int u = div(e);
-        float acc = tmp[e] + ((u >= 1) ? tmp[e - nj] : 0.0f);
-        acc = acc + ((u < ni - 1) ? tmp[e + nj] : 0.0f);
-        const float sk = acc / 9.0f;
+        float acc = N::round(tmp[e] + ((u >= 1) ? tmp[e - nj] : 0.0f));
+        acc = N::round(acc + ((u < ni - 1) ? tmp[e + nj] : 0.0f));
+        const float sk = N::round(acc / 9.0f);
         if (NT == 0) {
           const int v = e - u * nj;
           const int q1 = (i0 + u) * r + j0 + v;
           const int q2 = q1 + di * r + dj;
-          st[0][e] = dual_act<ACT>(P.w2 * sk + P.b2, __ldg(P.v1 + off + q1),
-                                   __ldg(P.v2 + off + q2));
+          st[0][e] = N::round(dual_act<ACT>(N::round(N::round(P.w2 * sk) + P.b2),
+                                            N::round(__ldg(P.v1 + off + q1)),
+                                            N::round(__ldg(P.v2 + off + q2))));
         } else {
           st[s][e] = sk;
         }
@@ -382,9 +445,14 @@ __device__ Pair<NT> pair_of(const Args& A, int a, int b) {
 // parity) order, then one += into the ring. A
 // task starting below row 0 (ua > 0, a split slab) starts G0 rows early, so
 // that its window holds true rows by row ua, and pools only rows >= ua.
-template <int ACT, int NT, int G0>
+// With a bf16 state the window and the rows in flight are __nv_bfloat16
+// (St), each op rounding; the pool sums them in fp32.
+template <int ACT, int NT, int G0, bool BF16>
 __device__ void stream_task(const Args& A, const Pair<NT>& P, const float* xa, const float* xb,
                             const Dest& D, int di, int dj, int ua, int ub, int lane) {
+  static_assert(NT == 0 || !BF16, "the bf16 state is the forward's");
+  using N = State<BF16>;
+  using St = typename N::St;
   constexpr int NS = 1 + NT;
   const int h = A.h, c = A.c, r2 = h / 2;
   const int ni = span(h, di), i0 = lo(di);
@@ -406,53 +474,59 @@ __device__ void stream_task(const Args& A, const Pair<NT>& P, const float* xa, c
                       !(col_pair && (lane & 1));
   const int col_cum = cum(r2, pj);
 
-  float cp[G0][NS], cc[G0][NS], acc[NS];
+  const St zero = N::put(0.0f);
+  St cp[G0][NS], cc[G0][NS];
+  float acc[NS];
 #pragma unroll
   for (int l = 0; l < G0; ++l)
 #pragma unroll
-    for (int s = 0; s < NS; ++s) cp[l][s] = cc[l][s] = 0.0f;
+    for (int s = 0; s < NS; ++s) cp[l][s] = cc[l][s] = zero;
 #pragma unroll
   for (int s = 0; s < NS; ++s) acc[s] = 0.0f;
 
   const int t0 = ua > G0 ? ua - G0 : 0;
   for (int t = t0; t < ub + G0; ++t) {
-    float in[NS];
-    in[0] = 0.0f;
+    St in[NS];
+    in[0] = zero;
     if (active && t < ni) {
       const float* pa = xa + ((size_t)(i0 + t) * h + lane) * c;
       const float* pb = xb + ((size_t)(i0 + t + di) * h + lane + dl) * c;
       float m = 0.0f;
       for (int ch = 0; ch < c; ++ch) m = fmaf(__ldg(pa + ch), __ldg(pb + ch), m);
-      in[0] = m * inv_c;
+      in[0] = N::put(m * inv_c);
     }
 #pragma unroll
-    for (int s = 1; s < NS; ++s) in[s] = 0.0f;   // the moment has no tangent
+    for (int s = 1; s < NS; ++s) in[s] = zero;   // the moment has no tangent
 
 #pragma unroll
     for (int l = 0; l < G0; ++l) {
       const int u_in = t - l;     // the row entering layer l
       const bool real = u_in >= 0 && u_in < ni;
-      float cn[NS];
+      St cn[NS];
 #pragma unroll
       for (int s = 0; s < NS; ++s) {
-        const float z = real ? in[s] : 0.0f;
-        const float left = __shfl_up_sync(0xffffffffu, z, 1);
-        const float right = __shfl_down_sync(0xffffffffu, z, 1);
-        cn[s] = (z + (has_left ? left : 0.0f)) + (has_right ? right : 0.0f);
+        const St z = real ? in[s] : zero;
+        const St left = N::shfl_up(z);
+        const St right = N::shfl_down(z);
+        const float zl = N::round(N::get(z) + (has_left ? N::get(left) : 0.0f));
+        cn[s] = N::put(zl + (has_right ? N::get(right) : 0.0f));
       }
       const int u = u_in - 1;     // the row layer l emits
       if (u >= 0 && u < ni) {
         float sk[NS];
 #pragma unroll
-        for (int s = 0; s < NS; ++s) sk[s] = ((cc[l][s] + cp[l][s]) + cn[s]) / 9.0f;
+        for (int s = 0; s < NS; ++s) {
+          const float up = N::round(N::get(cc[l][s]) + N::get(cp[l][s]));
+          sk[s] = N::round(N::round(up + N::get(cn[s])) / 9.0f);
+        }
         float v1 = 1.0f, v2 = 1.0f, dv1[NS], dv2[NS];
         const int q1 = l * h * h + (i0 + u) * h + lane;
         const int q2 = q1 + di * h + dl;
 #pragma unroll
         for (int k = 0; k < NT; ++k) dv1[k] = dv2[k] = 0.0f;
         if (active) {
-          v1 = __ldg(P.v1 + q1);
-          v2 = __ldg(P.v2 + q2);
+          v1 = N::round(__ldg(P.v1 + q1));
+          v2 = N::round(__ldg(P.v2 + q2));
 #pragma unroll
           for (int k = 0; k < NT; ++k) {
             dv1[k] = __ldg(P.dv1[k] + q1);
@@ -460,7 +534,7 @@ __device__ void stream_task(const Args& A, const Pair<NT>& P, const float* xa, c
           }
         }
         if constexpr (NT == 0) {
-          in[0] = dual_act<ACT>(P.w2 * sk[0] + P.b2, v1, v2);
+          in[0] = N::put(dual_act<ACT>(N::round(N::round(P.w2 * sk[0]) + P.b2), v1, v2));
         } else {
           const Partials pa = dual_act_partials<ACT>(P.w2 * sk[0] + P.b2, v1, v2);
 #pragma unroll
@@ -490,9 +564,9 @@ __device__ void stream_task(const Args& A, const Pair<NT>& P, const float* xa, c
       const bool last = !both || (R & 1) == 1;
 #pragma unroll
       for (int s = 0; s < NS; ++s) {
-        const float nb = __shfl_down_sync(0xffffffffu, in[s], 1);
+        const float nb = N::get(N::shfl_down(in[s]));
         if (first) acc[s] = 0.0f;
-        acc[s] = acc[s] + in[s];
+        acc[s] = acc[s] + N::get(in[s]);
         if (col_pair) acc[s] = acc[s] + nb;
       }
       if (last && row_ok && col_ok) {
@@ -507,8 +581,10 @@ __device__ void stream_task(const Args& A, const Pair<NT>& P, const float* xa, c
 // One block per pair (a, b); with A.same, only b >= a, written to both
 // (a, b) and (b, a). Stage 1 in registers (stream_task); stages 2 and 3 in
 // shared memory, with one (h/2)^2 column-sum plane a warp; the GAP in
-// float64. NT = 0 is the forward, NT = 1 or 2 the tangent mode.
-template <int ACT, int NT, int G0>
+// float64. NT = 0 is the forward, NT = 1 or 2 the tangent mode; BF16 (the
+// forward only) carries the pair state in bf16, with w2, b2 and the
+// profiles rounded to bf16 too.
+template <int ACT, int NT, int G0, bool BF16>
 __device__ void tangent_recursion(const Args& A, float* smem, double* red) {
   constexpr int NS = 1 + NT;
   constexpr int W = kWarps;
@@ -524,7 +600,9 @@ __device__ void tangent_recursion(const Args& A, float* smem, double* red) {
   const Dest to2{ring, r2, true, NS};
   const Dest to3{buf3, r3, false, NS};
 
-  const Pair<NT> P = pair_of<NT>(A, a, b);
+  Pair<NT> P = pair_of<NT>(A, a, b);
+  P.w2 = State<BF16>::round(P.w2);
+  P.b2 = State<BF16>::round(P.b2);
   const float* xa = A.x1 + (size_t)a * h * h * c;
   const float* xb = A.x2 + (size_t)b * h * h * c;
 
@@ -555,7 +633,7 @@ __device__ void tangent_recursion(const Args& A, float* smem, double* red) {
         if (wave_of(dj) != wave) continue;
         for (int k = 0; k < parts; ++k) {
           if (rank++ % W != warp || k * rows >= ni) continue;
-          stream_task<ACT, NT, G0>(A, P, xa, xb, to2, di, dj, k * rows,
+          stream_task<ACT, NT, G0, BF16>(A, P, xa, xb, to2, di, dj, k * rows,
                                    min(ni, (k + 1) * rows), lane);
         }
       }
@@ -573,7 +651,7 @@ __device__ void tangent_recursion(const Args& A, float* smem, double* red) {
           const int off = span(r2, m) * cum(r2, pj);
 #pragma unroll
           for (int s = 0; s < NS; ++s) ps[s] = to2.row(s, m) + off;
-          slab_convs<ACT, NT>(A, P, ps, tmp, r2, m, pj, A.g0, A.g1, lane);
+          slab_convs<ACT, NT, BF16>(A, P, ps, tmp, r2, m, pj, A.g0, A.g1, lane);
           slab_pool<NT>(ps, r2, m, pj, to3, lane);
         }
         __syncthreads();
@@ -594,7 +672,7 @@ __device__ void tangent_recursion(const Args& A, float* smem, double* red) {
       const size_t off = (size_t)cum(r3, qi) * r3 * r3 + (size_t)ni * cum(r3, qj);
 #pragma unroll
       for (int s = 0; s < NS; ++s) ps[s] = buf3 + (size_t)s * r3 * r3 * r3 * r3 + off;
-      slab_convs<ACT, NT>(A, P, ps, tmp, r3, qi, qj, A.g0 + A.g1, A.g2, lane);
+      slab_convs<ACT, NT, BF16>(A, P, ps, tmp, r3, qi, qj, A.g0 + A.g1, A.g2, lane);
       for (int e = lane; e < ni * nj; e += 32) {
 #pragma unroll
         for (int s = 0; s < NS; ++s) acc[s] += (double)ps[s][e];
@@ -619,19 +697,22 @@ __device__ void tangent_recursion(const Args& A, float* smem, double* red) {
   }
 }
 
-template <int ACT, int G0>
+// The forward; BF16 = true is its bf16 pair-state variant (the JAX
+// package's myrtle_gram(dtype=bf16)), with the fp32 variant's shared memory
+// and launch bounds.
+template <int ACT, int G0, bool BF16>
 __global__ void __launch_bounds__(32 * kWarps, kForwardBlocks)
     myrtle_gram_kernel(Args A) {
   extern __shared__ float smem[];
   __shared__ double red[kWarps * kMaxStates];
-  tangent_recursion<ACT, 0, G0>(A, smem, red);
+  tangent_recursion<ACT, 0, G0, BF16>(A, smem, red);
 }
 
 template <int ACT, int NT, int G0>
 __global__ void __launch_bounds__(32 * kWarps, 1) myrtle_gram_tangents_kernel(Args A) {
   extern __shared__ float smem[];
   __shared__ double red[kWarps * kMaxStates];
-  tangent_recursion<ACT, NT, G0>(A, smem, red);
+  tangent_recursion<ACT, NT, G0, false>(A, smem, red);
 }
 
 size_t smem_bytes(int h, int ns) {
@@ -640,10 +721,10 @@ size_t smem_bytes(int h, int ns) {
                           (size_t)kWarps * r2 * r2);
 }
 
-template <int ACT, int NT, int G0>
+template <int ACT, int NT, int G0, bool BF16>
 cudaError_t launch(const Args& A, cudaStream_t stream) {
   void (*kernel)(Args);
-  if constexpr (NT == 0) kernel = myrtle_gram_kernel<ACT, G0>;
+  if constexpr (NT == 0) kernel = myrtle_gram_kernel<ACT, G0, BF16>;
   else kernel = myrtle_gram_tangents_kernel<ACT, NT, G0>;
   const size_t smem = smem_bytes(A.h, 1 + NT);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -654,13 +735,20 @@ cudaError_t launch(const Args& A, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int NT>
+template <int NT, bool BF16 = false>
 cudaError_t launch_act_g0(const Args& A, int act, cudaStream_t stream) {
+  static_assert(NT == 0 || !BF16, "the bf16 state is the forward's");
   if (act != kRelu && act != kErf) return cudaErrorInvalidValue;
   switch (A.g0) {
-    case 1: return act == kRelu ? launch<kRelu, NT, 1>(A, stream) : launch<kErf, NT, 1>(A, stream);
-    case 2: return act == kRelu ? launch<kRelu, NT, 2>(A, stream) : launch<kErf, NT, 2>(A, stream);
-    case 3: return act == kRelu ? launch<kRelu, NT, 3>(A, stream) : launch<kErf, NT, 3>(A, stream);
+    case 1:
+      return act == kRelu ? launch<kRelu, NT, 1, BF16>(A, stream)
+                          : launch<kErf, NT, 1, BF16>(A, stream);
+    case 2:
+      return act == kRelu ? launch<kRelu, NT, 2, BF16>(A, stream)
+                          : launch<kErf, NT, 2, BF16>(A, stream);
+    case 3:
+      return act == kRelu ? launch<kRelu, NT, 3, BF16>(A, stream)
+                          : launch<kErf, NT, 3, BF16>(A, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -687,6 +775,21 @@ extern "C" int snngp_myrtle_gram_f32(const float* x1, const float* x2, const flo
                n1, n2, h, c, g0, g1, g2, 0, same ? 1 : 0};
   if (!valid(A)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_act_g0<0>(A, act, static_cast<cudaStream_t>(stream)));
+}
+
+// As snngp_myrtle_gram_f32, with the pair state in bf16 (inputs, scales and
+// out fp32, as there): stage 1's registers __nv_bfloat16, each op of the
+// recursion, w2, b2, the profiles and the dual activation's result rounded
+// to bf16, the pools summed in fp32 and rounded once per pooled entry, the
+// GAP in float64.
+extern "C" int snngp_myrtle_gram_bf16(const float* x1, const float* x2, const float* prof1,
+                                      const float* prof2, const float* scales, float* out,
+                                      int n1, int n2, int h, int c, int g0, int g1, int g2,
+                                      int act, int same, void* stream) {
+  const Args A{x1, x2, prof1, prof2, nullptr, nullptr, scales, out,
+               n1, n2, h, c, g0, g1, g2, 0, same ? 1 : 0};
+  if (!valid(A)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_act_g0<0, true>(A, act, static_cast<cudaStream_t>(stream)));
 }
 
 // As snngp_myrtle_gram_f32, plus dprof1 [n1, 2, P] and dprof2 [n2, 2, P]

@@ -23,10 +23,12 @@ resumable under ``<--resume-gram>/mlii``.
 
 ``--chol`` picks the factorization: ``inplace`` (``fit_spr(memory_lean=True)``,
 the Gram factored in its own device buffer) for ``auto`` at N >= 32,768,
-else ``xla`` (``torch.linalg``, cuSOLVER on the card). ``blocked``
-(:func:`snngp_torch.parallel.cholesky.blocked_cholesky`) runs only when
-asked for: the JAX script's ``auto`` takes it from N = 4,096, where it
-shards under GSPMD, but on one card it is panels of cuSOLVER's work.
+else ``xla`` (``torch.linalg``, cuSOLVER on the card). On one device
+``blocked`` (:func:`snngp_torch.parallel.cholesky.blocked_cholesky`) runs
+only when asked for: the JAX script's ``auto`` takes it from N = 4,096,
+where it shards under GSPMD, but on one card it is panels of cuSOLVER's
+work. On a mesh ``auto`` takes it from N = 4,096 as the JAX script does,
+with its automatic panel (512 rows, grown so that there are at most 24).
 
 ``--devices N`` (or a mesh handed to :func:`main`, such as four shards of
 one card) evaluates the Grams on a mesh: with ``--fused`` as row panels of
@@ -34,16 +36,18 @@ one card) evaluates the Grams on a mesh: with ``--fused`` as row panels of
 ``--resume-gram``, no ``--fused-block``), else each ``--tile`` row strip of
 the full tier through :func:`snngp_torch.parallel.gram.sharded_gram`. The
 rows of each Gram must divide the mesh. ``SPR(mesh=)`` then factors through
-the blocked Cholesky whatever ``--chol`` says, ``auto`` never takes the
+the blocked Cholesky whatever ``--chol`` says (512-row panels below 4,096
+points, the automatic panel above), ``auto`` never takes the
 memory-lean fit, and ``inplace`` is refused. An ML-II fit runs on one
 device first, as in the JAX script.
 
-``--bf16`` runs the full tier (``--fused off``) in bfloat16, raises
-``--eps`` to at least 1e-2 and scores the predictive with an extra
-1e-2 y_std^2 of variance (the JAX script's numerics-validation quirk). On
-the fused path on the card it is ignored, with the JAX script's message;
-with ``--fused on`` off the card it raises (K7's bf16 pair state is not
-ported). The JAX dispatch knobs ``--scan-chunk`` / ``--remat`` raise
+``--bf16`` runs the Gram's pair state in bfloat16: the full tier's
+(``--fused off``), or K7's (``--fused on``: its bf16 variant on the card,
+its bf16 plain version on the CPU, as the JAX script does off the TPU). It
+raises ``--eps`` to at least 1e-2 and scores the predictive with an extra
+1e-2 y_std^2 of variance (the JAX script's numerics-validation quirk). The
+Student-t scale factorization of a bf16 Gram needs ``--t-jitter 1e-2``: at
+the default 1e-6 it is NaN, in both packages. The JAX dispatch knobs ``--scan-chunk`` / ``--remat`` raise
 ``NotImplementedError``.
 """
 
@@ -161,8 +165,8 @@ def _parser():
     ap.add_argument("--eps", type=float, default=1e-4,
                     help="absolute regularizer of the train Gram (K + eps I)")
     ap.add_argument("--bf16", action="store_true",
-                    help="the full tier in bfloat16 (eps raised to 1e-2); ignored on the "
-                         "fused path on the card")
+                    help="the Gram's pair state in bfloat16, on the full tier or the fused "
+                         "Gram (eps raised to 1e-2)")
     ap.add_argument("--scan-chunk", type=int, default=0,
                     help="JAX dispatch knob (lax.scan chunks): not ported")
     ap.add_argument("--remat", action="store_true", help="JAX dispatch knob: not ported")
@@ -192,7 +196,8 @@ def _parser():
     ap.add_argument("--chol", choices=["auto", "xla", "blocked", "inplace"], default="auto",
                     help="factorization: torch.linalg (xla), blocked panels (blocked), the "
                          "memory-lean fit in the Gram's own buffer (inplace); auto = "
-                         "inplace at N >= 32768, else xla")
+                         "inplace at N >= 32768, else xla; on a mesh blocked at "
+                         "N >= 4096")
     ap.add_argument("--t-jitter", type=float, default=1e-6,
                     help="absolute jitter on the scaled Gram (b/a) K of the Student-t "
                          "data scale")
@@ -202,16 +207,20 @@ def _parser():
 
 
 def _chol_route(chol, n_train, mesh=None):
-    """(memory_lean, chol_fn) of ``fit_spr`` for ``--chol`` at ``n_train``
-    (on a ``mesh``, ``SPR`` installs the blocked factorization for a
-    ``chol_fn`` of None)."""
+    """(memory_lean, chol_fn) of ``fit_spr`` for ``--chol`` at ``n_train``.
+    On a ``mesh``, ``auto`` from 4,096 points is the blocked factorization
+    with its automatic panel (at most 24 panels), as in the JAX script;
+    below that ``SPR`` installs its blocked factorization for a ``chol_fn``
+    of None. One device keeps its own ``auto``: in place from 32,768
+    points, else ``torch.linalg``."""
     if chol == "inplace" and mesh is not None:
         raise SystemExit("--chol inplace is a single-device kernel (donated fori-loop "
                          "carry); with --devices use --chol blocked, which shards under "
                          "GSPMD.")
     memory_lean = chol == "inplace" or (chol == "auto" and n_train >= 32768
                                         and mesh is None)
-    return memory_lean, (blocked_cholesky if chol == "blocked" else None)
+    blocked = chol == "blocked" or (chol == "auto" and mesh is not None and n_train >= 4096)
+    return memory_lean, (blocked_cholesky if blocked else None)
 
 
 def _strips(kernel_fn, x1, x2, tile, mesh):
@@ -249,13 +258,10 @@ def main(argv=None, mesh=None):
     fused = (args.fused == "on"
              or (args.fused == "auto" and device.type == "cuda"
                  and args.image_size in (8, 16, 32)))
-    bf16 = args.bf16 and not fused
-    if args.bf16 and fused:
-        if device.type != "cuda":
-            raise NotImplementedError("--bf16 with --fused on: K7's bf16 pair state is not "
-                                      "ported (ROADMAP Queue 1 item 9); use --fused off")
-        print("[cifar_myrtle] --bf16 ignored on the fused path (the kernel's pair state "
-              "is fp32); Gram stays fp32, keeping the fp32-sized eps.")
+    # --bf16 holds on both paths, as in the JAX script off the TPU: the full
+    # tier's state, or K7's pair state (its bf16 variant on the card, the
+    # bf16 plain version on the CPU).
+    fused_dtype = torch.bfloat16 if args.bf16 and fused else None
 
     x, y = load_images(args.n_train + args.n_test, args.image_size, seed=0)
     x_train, x_test = x[:args.n_train], x[args.n_train:]
@@ -276,7 +282,7 @@ def main(argv=None, mesh=None):
 
     # bf16 Gram entries carry ~1e-2 relative noise: the solve needs a
     # regularizer to match (the JAX script's rule).
-    if bf16 and args.eps < 1e-2:
+    if args.bf16 and args.eps < 1e-2:
         args.eps = 1e-2
     xt_train = torch.as_tensor(x_train, device=device)
     xt_test = torch.as_tensor(x_test, device=device)
@@ -285,7 +291,7 @@ def main(argv=None, mesh=None):
     if fused and mesh is not None:
         def gram(a, b, symmetric, name=""):
             shards = myrtle_gram_sharded(a, None if symmetric else b, mesh, depth=args.depth,
-                                         act="relu", **hyper)
+                                         act="relu", dtype=fused_dtype, **hyper)
             return gather(shards).cpu().numpy()
     elif fused:
         if args.resume_gram:
@@ -296,10 +302,10 @@ def main(argv=None, mesh=None):
                       if args.resume_gram else None)
             return myrtle_gram_tiled(a, None if symmetric else b, depth=args.depth,
                                      act="relu", block=args.fused_block, log=print,
-                                     resume_path=resume, **hyper)
+                                     resume_path=resume, dtype=fused_dtype, **hyper)
     else:
-        kfn = full_myrtle(args.depth, 1, "relu", dtype=torch.bfloat16 if bf16 else None,
-                          **hyper)
+        kfn = full_myrtle(args.depth, 1, "relu",
+                          dtype=torch.bfloat16 if args.bf16 else None, **hyper)
 
         def gram(a, b, symmetric, name=""):
             if mesh is not None:
@@ -335,7 +341,7 @@ def main(argv=None, mesh=None):
             del k_dd                      # the factor holds the one N x N buffer
         with prof.phase("predictive"):
             k_tt_diag = np.diagonal(k_tt).copy()
-            if bf16:
+            if args.bf16:
                 # The JAX script's bf16 quirk: ~1e-2 relative Gram noise takes
                 # an additive variance the library's scoring does not model.
                 mean_d, var_d = fitted.predict_given(k_td, k_tt_diag)
@@ -350,7 +356,8 @@ def main(argv=None, mesh=None):
     print(f"\nN={args.n_train} Myrtle-{args.depth} ({args.image_size}x{args.image_size}) "
           f"pipeline total: {total:.2f}s  t-predictive NLL (de-normalized, reference "
           f"semantics): {float(nll):.4f}")
-    return dict(nll=float(nll), phases_s=dict(prof.totals), hyper=hyper, mlii_s=mlii_s)
+    return dict(nll=float(nll), phases_s=dict(prof.totals), hyper=hyper, mlii_s=mlii_s,
+                bf16_effective=args.bf16)
 
 
 if __name__ == "__main__":

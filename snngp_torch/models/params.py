@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from snngp_torch.models.bijectors import Softplus
+from snngp_torch.models.bijectors import PositiveBijector
 
 __all__ = [
     "constrained_init",
@@ -28,15 +28,16 @@ __all__ = [
     "get_by_suffix",
     "assign_by_suffix",
     "from_jax_named",
+    "unflatten_named",
 ]
 
 
-def constrained_init(value, bijector: Softplus) -> nn.Parameter:
+def constrained_init(value, bijector: PositiveBijector) -> nn.Parameter:
     """A positive-constrained parameter stored as its unconstrained preimage."""
     return nn.Parameter(bijector.inverse(torch.as_tensor(value, dtype=torch.float32)))
 
 
-def constrained_read(raw: torch.Tensor, bijector: Softplus) -> torch.Tensor:
+def constrained_read(raw: torch.Tensor, bijector: PositiveBijector) -> torch.Tensor:
     """The reference's ``safe_value``: read through the bijector."""
     return bijector(raw)
 
@@ -58,6 +59,19 @@ def named_leaves(params) -> List[Tuple[str, Any]]:
     out: List[Tuple[str, Any]] = []
     _walk(params, "", out)
     return out
+
+
+def unflatten_named(named: Dict[str, Any]) -> Dict[str, Any]:
+    """Rebuild a nested dict from dotted names (the inverse of
+    :func:`named_leaves` for dict-only trees)."""
+    root: Dict[str, Any] = {}
+    for name, value in named.items():
+        parts = name.split(".")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return root
 
 
 def get_by_suffix(named: Dict[str, Any], key: str) -> Optional[Any]:

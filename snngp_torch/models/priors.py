@@ -28,7 +28,7 @@ from snngp_torch.models.bijectors import positive
 from snngp_torch.ops.linalg import cholesky
 from snngp_torch.ops.mvt import draw_t, multivariate_t, standard_t
 
-__all__ = ["GaussianPrior", "InverseGammaPrior"]
+__all__ = ["Prior", "GaussianPrior", "InverseGammaPrior"]
 
 
 def _logdet_psd(mat):
@@ -55,7 +55,12 @@ def _mvn(mean, cov, normal):
     return mean + torch.einsum("...ij,...j->...i", cholesky(cov), normal)
 
 
-class GaussianPrior(nn.Module):
+class Prior(nn.Module):
+    """The base of the priors: a module whose trainable parameters, if any,
+    are its own (the JAX package's ``Prior.init_params`` returns none)."""
+
+
+class GaussianPrior(Prior):
     def draw(self, shape: Sequence[int], generator=None, *, like: torch.Tensor):
         return torch.randn(tuple(shape), generator=generator, dtype=like.dtype,
                            device=like.device)
@@ -85,7 +90,7 @@ class GaussianPrior(nn.Module):
         return 0.5 * ((logdet_k - logdet_q) - num_inducing * num_class + tr + quad)
 
 
-class InverseGammaPrior(nn.Module):
+class InverseGammaPrior(Prior):
     """Inverse-gamma mixing with trainable (a, b) and fixed prior
     (alpha, beta)."""
 

@@ -25,15 +25,19 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load", "library_path", "ptxas_report", "parse_ptxas", "NVCC_FLAGS"]
+__all__ = ["load", "library_path", "build_variant", "ptxas_report", "parse_ptxas",
+           "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # No --use_fast_math: it changes sqrtf / division / acosf accuracy, and the
-# kernels are held to fp32 parity with their plain versions.
+# kernels are held to fp32 parity with their plain versions. No implicit
+# conversion between __nv_bfloat16 and float: a bf16 state converts only by
+# the intrinsics (__float2bfloat16_rn, __bfloat162float), where it rounds.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-D__CUDA_NO_BFLOAT16_CONVERSIONS__")
 
 
 def _nvcc() -> str:
@@ -74,6 +78,29 @@ def load(name: str) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return ctypes.CDLL(str(out))
+
+
+def build_variant(name: str, constants: dict, out: Path):
+    """A copy of ``csrc/<name>.cu`` with each ``constexpr int <NAME> = <n>;``
+    of ``constants`` set to its value, built into the library ``out`` (the
+    copy beside it) and loaded: (the library, its :func:`ptxas_report`
+    lines). For tools that time other build constants, such as a kernel's
+    ``__launch_bounds__`` minimum blocks."""
+    src = (CSRC / f"{name}.cu").read_text()
+    for constant, value in constants.items():
+        src, count = re.subn(rf"constexpr int {constant} = \d+;",
+                             f"constexpr int {constant} = {value};", src)
+        if count != 1:
+            raise RuntimeError(f"{name}.cu has no single {constant}")
+    out = Path(out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cu = out.with_suffix(".cu")
+    cu.write_text(src)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(out), str(cu)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {cu.name}:\n{proc.stderr}")
+    return ctypes.CDLL(str(out)), parse_ptxas(proc.stdout + proc.stderr)
 
 
 def ptxas_report(name: str) -> list:

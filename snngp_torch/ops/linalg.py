@@ -40,13 +40,18 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = [
+    "jitter",
     "add_jitter",
     "add_diag_reg",
+    "logdet",
+    "trace",
+    "split_kernel",
     "cholesky",
     "chol_solve",
     "chol_logdet",
     "chol_quad_form",
     "chol_append",
+    "solve_psd",
     "gp_predict",
     "mvn_logpdf",
     "inv_psd",
@@ -68,6 +73,11 @@ def _diag_reg_value(mat: torch.Tensor, diag_reg):
     return (diag_reg * scale)[..., None]
 
 
+def jitter(num: int, eps=1e-6, dtype=torch.float32) -> torch.Tensor:
+    """eps * I (spax/utils.py:26-27)."""
+    return eps * torch.eye(num, dtype=dtype)
+
+
 def add_jitter(mat: torch.Tensor, eps=1e-6) -> torch.Tensor:
     return _add_to_diagonal(mat, eps)
 
@@ -82,6 +92,24 @@ def _add_diag_reg_(mat: torch.Tensor, diag_reg) -> torch.Tensor:
     step: no N x N copy); the same values bit for bit."""
     mat.diagonal(dim1=-2, dim2=-1).add_(_diag_reg_value(mat, diag_reg))
     return mat
+
+
+def logdet(mat: torch.Tensor) -> torch.Tensor:
+    """Summed log-determinant over leading batch dims, sign x log|det| from
+    the LU-based ``slogdet`` (spax/utils.py:38-40)."""
+    sign, abslogdet = torch.linalg.slogdet(mat)
+    return torch.sum(sign * abslogdet)
+
+
+def trace(mat: torch.Tensor) -> torch.Tensor:
+    """Summed trace over leading batch dims (spax/utils.py:43-44)."""
+    return torch.sum(torch.diagonal(mat, dim1=-2, dim2=-1))
+
+
+def split_kernel(kernel: torch.Tensor, num_11: int):
+    """2 x 2 block split (spax/utils.py:30-35): (K11, K12, K21, K22)."""
+    return (kernel[:num_11, :num_11], kernel[:num_11, num_11:],
+            kernel[num_11:, :num_11], kernel[num_11:, num_11:])
 
 
 def cholesky(mat: torch.Tensor) -> torch.Tensor:
@@ -148,6 +176,13 @@ def chol_append(chol: torch.Tensor, k_nb: torch.Tensor, k_bb: torch.Tensor,
     u22 = cholesky(k_bb - u12.mT @ u12).mT
     top = torch.cat([chol, u12], dim=1)
     return torch.cat([top, torch.cat([chol.new_zeros(m, chol.shape[0]), u22], dim=1)])
+
+
+def solve_psd(mat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """PSD solve A^{-1} b through a Cholesky factor of A's lower triangle
+    (``cho_factor(lower=True)``, which reads that triangle, as
+    ``torch.linalg.cholesky`` does)."""
+    return torch.cholesky_solve(b, torch.linalg.cholesky(mat), upper=False)
 
 
 def gp_predict(

@@ -35,16 +35,20 @@ last. See ``csrc/myrtle_gram.cu`` for the kernel's side.
 - :func:`myrtle_gram_plain`, :func:`myrtle_gram_tangents_plain`: the plain
   versions, on the kernels' own inputs (packed profiles, scales); what a
   CPU tensor runs and the oracle of the kernels.
-- :func:`myrtle_gram_cuda` (K7, ``myrtle_gram_kernel``),
-  :func:`myrtle_gram_tangents_cuda` (its scale-tangent mode,
-  ``myrtle_gram_tangents_kernel``): launch the kernels on a CUDA tensor, or
-  raise. Both run one pair recursion, whose stage 1 streams the slabs
-  through registers; ``same=True`` runs each pair of K(x, x) once.
-  ``LAUNCHES`` counts them ("myrtle", "myrtle_grads").
+- :func:`myrtle_gram_cuda` (K7, ``myrtle_gram_kernel``; ``state=bf16``
+  its bf16 pair-state variant), :func:`myrtle_gram_tangents_cuda` (its
+  scale-tangent mode, ``myrtle_gram_tangents_kernel``): launch the kernels
+  on a CUDA tensor, or raise. All run one pair recursion, whose stage 1
+  streams the slabs through registers; ``same=True`` runs each pair of
+  K(x, x) once. ``LAUNCHES`` counts them ("myrtle", "myrtle_bf16",
+  "myrtle_grads").
 - :func:`myrtle_gram`: one ``torch.autograd.Function`` with the JAX
   package's ``trainable_inputs`` contract (True: backward by autograd
   through the full tier, x cotangents included; False: zero x cotangents
-  and the scale cotangents from the tangent mode).
+  and the scale cotangents from the tangent mode), and its ``dtype``: a
+  bf16 pair state (forward only) runs K7's bf16 variant on the card and
+  the bf16 plain version on the CPU, rounding where the JAX package's bf16
+  kernel does (``_PlainRecursion``).
 - :func:`myrtle_gram_scale_grads` returns (K, dK/dw_std, dK/db_std);
   :func:`myrtle_gram_tiled` assembles a large Gram block by block into host
   memory, resumable from an ``.npy`` memmap; :func:`myrtle_gram_sharded`
@@ -72,8 +76,26 @@ __all__ = ["MYRTLE_GROUPS", "myrtle_var_profiles", "myrtle_profile_tangents",
 MYRTLE_GROUPS = {5: (1, 1, 1), 7: (2, 2, 1), 10: (3, 3, 2)}
 
 # Launches of each CUDA kernel in this process; the wrappers add one per
-# launch. "myrtle" is K7, "myrtle_grads" its scale-tangent mode.
-LAUNCHES = {"myrtle": 0, "myrtle_grads": 0}
+# launch. "myrtle" is K7, "myrtle_bf16" its bf16 pair-state variant,
+# "myrtle_grads" its scale-tangent mode.
+LAUNCHES = {"myrtle": 0, "myrtle_bf16": 0, "myrtle_grads": 0}
+
+# A ``dtype`` argument's pair state: None, the input's own dtype (float32
+# for the kernels; the plain versions also run float64 witnesses), or
+# bfloat16.
+_STATES = {None: None, torch.float32: None, "float32": None, torch.bfloat16: torch.bfloat16,
+           "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
+
+
+def _state_dtype(dtype):
+    """The pair state for a ``dtype`` argument: None (the input's dtype) for
+    None, torch.float32 or "float32"; torch.bfloat16 for torch.bfloat16,
+    "bf16" or "bfloat16"."""
+    try:
+        return _STATES[dtype]
+    except (KeyError, TypeError):
+        raise ValueError(f"dtype {dtype!r}: the fused Myrtle Gram's pair state is float32 "
+                         "or bfloat16") from None
 
 _TANGENT_MODES = {"w": 0, "b": 1, "wb": 2}
 # The kernels' warps a block (csrc/myrtle_gram.cu kWarps, both modes) and
@@ -222,12 +244,28 @@ def _stencil(z):
 class _PlainRecursion:
     """The slab recursion for a block of pairs [n1, n2] in plain PyTorch:
     states are lists (primal, then the tangents carried), slabs [n1, n2,
-    ni, nj]. ``tsel`` lists the tangents carried (0 = d/dw, 1 = d/db)."""
+    ni, nj]. ``tsel`` lists the tangents carried (0 = d/dw, 1 = d/db).
 
-    def __init__(self, x1, x2, prof1, prof2, dprof1, dprof2, scales, groups, act, tsel):
+    ``state`` is the pair state's dtype, None for the inputs' own (float32,
+    or float64 for a witness). bfloat16 (the forward only) rounds
+    where the JAX package's bf16 kernel does: the fp32 moment once; every op
+    of the recursion (each stencil add, the / 9, w^2 *, + b^2, with w^2,
+    b^2 and the profiles themselves rounded); the dual activation, computed
+    in fp32 from its bf16 inputs, once on the way out; and each pooled entry
+    once, when its stage reads it: the pools sum in fp32 into fp32 pooled
+    states. The GAP sums in float64 and the result is fp32."""
+
+    def __init__(self, x1, x2, prof1, prof2, dprof1, dprof2, scales, groups, act, tsel,
+                 state=None):
         self.x1, self.x2 = x1, x2
+        state = x1.dtype if state is None else state
+        self.bf16 = state == torch.bfloat16
+        if self.bf16:
+            prof1, prof2 = prof1.to(state), prof2.to(state)
+            scales = torch.cat([scales[:2].to(state).float(), scales[2:]])
         self.prof1, self.prof2, self.dprof1, self.dprof2 = prof1, prof2, dprof1, dprof2
         self.scales = scales
+        self.state = state
         self.groups, self.act, self.tsel = groups, act, tsel
         self.h = x1.shape[1]
         self.layers = _layers(self.h, groups)
@@ -240,7 +278,7 @@ class _PlainRecursion:
         acc = a[..., 0] * b[..., 0]
         for ch in range(1, a.shape[-1]):
             acc = acc + a[..., ch] * b[..., ch]
-        k = acc * self.scales[3]
+        k = (acc * self.scales[3]).to(self.state)
         return [k] + [torch.zeros_like(k) for _ in self.tsel]
 
     def _rows(self, prof, l, i0, j0, ni, nj, side):
@@ -257,6 +295,10 @@ class _PlainRecursion:
         for l in range(l0, l0 + g):
             v1 = self._rows(self.prof1, l, i0, j0, ni, nj, 1)
             v2 = self._rows(self.prof2, l, i0 + di, j0 + dj, ni, nj, 2)
+            if self.bf16:
+                u = w2.to(self.state) * _stencil(states[0]) + b2.to(self.state)
+                states = [_ACT_T[self.act](u.float(), v1.float(), v2.float()).to(self.state)]
+                continue
             if not self.tsel:
                 states = [_ACT_T[self.act](w2 * _stencil(states[0]) + b2, v1, v2)]
                 continue
@@ -290,7 +332,8 @@ class _PlainRecursion:
                         ui = 2 * i0_t + ei - _lo(di)
                         for ej in opts_j:
                             uj = 2 * j0_t + ej - _lo(dj)
-                            src = z[..., ui:ui + 2 * ni_t - 1:2, uj:uj + 2 * nj_t - 1:2]
+                            src = z[..., ui:ui + 2 * ni_t - 1:2,
+                                    uj:uj + 2 * nj_t - 1:2].to(view.dtype)
                             acc = src if acc is None else acc + src
                     view += 0.0625 * acc
 
@@ -319,7 +362,8 @@ class _PlainRecursion:
             if di % 2 and m > -r2:          # pooled row m is complete: stage 2
                 for wave in _waves(r2):
                     for pj in wave:
-                        states = self.convs([v.clone() for v in slab_view(pooled2, r2, m, pj)],
+                        states = self.convs([v.to(self.state, copy=True)
+                                             for v in slab_view(pooled2, r2, m, pj)],
                                             r2, m, pj, g0, g1)
                         self.pool_into(states, r2, m, pj,
                                        lambda qi, qj: slab_view(pooled3, r3, qi, qj))
@@ -327,14 +371,15 @@ class _PlainRecursion:
                   for _ in range(ns)]
         for qi in range(-(r3 - 1), r3):
             for qj in range(-(r3 - 1), r3):
-                states = self.convs(slab_view(pooled3, r3, qi, qj), r3, qi, qj, g0 + g1, g2)
+                states = self.convs([v.to(self.state) for v in slab_view(pooled3, r3, qi, qj)],
+                                    r3, qi, qj, g0 + g1, g2)
                 for t, z in zip(totals, states):
                     t += z.double().sum(dim=(2, 3))
         scale = self.scales[2].double() / float(r3 ** 4)
         return [(t * scale).to(self.x1.dtype) for t in totals]
 
 
-def _plain(x1, x2, prof1, prof2, dprof1, dprof2, scales, depth, act, tsel):
+def _plain(x1, x2, prof1, prof2, dprof1, dprof2, scales, depth, act, tsel, state=None):
     """Chunk the first operand's rows so that one chunk's pooled stage-2
     states stay within _PLAIN_BYTES."""
     groups = MYRTLE_GROUPS[depth]
@@ -346,17 +391,19 @@ def _plain(x1, x2, prof1, prof2, dprof1, dprof2, scales, depth, act, tsel):
         sl = slice(i, i + rows)
         parts.append(_PlainRecursion(
             x1[sl], x2, prof1[sl], prof2, None if dprof1 is None else dprof1[sl], dprof2,
-            scales, groups, act, tsel).run())
+            scales, groups, act, tsel, state).run())
     return [torch.cat(p) for p in zip(*parts)]
 
 
-def myrtle_gram_plain(x1, x2, prof1, prof2, scales, *, depth: int, act: str):
+def myrtle_gram_plain(x1, x2, prof1, prof2, scales, *, depth: int, act: str, state=None):
     """K7's plain PyTorch version, on the kernel's own inputs: images x1
     [N1, h, h, C], x2 [N2, h, h, C], packed variance profiles prof1 [N1, P],
     prof2 [N2, P] (:func:`pack_profiles`) and ``scales`` = [w^2, b^2,
     last^2, 1/C]. The slab recursion in the kernel's order, chunked over
-    x1's rows."""
-    return _plain(x1, x2, prof1, prof2, None, None, scales, depth, act, ())[0]
+    x1's rows, in the inputs' dtype; ``state=torch.bfloat16`` carries the
+    pair state of fp32 inputs in bfloat16, rounded at the JAX package's
+    points (see ``_PlainRecursion``), with an fp32 result."""
+    return _plain(x1, x2, prof1, prof2, None, None, scales, depth, act, (), state)[0]
 
 
 def myrtle_gram_tangents_plain(x1, x2, prof1, prof2, dprof1, dprof2, scales, *,
@@ -376,9 +423,9 @@ def myrtle_gram_tangents_plain(x1, x2, prof1, prof2, dprof1, dprof2, scales, *,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("myrtle_gram")
-    fn = lib.snngp_myrtle_gram_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.snngp_myrtle_gram_f32, lib.snngp_myrtle_gram_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     fn = lib.snngp_myrtle_gram_tangents_f32
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -454,11 +501,17 @@ def _raise_on(lib, err, what):
 
 
 def myrtle_gram_cuda(x1, x2, prof1, prof2, scales, *, depth: int, act: str,
-                     same: bool = False):
+                     same: bool = False, state=None):
     """Launch K7 (``csrc/myrtle_gram.cu``) on the current stream; same inputs
     and result as :func:`myrtle_gram_plain`. ``same=True`` says that x2 (and
     its profiles) are x1's: the kernel runs each pair b >= a once and
-    mirrors it, so K comes out bitwise symmetric."""
+    mirrors it, so K comes out bitwise symmetric. ``state`` is a pair
+    state as :func:`_state_dtype` gives it: torch.bfloat16 launches the
+    bf16 pair-state variant (``myrtle_gram_kernel`` with a bf16 state, fp32
+    inputs and output), None the fp32 kernel; any other value raises."""
+    if state not in (None, torch.bfloat16):
+        raise ValueError(f"state {state!r}: K7 takes the pair state None (float32) or "
+                         "torch.bfloat16; _state_dtype normalises a dtype argument")
     h = x1.shape[1] if x1.ndim == 4 else 0
     n1, n2, h, c = _check_cuda_inputs(dict(x1=x1, x2=x2, prof1=prof1, prof2=prof2,
                                            scales=scales), depth, act,
@@ -469,15 +522,16 @@ def myrtle_gram_cuda(x1, x2, prof1, prof2, scales, *, depth: int, act: str,
         raise ValueError(f"scales must be [4]; got {tuple(scales.shape)}")
     g0, g1, g2 = MYRTLE_GROUPS[depth]
     lib = _lib()
+    bf16 = state == torch.bfloat16
+    fn = lib.snngp_myrtle_gram_bf16 if bf16 else lib.snngp_myrtle_gram_f32
     out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.snngp_myrtle_gram_f32(
-            x1.data_ptr(), x2.data_ptr(), prof1.data_ptr(), prof2.data_ptr(),
-            scales.data_ptr(), out.data_ptr(), n1, n2, h, c, g0, g1, g2, _ACTS[act],
-            int(same), stream)
-    _raise_on(lib, err, "Myrtle Gram kernel")
-    LAUNCHES["myrtle"] += 1
+        err = fn(x1.data_ptr(), x2.data_ptr(), prof1.data_ptr(), prof2.data_ptr(),
+                 scales.data_ptr(), out.data_ptr(), n1, n2, h, c, g0, g1, g2, _ACTS[act],
+                 int(same), stream)
+    _raise_on(lib, err, "Myrtle Gram kernel" + (" (bf16 state)" if bf16 else ""))
+    LAUNCHES["myrtle_bf16" if bf16 else "myrtle"] += 1
     return out
 
 
@@ -536,7 +590,7 @@ def _use_kernel(x, plain):
     return not plain and x.device.type != "cpu"
 
 
-def _forward(x1, x2, w, b, last, depth, act, same, plain=False):
+def _forward(x1, x2, w, b, last, depth, act, same, plain=False, state=None):
     groups = MYRTLE_GROUPS[depth]
     p1 = pack_profiles(myrtle_var_profiles(x1, groups, act, w, b))
     p2 = p1 if same else pack_profiles(myrtle_var_profiles(x2, groups, act, w, b))
@@ -544,8 +598,8 @@ def _forward(x1, x2, w, b, last, depth, act, same, plain=False):
     xc2 = xc1 if same else x2.contiguous()
     args = (xc1, xc2, p1, p2, _scales(x1, w, b, last, False))
     if not _use_kernel(x1, plain):
-        return myrtle_gram_plain(*args, depth=depth, act=act)
-    return myrtle_gram_cuda(*args, depth=depth, act=act, same=same)
+        return myrtle_gram_plain(*args, depth=depth, act=act, state=state)
+    return myrtle_gram_cuda(*args, depth=depth, act=act, same=same, state=state)
 
 
 def _tangents(x1, x2, w, b, last, depth, act, profiles=None, tangents="wb", plain=False):
@@ -584,13 +638,16 @@ class _MyrtleGram(torch.autograd.Function):
     """Fused Myrtle Gram with the JAX package's two backward contracts.
     ``plain=True`` runs the plain versions on any device: the float64
     oracle of a gradient check on the card; the public entry points never
-    set it."""
+    set it. ``state`` is the forward's pair-state dtype; a bf16 forward
+    has only the ``trainable_inputs=True`` backward, through the fp32 full
+    tier, as in the JAX package."""
 
     @staticmethod
-    def forward(ctx, x1, x2, w, b, last, depth, act, trainable_inputs, same, plain=False):
+    def forward(ctx, x1, x2, w, b, last, depth, act, trainable_inputs, same, plain=False,
+                state=None):
         ctx.save_for_backward(x1, x2, w, b, last)
         ctx.conf = (depth, act, trainable_inputs, same, plain)
-        return _forward(x1, x2, w, b, last, depth, act, same, plain)
+        return _forward(x1, x2, w, b, last, depth, act, same, plain, state)
 
     @staticmethod
     def backward(ctx, g):
@@ -605,7 +662,7 @@ class _MyrtleGram(torch.autograd.Function):
                 wanted = [t for t in leaves if t.requires_grad]
                 grads = iter(torch.autograd.grad(k, wanted, g, allow_unused=True))
             out = [next(grads) if t.requires_grad else None for t in leaves]
-            return (*out, None, None, None, None, None)
+            return (*out, None, None, None, None, None, None)
 
         with torch.no_grad():
             k, dkw, dkb = _tangents(x1, x1 if same else x2, w, b, last, depth, act,
@@ -618,7 +675,7 @@ class _MyrtleGram(torch.autograd.Function):
         gw, gb, gl = (s.to(v.dtype) for s, v in zip(sums, (w, b, last)))
         zero_x = [torch.zeros_like(x) if need else None
                   for x, need in zip((x1, x2), ctx.needs_input_grad[:2])]
-        return (*zero_x, gw, gb, gl, None, None, None, None, None)
+        return (*zero_x, gw, gb, gl, None, None, None, None, None, None)
 
 
 def myrtle_gram(x1: torch.Tensor, x2: Optional[torch.Tensor] = None, *, depth: int = 5,
@@ -633,13 +690,18 @@ def myrtle_gram(x1: torch.Tensor, x2: Optional[torch.Tensor] = None, *, depth: i
     three scales are differentiated, by one tangent-mode pass (dK/dw, dK/db;
     dK/dlast = (2 / last) K), and x1 / x2 get zero cotangents.
 
-    ``dtype``: only float32; the JAX package's bf16 pair state is not
-    ported."""
+    ``dtype``: the pair state's, float32 (None) or bfloat16
+    (``torch.bfloat16``, "bf16", "bfloat16"): the bf16 variant of K7 on a
+    CUDA tensor, the bf16 plain version on a CPU tensor, with the fp32
+    moment, pools and GAP of the JAX package's bf16 kernel and ~1e-2
+    relative noise on the entries. The result is float32 either way. A bf16
+    state is forward-only: ``trainable_inputs=False`` raises ``ValueError``
+    (scalar-tangent gradients are fp32-only)."""
     if act not in _ACT_T:
         raise KeyError(f"unsupported act '{act}'")
-    if dtype not in (None, torch.float32, "float32"):
-        raise NotImplementedError("the bf16 pair state is not ported; the fused Myrtle "
-                                  "Gram runs in float32")
+    state = _state_dtype(dtype)
+    if not trainable_inputs and state is not None:
+        raise ValueError("scalar-tangent gradients (trainable_inputs=False) are fp32-only")
     if depth not in MYRTLE_GROUPS:
         raise ValueError(f"depth {depth} is not a Myrtle depth (5, 7, 10)")
     same = x2 is None or x2 is x1
@@ -649,7 +711,8 @@ def myrtle_gram(x1: torch.Tensor, x2: Optional[torch.Tensor] = None, *, depth: i
     w = torch.as_tensor(w_std, **like)
     b = torch.as_tensor(b_std, **like)
     last = torch.as_tensor(last_w_std, **like)
-    return _MyrtleGram.apply(x1, x2, w, b, last, depth, act, trainable_inputs, same)
+    return _MyrtleGram.apply(x1, x2, w, b, last, depth, act, trainable_inputs, same, False,
+                             state)
 
 
 def myrtle_gram_scale_grads(x1, x2=None, *, depth: int = 5, act: str = "relu", w_std=1.0,

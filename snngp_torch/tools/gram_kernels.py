@@ -31,11 +31,8 @@ Needs nvcc and one CUDA card.
 """
 
 import argparse
-import ctypes
 import inspect
-import re
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -98,24 +95,12 @@ def _time_cases(cs, cases, label=""):
 def _variant(k1_blocks, k2_blocks, build, own):
     """gram.cu with other __launch_bounds__ minimum blocks, built and loaded,
     with the ctypes signatures of ``own`` (the tree's library)."""
-    src = (REPO / "snngp_torch" / "csrc" / "gram.cu").read_text()
-    for name, value in (("kGramBlocks", k1_blocks), ("kGradsBlocks", k2_blocks)):
-        src, count = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
-                             src)
-        if count != 1:
-            raise RuntimeError(f"gram.cu has no single {name}")
-    build.mkdir(parents=True, exist_ok=True)
-    cu = build / f"gram_{k1_blocks}_{k2_blocks}.cu"
-    cu.write_text(src)
     from snngp_torch.ops import _build
-    so = cu.with_suffix(".so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o", str(so),
-                           str(cu)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(proc.stderr)
-    for line in _build.parse_ptxas(proc.stdout + proc.stderr):
+    lib, report = _build.build_variant(
+        "gram", {"kGramBlocks": k1_blocks, "kGradsBlocks": k2_blocks},
+        build / f"gram_{k1_blocks}_{k2_blocks}.so")
+    for line in report:
         print(f"[blocks {k1_blocks}:{k2_blocks}] ptxas {line}")
-    lib = ctypes.CDLL(str(so))
     for fn in ("snngp_gram_f32", "snngp_gram_grads_f32", "snngp_gram_blocks",
                "snngp_error_string"):
         getattr(lib, fn).argtypes = getattr(own, fn).argtypes

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build and check K7 (``csrc/myrtle_gram.cu``: the forward,
-``myrtle_gram_kernel``, and the scale-tangent mode,
-``myrtle_gram_tangents_kernel``) alone, in about two minutes on one card.
+``myrtle_gram_kernel``, its bf16 pair-state variant, and the scale-tangent
+mode, ``myrtle_gram_tangents_kernel``) alone, in about three minutes on one
+card.
 
     python3 snngp_torch/tools/k7.py [--step]
 
@@ -14,10 +15,18 @@ version's error against float64; bitwise repeat; bitwise symmetric K and
 tangents for a symmetric launch), and times both modes at the head shape
 (200 x 200 pairs of 32 x 32 x 3, Myrtle-5, relu, symmetric; wb for the
 tangent mode) with the kernel alone: one warm-up call, then one timed
-call, each beside its bound.
+call, each beside its bound. Then ``chip_smoke.py``'s bf16 phase (14
+(bf16)): the bf16 variant against its bf16 plain version and the fp32
+kernel at 8 x 8 and 16 x 16 and at the head shape, where the bf16 and fp32
+forwards are timed in turns.
 
 ``--step`` also times one Myrtle-5 SVSP svgp step at the smoke's shape
-(after one untimed step), split by phase. Needs nvcc and one CUDA card.
+(after one untimed step), split by phase. ``--blocks N ...`` builds copies
+of ``myrtle_gram.cu`` whose forward asks ``__launch_bounds__`` for N
+blocks an SM (``kForwardBlocks``) into ``build/k7_blocks/``, prints their
+ptxas reports and times the fp32 and bf16 forwards at the head shape on
+the tree's build and on each copy, in turns (the builds in order, then
+reversed). Needs nvcc and one CUDA card.
 """
 
 import argparse
@@ -65,9 +74,55 @@ def _head(cs, MG, margs, mode):
                              "repeatable, symmetric and finite")
 
 
+def _variant(blocks, own):
+    """myrtle_gram.cu with kForwardBlocks = ``blocks``, built and loaded,
+    with the ctypes signatures of ``own`` (the tree's library)."""
+    from snngp_torch.ops import _build
+
+    lib, report = _build.build_variant("myrtle_gram", {"kForwardBlocks": blocks},
+                                       REPO / "build" / "k7_blocks" / f"myrtle_gram_{blocks}.so")
+    for line in report:
+        if line.startswith("myrtle_gram_kernel"):
+            print(f"[blocks {blocks}] ptxas {line}")
+    for fn in ("snngp_myrtle_gram_f32", "snngp_myrtle_gram_bf16",
+               "snngp_myrtle_gram_tangents_f32", "snngp_myrtle_error_string"):
+        getattr(lib, fn).argtypes = getattr(own, fn).argtypes
+        getattr(lib, fn).restype = getattr(own, fn).restype
+    return lib
+
+
+def _blocks(cs, MG, margs, specs):
+    """The head shape's fp32 and bf16 forwards on the tree's build and on
+    each kForwardBlocks copy, one warm-up and one timed call each, the
+    builds in order and then reversed."""
+    import torch
+
+    libs = {f"tree ({cs.K7_HEAD})": MG._lib()}
+    for blocks in specs:
+        libs[f"{blocks} blocks"] = _variant(blocks, libs[next(iter(libs))])
+    own = MG._lib
+    try:
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                MG._lib = lambda lib=libs[name]: lib  # noqa: E731
+                for state in (None, torch.bfloat16):
+                    MG.myrtle_gram_cuda(*margs, depth=5, act="relu", same=True, state=state)
+                    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    MG.myrtle_gram_cuda(*margs, depth=5, act="relu", same=True, state=state)
+                    stop.record()
+                    stop.synchronize()
+                    print(f"[blocks] {name} {'bfloat16' if state else 'float32'}: "
+                          f"{start.elapsed_time(stop):.3f} ms")
+    finally:
+        MG._lib = own
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--step", action="store_true", help="also time one Myrtle-5 SVSP step")
+    ap.add_argument("--blocks", nargs="*", type=int, default=[], metavar="N",
+                    help="time forward builds with these __launch_bounds__ minimum blocks")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(REPO))
 
@@ -85,8 +140,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     _build.load("myrtle_gram")
     print(f"[k7] myrtle_gram.cu built in {time.perf_counter() - t0:.1f} s")
-    # Template arguments: the forward's (act, g0), the tangent mode's (act,
-    # tangents, g0); act 0 is relu, 1 erf.
+    # Template arguments: the forward's (act, g0, bf16), the tangent mode's
+    # (act, tangents, g0); act 0 is relu, 1 erf.
     for line in _build.ptxas_report("myrtle_gram"):
         print(f"ptxas {line}")
 
@@ -105,8 +160,16 @@ def main(argv=None):
         print(f"[k7] cases checked in {time.perf_counter() - t0:.1f} s")
         x = torch.as_tensor(rng.randn(cs.SVSP_NI, 32, 32, 3).astype(np.float32),
                             device="cuda")
-        _head(cs, MG, cs._myrtle_args(x, x, 5, "relu", False), "")
+        margs = cs._myrtle_args(x, x, 5, "relu", False)
+        _head(cs, MG, margs, "")
         _head(cs, MG, cs._myrtle_args(x, x, 5, "relu", True), "wb")
+        if args.blocks:
+            _blocks(cs, MG, margs, args.blocks)
+    try:
+        cs.phase14_k7_bf16()
+    except AssertionError as err:
+        print(f"[k7] FAILED: {err}")
+        failed.append("bf16")
     if args.step:
         _step(cs)
     if failed:

@@ -73,3 +73,12 @@ def test_library_key_follows_the_source_and_its_headers(csrc, edited):
     assert _build.library_path("k") == before
     (csrc / edited).write_text((csrc / edited).read_text() + "// edited\n")
     assert _build.library_path("k") != before
+
+
+@pytest.mark.parametrize("constants", [{"kAbsent": 2}, {"kTwice": 2}])
+def test_build_variant_edits_only_a_single_constant(csrc, tmp_path, constants):
+    # A constant that is absent, or defined twice, is refused before nvcc runs.
+    (csrc / "k.cu").write_text("constexpr int kTwice = 1;\nconstexpr int kTwice = 1;\n")
+    with pytest.raises(RuntimeError, match="no single"):
+        _build.build_variant("k", constants, tmp_path / "v" / "k.so")
+    assert not (tmp_path / "v").exists()

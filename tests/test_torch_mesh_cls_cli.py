@@ -3,8 +3,8 @@
 batch-sharded ELBO) against the same run on one device, its checkpoint in
 the JAX package's ``cls ts``, and ``python -m
 snngp_torch.examples.cifar_myrtle`` with ``--devices`` (fused and full tier,
-after a full-scope ML-II fit) and ``--bf16``. The port's meshes are shards
-of the CPU.
+after a full-scope ML-II fit) and ``--bf16`` (full tier and fused). The
+port's meshes are shards of the CPU.
 
 Tolerances:
 - ``cls tr``'s nELBO lines on the mesh against one device: rtol 1e-5 (the
@@ -14,7 +14,7 @@ Tolerances:
 - the pipeline's NLL on the mesh against one device: rtol 1e-4, the mesh
   example's own parity bar (the mesh factors through the blocked
   Cholesky, one device through ``torch.linalg``);
-- ``--bf16 --fused off`` against the JAX script: rtol 2e-2. The two
+- ``--bf16`` (``--fused off`` or ``on``) against the JAX script: rtol 2e-2. The two
   packages round the bfloat16 pair state at other points; their Grams
   differ by up to 5.6e-3 of max|K| (each is 6.4e-3 from float32), and the
   NLL by 0.9% at these sizes. Both need ``--t-jitter 1e-2`` here: at the
@@ -147,10 +147,25 @@ def test_cifar_myrtle_on_a_mesh_matches_one_device(flags, tmp_path, monkeypatch)
 def test_a_mesh_takes_no_lean_fit(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     mesh = get_mesh(2, device="cpu")
-    assert example._chol_route("auto", 40_000, mesh) == (False, None)
+    # auto on a mesh: the blocked factorization at its automatic panel from
+    # 4,096 points (the JAX script's rule), SPR's own below; one device: in
+    # place from 32,768, else torch.linalg.
+    assert example._chol_route("auto", 40_000, mesh) == (False, example.blocked_cholesky)
+    assert example._chol_route("auto", 4_096, mesh) == (False, example.blocked_cholesky)
+    assert example._chol_route("auto", 4_095, mesh) == (False, None)
     assert example._chol_route("auto", 40_000) == (True, None)
+    assert example._chol_route("auto", 4_096) == (False, None)
     with pytest.raises(SystemExit, match="--chol inplace is a single-device kernel"):
         example.main([*IMAGES, "--devices", "2", "--chol", "inplace"])
+
+
+def test_auto_route_on_a_mesh_takes_the_automatic_panel():
+    # --chol auto on a mesh passes blocked_cholesky with block=None, whose
+    # panel is JAX's (snngp/parallel/cholesky.py:85-89): at N = 32,768, 22
+    # panels of 1,536 rows (SPR(mesh=)'s own default is 64 of 512).
+    from snngp_torch.parallel.cholesky import _auto_block, _starts
+    assert _auto_block(32_768) == 1536 and len(_starts(32_768, 1536)) == 22
+    assert _auto_block(4_096) == 512
 
 
 def _jax_script(argv):
@@ -178,6 +193,20 @@ def test_bf16_full_tier_matches_the_jax_script(tmp_path, monkeypatch):
 
 
 def test_bf16_with_the_fused_gram_off_the_card_raises(tmp_path, monkeypatch):
+    """(The name is this test's first contract, when --bf16 --fused on
+    raised off the card.) --bf16 --fused on: K7's bf16 plain version here,
+    the JAX package's bf16 kernel in interpret mode there (its non-TPU
+    branch), at the bf16 bar of this file (rtol 2e-2; they differ by 3.6e-3
+    at these sizes). The JAX script's blocks are padded to --fused-block,
+    hence 8."""
+    import snngp.ops.pallas.myrtle_gram as mg
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        example.main([*IMAGES, "--fused", "on", "--bf16"])
+    monkeypatch.setattr(mg, "INTERPRET", True)
+    flags = ["--image-size", "8", "--n-train", "16", "--n-test", "8", "--fused", "on",
+             "--fused-block", "8", "--bf16", "--t-jitter", "1e-2"]
+    got = example.main(["--device", "cpu", *flags])
+    assert got["bf16_effective"]
+    np.testing.assert_allclose(got["nll"], _jax_script(flags), rtol=2e-2)
+    # eps (default 1e-4) is raised to 1e-2 under bf16, on the fused path too.
+    assert example.main(["--device", "cpu", *flags, "--eps", "1e-2"])["nll"] == got["nll"]

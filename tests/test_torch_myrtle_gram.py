@@ -241,8 +241,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     t = torch.as_tensor(x)
     with pytest.raises(ValueError, match="power-of-two"):
         MG.myrtle_gram(torch.zeros(2, 12, 12, 3))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        MG.myrtle_gram(t, dtype=torch.bfloat16)
+    # A bf16 pair state is forward-only, as in the JAX package.
+    with pytest.raises(ValueError, match="fp32-only"):
+        MG.myrtle_gram(t, dtype=torch.bfloat16, trainable_inputs=False)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        MG.myrtle_gram(t, dtype=torch.float16)
     with pytest.raises(ValueError, match="Myrtle depth"):
         MG.myrtle_gram(t, depth=6)
     p = MG.pack_profiles(MG.myrtle_var_profiles(t, (1, 1, 1), "relu", 1.0, 0.1))
@@ -265,6 +268,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                                      same=True)
     with pytest.raises(ValueError, match="h <= 32"):
         MG.myrtle_gram_tangents_cuda(x64, x64, p, p, d, d, scales6, depth=5, act="relu")
+
+
+def test_bf16_wrapper_refuses_what_the_kernel_does_not_take():
+    x, _ = _data(2, 1, 8)
+    t = torch.as_tensor(x)
+    p = MG.pack_profiles(MG.myrtle_var_profiles(t, (1, 1, 1), "relu", 1.0, 0.1))
+    scales = torch.tensor([1.0, 0.01, 1.0, 1 / 3])
+    # Only a normalised state (None or torch.bfloat16) reaches the wrapper.
+    for state in (torch.float16, torch.float32, "bf16"):
+        with pytest.raises(ValueError, match="None \\(float32\\) or torch.bfloat16"):
+            MG.myrtle_gram_cuda(t, t, p, p, scales, depth=5, act="relu", state=state)
+    # A CPU tensor never reaches a kernel, in either state.
+    with pytest.raises(ValueError, match="CUDA"):
+        MG.myrtle_gram_cuda(t, t, p, p, scales, depth=5, act="relu", state=torch.bfloat16)
 
 
 @pytest.mark.parametrize("wrapper,other", [("tangents", "x"), ("tangents", "prof"),
@@ -434,3 +451,113 @@ def test_kernels_match_plain_on_the_card(cuda_device):
             else:
                 assert rel(g, r) <= 2.0 * max(rel(p, r), 1e-6)
     assert MG.LAUNCHES["myrtle_grads"] == before["myrtle_grads"] + 3
+
+
+# -- the bf16 pair state ---------------------------------------------------------------
+
+@pytest.mark.parametrize("act", ["relu", "erf"])
+def test_bf16_plain_matches_jax_interpret(act, monkeypatch):
+    """K7's bf16 plain version against the JAX package's bf16 kernel in
+    interpret mode, each held against the fp32 full tier: the port within
+    2x the JAX kernel's distance (floor 1e-3 of max|K|), and within 2x of
+    it from the JAX kernel itself. The two round the bf16 state at other
+    points: the JAX kernel pools each side in its own fp32 pass and adds
+    its tail stages' lane pools in bf16. The port also stays at least
+    2^-10 of max|K| from the fp32 full tier: bf16 keeps 8 significant bits,
+    and a recursion that rounds every op to them lands ~3.5e-3 away on these
+    inputs, where an fp32 recursion lands ~2e-7 away."""
+    monkeypatch.setattr(mg, "INTERPRET", True)
+    x1, x2 = _data(3, 2, 8, seed=21)
+    full = np.asarray(jax.jit(jax_full(5, 1, act, **HP))(x1, x2), np.float64)
+    want = np.asarray(mg.myrtle_gram(x1, x2, depth=5, act=act, dtype="bf16", **HP), np.float64)
+    got = MG.myrtle_gram(*_t(x1, x2), depth=5, act=act, dtype=torch.bfloat16, **HP)
+    assert got.dtype == torch.float32
+    scale = np.abs(full).max()
+    d_jax = np.abs(want - full).max() / scale
+    got = to_numpy(got).astype(np.float64)
+    d_port = np.abs(got - full).max() / scale
+    d_pair = np.abs(got - want).max() / scale
+    print(f"bf16 {act} against the fp32 full tier, of max|K|: port {d_port:.3e}, "
+          f"JAX interpret {d_jax:.3e}; port against JAX interpret {d_pair:.3e}")
+    assert 2.0 ** -10 <= d_port <= 2.0 * max(d_jax, 1e-3), (d_port, d_jax)
+    assert d_pair <= 2.0 * max(d_jax, 1e-3), (d_pair, d_jax)
+
+
+@pytest.mark.parametrize("tangents", [False, True])
+def test_plain_versions_keep_a_float64_witness_in_float64(tangents):
+    """The plain versions run in their inputs' dtype: float64 inputs (the
+    witnesses of the card's gradient and tangent checks) give a float64
+    recursion, not the fp32 one cast up."""
+    x = torch.as_tensor(_data(3, 1, 8, seed=24)[0])
+    if tangents:
+        k32 = MG.myrtle_gram_scale_grads(x, **SG)
+        k64 = MG.myrtle_gram_scale_grads(x.double(), **SG)
+    else:
+        k32 = (MG.myrtle_gram(x, **SG),)
+        k64 = (MG.myrtle_gram(x.double(), **SG),)
+    for a, b in zip(k32, k64):
+        assert b.dtype == torch.float64
+        assert not torch.equal(b, a.double())
+        assert ((b - a.double()).abs().max() / b.abs().max()).item() <= 1e-5
+
+
+def test_bf16_spellings_tiles_and_shards():
+    """The three bf16 spellings give one result, which is not the fp32
+    one; myrtle_gram_tiled and myrtle_gram_sharded pass the dtype through
+    (their blocks within 1e-6 of max|K| of one call)."""
+    from snngp_torch.parallel.mesh import gather, get_mesh
+
+    x = torch.as_tensor(_data(5, 1, 8, seed=22)[0])
+    outs = [MG.myrtle_gram(x, dtype=d, **SG) for d in (torch.bfloat16, "bf16", "bfloat16")]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert outs[0].dtype == torch.float32
+    assert not torch.equal(outs[0], MG.myrtle_gram(x, **SG))
+    scale = outs[0].abs().max().item()
+    tiled = MG.myrtle_gram_tiled(x, block=2, dtype="bf16", **SG)
+    np.testing.assert_allclose(tiled, to_numpy(outs[0]), rtol=0, atol=1e-6 * scale)
+    x4 = x[:4]
+    sharded = gather(MG.myrtle_gram_sharded(x4, None, get_mesh(2, device="cpu"), dtype="bf16",
+                                            **SG))
+    np.testing.assert_allclose(to_numpy(sharded), to_numpy(MG.myrtle_gram(x4, dtype="bf16", **SG)),
+                               rtol=0, atol=1e-6 * scale)
+
+
+def test_bf16_request_reaches_the_bf16_kernel(monkeypatch):
+    """On the kernels' path (the device dispatch patched; the spy runs the
+    plain version here) a bf16 request launches the bf16 variant, and an
+    fp32 request the fp32 kernel: no request reaches the other one."""
+    seen = []
+
+    def spy(*args, same=False, state=None, **kw):
+        seen.append(state)
+        return MG.myrtle_gram_plain(*args, **kw, state=state)
+
+    monkeypatch.setattr(MG, "_use_kernel", lambda x, plain: not plain)
+    monkeypatch.setattr(MG, "myrtle_gram_cuda", spy)
+    x = torch.as_tensor(_data(3, 1, 8, seed=23)[0])
+    MG.myrtle_gram(x, dtype="bf16", **SG)
+    MG.myrtle_gram(x, **SG)
+    MG.myrtle_gram_tiled(x, block=2, dtype=torch.bfloat16, **SG)
+    assert seen == [torch.bfloat16, None] + [torch.bfloat16] * 3
+
+
+def test_bf16_kernel_matches_its_plain_version_on_the_card(cuda_device):
+    """The bf16 variant on the card: launched under its own count, within
+    1e-4 of max|K| of the bf16 plain version, and its distance from the
+    fp32 kernel within [0.5x, 2x] the plain bf16 version's (the upper side
+    floored at 1e-3): the gates of chip_smoke.py's bf16 phase."""
+    x1, x2 = _data(3, 5, 16, seed=13)
+    a, b = (torch.as_tensor(v, device=cuda_device) for v in (x1, x2))
+    before = dict(MG.LAUNCHES)
+    got = MG.myrtle_gram(a, b, dtype="bf16", **HP).cpu()
+    assert MG.LAUNCHES["myrtle_bf16"] == before["myrtle_bf16"] + 1
+    assert MG.LAUNCHES["myrtle"] == before["myrtle"]
+    f32 = MG.myrtle_gram(a, b, **HP).cpu()
+    plain = MG.myrtle_gram(*_t(x1, x2), dtype="bf16", **HP)
+    scale = f32.abs().max()
+    assert ((got - plain).abs().max() / scale).item() <= 1e-4
+    d_plain = ((plain - f32).abs().max() / scale).item()
+    d_kernel = ((got - f32).abs().max() / scale).item()
+    assert 0.5 * d_plain <= d_kernel <= 2.0 * max(d_plain, 1e-3)
+    sym = MG.myrtle_gram(a, dtype="bf16", **HP)
+    assert torch.equal(sym, sym.T) and bool(torch.isfinite(sym).all())
