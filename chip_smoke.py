@@ -215,7 +215,24 @@ script exits non-zero:
    after phase 1 (gate: the Chrome trace it writes names ``gram_kernel``
    and ``trace`` does not warn) and again after phase 29, where
    torch.profiler can lose a capture's kernel records (gate: the trace
-   names ``gram_kernel`` or ``trace`` warned that it lacks kernels).
+   names ``gram_kernel`` or ``trace`` warned that it lacks kernels);
+31. the mesh across processes, after phase 29: ``python -m
+   torch.distributed.run --standalone`` runs ``snngp_torch/tools/dist_mesh.py``
+   on 2 gloo ranks, both on ``cuda:0`` (``init_distributed``, a mesh of one
+   shard a rank): ``sharded_gram`` and the cyclic and row-panel
+   factorizations at phase 25's N = 32,768, ``SPR.loss`` and its gradients
+   at N = 10,000, the distributed ML-II step at 256 images and one CNN ELBO
+   and its gradients at the CIFAR shape (gates: the Grams and the factors
+   bit for bit against the one-process mesh of 2 shards on the card, q and
+   logdet S bit for bit and the six ML-II sums within 1e-12 relative of it,
+   the losses bit for bit, the gradients within 2x the single-device fp32
+   error against phases 5's and 9's float64 references, every rank's
+   results equal to rank 0's, and K1, K2, K3 and K7's tangent mode launched
+   by the ranks); then the same parts on one NCCL rank (the same gates), and
+   two NCCL ranks on ``cuda:0`` once, whose outcome is printed, not gated
+   (NCCL refuses two ranks on one card). A rank that fails fails the phase,
+   and a group that outlives DIST_TIMEOUT is killed. The ranks share one
+   card: their times are not a multi-card time.
 
 Nine main paths run with the kernels' launch counts set to 0 just before
 and read just after: serving (phases 2-3), training (phases 5-6), the
@@ -225,7 +242,9 @@ Myrtle classification with the pipeline, its bf16 run and full-Gram ML-II
 (phases 15-17 and 21's pipeline; K7, its tangent mode and its bf16
 variant), the lean and mesh regression (phases 24-25: K1,
 K2 and K7's tangent mode), classification and the pipeline on the mesh
-(phases 26-28: K3-K7 and K7's tangent mode, no K1 or K2) and the ensemble
+(phases 26-28: K3-K7 and K7's tangent mode, no K1 or K2), the mesh across
+processes (phase 31, counted in each rank: K1, K2, K3 and K7's tangent
+mode) and the ensemble
 with the figures (phases 22-23,
 which run cuDNN convolutions and cuBLAS products: none of K1-K7 may
 launch there); each fails if a kernel of its path never launched. Launches made to compare a kernel with its plain version or
@@ -387,6 +406,11 @@ MESH_CLS_N, MESH_CLS_TEST = 512, 128
 MESH_CLS_PIPELINE = ["--image-size", "32", "--depth", "5", "--n-train", str(MESH_CLS_N),
                      "--n-test", str(MESH_CLS_TEST), "--fused", "on"]
 PIPELINE_RTOL = 1e-4      # the mesh example's parity bar
+# Phase 31: the mesh across processes under torchrun (2 gloo ranks on cuda:0,
+# one NCCL rank, and once two NCCL ranks on cuda:0, not gated).
+DIST_RANKS = 2
+DIST_TIMEOUT = 300        # seconds a group may take before it is killed
+DIST_KERNELS = ("gram", "gram_grads", "conv_gram", "myrtle_grads")
 
 
 def _sync():
@@ -3615,8 +3639,10 @@ def phase30_trace(late=False):
     of 2,048 x 16). Early in the process (gate) the trace file exists,
     names K1's kernel and ``trace`` does not warn. Late in it (``late``,
     after phase 29), torch.profiler can lose a capture's kernel records
-    (PERF.md section 7): the gate is then that the trace names K1's kernel
-    or ``trace`` warned that it lacks kernels, never a silent loss."""
+    (PERF.md section 7; ``snngp_torch/tools/trace_repro.py --case idle``
+    loses them with torch alone when captures come seconds apart): the
+    gate is then that the trace names K1's kernel or ``trace`` warned that
+    it lacks kernels, never a silent loss."""
     import tempfile
     import warnings
 
@@ -3647,6 +3673,82 @@ def phase30_trace(late=False):
         raise AssertionError(f"the profiler trace of a K1 launch: named {named}, warned "
                              f"{lost} (late in the process {late})")
     return dict(files=len(files), bytes=len(text), named=named, warned=bool(lost))
+
+
+def _torchrun(nproc, argv, timeout=DIST_TIMEOUT, env=None):
+    """``python -m torch.distributed.run --standalone`` of dist_mesh.py with
+    ``nproc`` ranks, in a session of its own (``env`` added to this
+    process's environment): (exit code, output), the whole session killed
+    past ``timeout`` (exit code None). torchrun stops the other ranks when
+    one fails."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", str(REPO / "snngp_torch" / "tools" / "dist_mesh.py"),
+           *argv]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True, env={**os.environ, **(env or {})})
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+        return proc.returncode, out
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        return None, out
+
+
+def _dist_run(label, nproc, argv):
+    """One gated group: its rank 0's JSON line; fails on a failed or hung
+    rank, on a failed check, or when a kernel of DIST_KERNELS never
+    launched."""
+    code, out = _torchrun(nproc, argv)
+    lines = out.splitlines()
+    for line in lines:
+        if line.startswith("[dist]"):
+            print(f"[dist] {label}: {line[7:]}")
+    result = [json.loads(line[12:]) for line in lines if line.startswith("[dist-json] ")]
+    if code != 0 or not result:
+        why = "timed out and was killed" if code is None else f"exited {code}"
+        raise AssertionError(f"{label}: the group {why}:\n" + "\n".join(lines[-60:]))
+    result = result[-1]
+    missing = [k for k in DIST_KERNELS if result["launches"].get(k, 0) <= 0]
+    if result["failed"] or missing:
+        raise AssertionError(f"{label}: failed checks {result['failed']}, kernels never "
+                             f"launched {missing}")
+    return result
+
+
+def phase31_dist(train_gradients, cnn_check):
+    """The mesh across processes (``tools/dist_mesh.py`` under torchrun):
+    DIST_RANKS gloo ranks on cuda:0, then one NCCL rank, each gated; then
+    DIST_RANKS NCCL ranks on cuda:0, tried once and reported. Returns the
+    gated groups' launch counts, summed over their ranks."""
+    import torch
+
+    torch.cuda.empty_cache()
+    refs = REPO / "build" / "chip_smoke" / "dist_refs.npz"
+    refs.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(refs, spr_g64=train_gradients["g64"].cpu().numpy(),
+             spr_kernel_err=train_gradients["kernel_err"],
+             elbo_g64=cnn_check["g64"].cpu().numpy(), elbo_kernel_err=cnn_check["errs"]["kernel"])
+    common = ["--device", "cuda:0", "--refs", str(refs)]
+    out = {"gloo": _dist_run(f"{DIST_RANKS} gloo ranks on cuda:0", DIST_RANKS,
+                             ["--backend", "gloo", *common]),
+           "nccl": _dist_run("1 NCCL rank", 1, ["--backend", "nccl", *common])}
+    code, text = _torchrun(DIST_RANKS, ["--backend", "nccl", "--parts", "gram", "--gram-n", "4096",
+                                        *common], timeout=120, env={"NCCL_DEBUG": "WARN"})
+    lines = [line.strip() for line in text.splitlines() if line.strip()]
+    said = [line for line in lines if any(w in line for w in ("NCCL", "nccl", "Error"))]
+    print(f"[dist] {DIST_RANKS} NCCL ranks on cuda:0 (not gated): "
+          f"{'timed out' if code is None else f'exit {code}'}; what it said:")
+    for line in (said or lines)[-12:]:
+        print(f"[dist]   {line[:300]}")
+    for name, res in out.items():
+        print(f"[dist] {name}: launches over the ranks {res['launches']}; checks "
+              f"{json.dumps(res['checks'])}")
+    return {k: out["gloo"]["launches"][k] + out["nccl"]["launches"][k]
+            for k in out["gloo"]["launches"]}
 
 
 def _kernel_entry(name, source, replaces, launches, rows, head, worst_abs):
@@ -3754,6 +3856,7 @@ def main() -> int:
     del lean, mesh_refs
     torch.cuda.empty_cache()
     mesh_cls = mesh_cls_window(checks, single, cls10)
+    cnn_check = checks["cnn svgp"]
     del checks
     torch.cuda.empty_cache()
     _reset_launches()                     # the ensemble and the figures start here
@@ -3764,6 +3867,8 @@ def main() -> int:
     if any(finite.values()):
         raise AssertionError(f"the ensemble and the figures launched {finite}; expected none")
     _phase(29, phase29_fraction)
+    dist = _phase(31, phase31_dist, train_out["gradients"], cnn_check)   # launches in the ranks
+    del cnn_check
     _phase("30 (late)", phase30_trace, True)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -3772,42 +3877,47 @@ def main() -> int:
     k1 = _kernel_entry("gram (K1, fused NNGP Gram)", "snngp_torch/csrc/gram.cu",
                        "snngp/ops/pallas/gram.py:180",
                        serving["gram"] + training["gram"] + extras["gram"]
-                       + lean_mesh["gram"], k1_rows,
+                       + lean_mesh["gram"] + dist["gram"], k1_rows,
                        f"mlp/relu/{HEAD_SHAPE}", k1_abs)
     k2 = _kernel_entry("gram_grads (K2, scalar-tangent Gram backward, fused contraction)",
                        "snngp_torch/csrc/gram.cu", "snngp/ops/pallas/gram.py:249",
-                       training["gram_grads"] + lean_mesh["gram_grads"], k2_rows,
+                       training["gram_grads"] + lean_mesh["gram_grads"] + dist["gram_grads"],
+                       k2_rows,
                        f"mlp/relu/{HEAD_SHAPE}/random",
                        max(r["abs_err"] for r in k2_rows.values()))
     k3 = _kernel_entry("conv_gram (K3, fused CNN NNGP Gram; one warp streams a pair's rows "
                        "through registers, symmetric launch for K(x, x))",
                        "snngp_torch/csrc/conv_gram.cu",
                        "snngp/ops/pallas/conv_gram.py:64",
-                       classify["conv_gram"] + mesh_cls["conv_gram"], k3_rows,
+                       classify["conv_gram"] + mesh_cls["conv_gram"] + dist["conv_gram"],
+                       k3_rows,
                        K34_HEAD, k3_abs)
     k4 = _kernel_entry("conv_gram_grads (K4, scalar-tangent CNN Gram backward, fused "
                        "contraction; one warp streams a pair's rows through registers, "
                        "symmetric launch for K(x, x))", "snngp_torch/csrc/conv_gram.cu",
                        "snngp/ops/pallas/conv_gram.py:180",
-                       classify["conv_gram_grads"] + mesh_cls["conv_gram_grads"],
+                       classify["conv_gram_grads"] + mesh_cls["conv_gram_grads"]
+                       + dist["conv_gram_grads"],
                        k4_rows, K34_HEAD, max(r["abs_err"] for r in k4_rows.values()))
     k5 = _kernel_entry("resnet_tail (K5, fused WideResNet stride-1 residual blocks; one warp "
                        "streams a pair's rows through registers, symmetric launch for K(x, x))",
                        "snngp_torch/csrc/resnet_conv_gram.cu",
                        "snngp/ops/pallas/resnet_conv_gram.py:130",
-                       resnet["resnet_tail"] + mesh_cls["resnet_tail"],
+                       resnet["resnet_tail"] + mesh_cls["resnet_tail"] + dist["resnet_tail"],
                        k56_rows["K5"], K5_HEAD, k56_abs["K5"])
     k6 = _kernel_entry("resnet_strided (K6, fused WideResNet stride-2 group-boundary block, "
                        "at the reduced resolution; one warp streams a pair's rows through "
                        "registers, symmetric launch for K(x, x))",
                        "snngp_torch/csrc/resnet_conv_gram.cu",
                        "snngp/ops/pallas/resnet_conv_gram.py:54",
-                       resnet["resnet_strided"] + mesh_cls["resnet_strided"],
+                       resnet["resnet_strided"] + mesh_cls["resnet_strided"]
+                       + dist["resnet_strided"],
                        k56_rows["K6"], K6_HEAD, k56_abs["K6"])
     k7 = _kernel_entry("myrtle (K7, fused Myrtle-5/7/10 Gram, Delta-slab recursion)",
                        "snngp_torch/csrc/myrtle_gram.cu",
                        "snngp/ops/pallas/myrtle_gram.py:278",
-                       myrtle["myrtle"] + lean_mesh["myrtle"] + mesh_cls["myrtle"],
+                       myrtle["myrtle"] + lean_mesh["myrtle"] + mesh_cls["myrtle"]
+                       + dist["myrtle"],
                        k7_rows["fwd"], K7_HEAD, k7_abs["fwd"])
     k7t = _kernel_entry("myrtle_grads (K7 scale-tangent mode, dK/dw and dK/db in one pass; "
                         "stage 1 streamed through registers, 16 warps, one block per pair "
@@ -3815,7 +3925,7 @@ def main() -> int:
                         "snngp_torch/csrc/myrtle_gram.cu",
                         "snngp/ops/pallas/myrtle_gram.py:278",
                         myrtle["myrtle_grads"] + lean_mesh["myrtle_grads"]
-                        + mesh_cls["myrtle_grads"],
+                        + mesh_cls["myrtle_grads"] + dist["myrtle_grads"],
                         k7_rows["tangents"], K7_HEAD, k7_abs["tangents"])
     k7b = _kernel_entry("myrtle_bf16 (K7 with a bf16 pair state: myrtle_gram_kernel's bf16 "
                         "variant, fp32 arithmetic rounded to bf16 at the plain version's "
@@ -3823,7 +3933,8 @@ def main() -> int:
                         "snngp_torch/csrc/myrtle_gram.cu",
                         "snngp/ops/pallas/myrtle_gram.py:278",
                         myrtle["myrtle_bf16"] + lean_mesh["myrtle_bf16"]
-                        + mesh_cls["myrtle_bf16"], k7b_rows, K7_HEAD, k7b_abs)
+                        + mesh_cls["myrtle_bf16"] + dist["myrtle_bf16"], k7b_rows, K7_HEAD,
+                        k7b_abs)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k7t, k7b]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,16 @@ A caller may hand ``main`` a mesh of its own, such as four shards of one
 card (``get_mesh(devices=["cuda:0"] * 4)``); the shards then run one after
 another, so the times are not a multi-card time.
 
+``main`` first calls :func:`~snngp_torch.parallel.mesh.init_distributed`,
+as the JAX script's docstring tells pods to, which is a no-op in a plain
+run. Under ``torchrun`` it joins the ranks (``--dist-backend``: NCCL, the
+default on CUDA, or gloo, the default with ``--cpu``), the mesh spans them
+with ``--devices / ranks`` shards on each rank's device, and only rank 0
+prints:
+
+    torchrun --standalone --nproc-per-node 2 -m snngp_torch.examples.mesh_pipeline \
+        --cpu --devices 2 --n-train 256 --eps 1e-1
+
 Architectures: ``--arch mlp`` (any ``--image-size``; x is flattened; the
 fused Gram, K1 on the card) or ``--arch myrtle`` (square 8, 16 or 32 pixel
 images; the fused Myrtle Gram, K7 on the card, where the JAX script uses
@@ -35,7 +45,7 @@ from snngp_torch.ops.linalg import add_jitter, chol_quad_form, chol_solve, chole
 from snngp_torch.ops.mvt import multivariate_t_logpdf
 from snngp_torch.parallel import get_mesh, sharded_gram
 from snngp_torch.parallel.cholesky import cyclic_cholesky
-from snngp_torch.parallel.mesh import gather
+from snngp_torch.parallel.mesh import gather, init_distributed
 
 
 def _parser():
@@ -54,6 +64,9 @@ def _parser():
     ap.add_argument("--df", type=float, default=4.0, help="Student-t 2a")
     ap.add_argument("--no-parity", action="store_true",
                     help="skip the single-device reference run (large N)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="the process group's backend under torchrun (default: nccl on "
+                         "CUDA, gloo with --cpu)")
     return ap
 
 
@@ -90,11 +103,16 @@ def predictive(chol, k_td, k_tt, y, df):
 
 def main(argv=None, mesh=None):
     """Run the pipeline; returns {"nll", "phases_s", "parity_nll"} (the last
-    None with ``--no-parity``)."""
+    None with ``--no-parity``, and on a rank other than 0)."""
     args = _parser().parse_args(argv)
     if mesh is None:
-        mesh = get_mesh(args.devices, device="cpu" if args.cpu else "cuda")
-    root = mesh.device_list()[0]
+        device = "cpu" if args.cpu else "cuda"
+        init_distributed(backend=args.dist_backend or ("gloo" if args.cpu else "nccl"),
+                         device=device)
+        mesh = get_mesh(args.devices, device=device)
+    root = mesh.local_device()
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     n_train, n_test, df = args.n_train, args.n_test, args.df
     if n_train % mesh.size:
         raise SystemExit(f"--n-train must divide the mesh size {mesh.size}")
@@ -117,11 +135,12 @@ def main(argv=None, mesh=None):
         out = fn(*a)
         sync()
         phases[label] = time.perf_counter() - t0
-        print(f"  {label:<28s} {phases[label]:8.2f} s")
+        say(f"  {label:<28s} {phases[label]:8.2f} s")
         return out
 
-    print(f"mesh: {tuple(mesh.devices.shape)} on {[str(d) for d in mesh.device_list()]}; "
-          f"N={n_train} (+{n_test} test), arch={args.arch}, cyclic block={block}")
+    ranks = f", ranks {mesh.ranks.reshape(-1).tolist()}" if mesh.distributed else ""
+    say(f"mesh: {tuple(mesh.devices.shape)} on {[str(d) for d in mesh.device_list()]}{ranks}; "
+        f"N={n_train} (+{n_test} test), arch={args.arch}, cyclic block={block}")
     with torch.no_grad():
         t_all = time.perf_counter()
         k_dd = timed("gram_train (sharded)", lambda: gather(sharded_gram(kfn, xt, mesh), root))
@@ -132,19 +151,19 @@ def main(argv=None, mesh=None):
                      lambda: cyclic_cholesky(add_jitter(k_dd, args.eps), mesh, block=block))
         del k_dd
         mean, nll = timed("student-t predictive", predictive, chol, k_td, k_tt, y, df)
-        print(f"  {'total':<28s} {time.perf_counter() - t_all:8.2f} s")
-        print(f"predictive NLL: {float(nll):.6f}")
+        say(f"  {'total':<28s} {time.perf_counter() - t_all:8.2f} s")
+        say(f"predictive NLL: {float(nll):.6f}")
         del chol, k_td
 
         parity = None
-        if not args.no_parity:
+        if not args.no_parity and lead:
             chol_s = cholesky(add_jitter(kfn(xt, xt, get="nngp"), args.eps))
             mean_s, nll_s = predictive(chol_s, kfn(xs, xt, get="nngp"), k_tt, y, df)
             np.testing.assert_allclose(mean.cpu().numpy(), mean_s.cpu().numpy(),
                                        rtol=1e-4, atol=1e-5)
             np.testing.assert_allclose(float(nll), float(nll_s), rtol=1e-4)
             parity = float(nll_s)
-            print(f"parity vs single device: OK (NLL {parity:.6f})")
+            say(f"parity vs single device: OK (NLL {parity:.6f})")
     return dict(nll=float(nll), phases_s=phases, parity_nll=parity)
 
 

@@ -90,7 +90,10 @@ class SVSP(nn.Module):
         parameters' device, where k_ii and everything after the Grams run
         (the partition GSPMD gives the JAX package's ELBO over a
         batch-sharded minibatch). The panels' backward runs on their
-        shards."""
+        shards. On a mesh across ranks each rank computes its own panels
+        from the kernel's hyperparameters and z passed through
+        :func:`~snngp_torch.parallel.mesh.to_shards`, and the rest, the
+        draws included, on every rank alike."""
         z = self.inducing_variable
         eps = P.constrained_read(self.eps, self.bij)
         q_sqrt = P.constrained_read(self.q_sqrt, self.bij)
@@ -101,9 +104,11 @@ class SVSP(nn.Module):
                 k_bb = self.kernel.K(kernel_fn, x_batch)         # [B, B]
             else:
                 from snngp_torch.parallel.gram import sharded_gram
-                from snngp_torch.parallel.mesh import gather
-                k_bi = gather(sharded_gram(kernel_fn, x_batch, mesh, x2=z), z.device)
-                k_bb = gather(sharded_gram(kernel_fn, x_batch, mesh), z.device)
+                from snngp_torch.parallel.mesh import gather, to_shards
+                *hyper, z_in = to_shards(mesh, *self.kernel.get_params(), z)
+                shard_fn = self.kernel._get_kernel_fn(*hyper)
+                k_bi = gather(sharded_gram(shard_fn, x_batch, mesh, x2=z_in), z.device)
+                k_bb = gather(sharded_gram(shard_fn, x_batch, mesh), z.device)
             k_ii = self.kernel.K(kernel_fn, z)                   # [I, I]
         with phase("posterior"):
             # The lift is a no-op while (k_ii + eps I) is numerically PD.
@@ -191,17 +196,23 @@ class SPR(nn.Module):
 
     def _gram(self, kernel_fn):
         """Full training Gram; on a mesh, from its row panels (rows
-        zero-padded to a multiple of the mesh size, then sliced back)."""
+        zero-padded to a multiple of the mesh size, then sliced back), the
+        panels' kernel built from the kernel's current hyperparameters
+        passed through :func:`~snngp_torch.parallel.mesh.to_shards` (so
+        ``kernel_fn`` must be the kernel's own, as every caller's is): on a
+        mesh across ranks each rank runs its own panels and gets the whole
+        Gram."""
         if self.mesh is None:
             return self.kernel.K(kernel_fn, self.x_data)
         from snngp_torch.parallel.gram import sharded_gram
-        from snngp_torch.parallel.mesh import gather
+        from snngp_torch.parallel.mesh import gather, to_shards
         n = self.num_data
         pad = (-n) % self.mesh.size
         x = self.x_data
         if pad:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-        gram = gather(sharded_gram(kernel_fn, x, self.mesh), x.device)
+        shard_fn = self.kernel._get_kernel_fn(*to_shards(self.mesh, *self.kernel.get_params()))
+        gram = gather(sharded_gram(shard_fn, x, self.mesh), x.device)
         return gram[:n, :n] if pad else gram
 
     def loss(self, gram=None):

@@ -1,6 +1,7 @@
 """Device-mesh runtime (counterpart of ``snngp/parallel``): sharded Gram
 construction, blocked / in-place / distributed Cholesky, the distributed
-ML-II step. A mesh is one process over a grid of ``torch.device``s
+ML-II step. A mesh is one process over a grid of ``torch.device``s, or
+after ``init_distributed`` the ranks of a ``torch.distributed`` group
 (:mod:`snngp_torch.parallel.mesh`)."""
 
 from snngp_torch.parallel.mesh import get_mesh, device_count

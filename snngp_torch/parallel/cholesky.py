@@ -16,11 +16,12 @@
 - :func:`blocked_triangular_solve`: the panel solve against such a factor,
   O(N block) working memory (no copy of the factor).
 - :func:`cyclic_cholesky`: block columns dealt round-robin over the mesh's
-  shards, one panel broadcast a step, with one-step lookahead.
+  shards, one panel broadcast a step (across ranks, from the owner's
+  rank), with one-step lookahead.
 - :func:`distributed_cholesky`: ``strategy="pjit"`` splits every trailing
   update by rows over the shards (the layout GSPMD gives the JAX package's
-  row-sharded blocked kernel, one panel all-gather a step), ``"cyclic"``
-  is :func:`cyclic_cholesky`.
+  row-sharded blocked kernel, one panel gather and one broadcast a step),
+  ``"cyclic"`` is :func:`cyclic_cholesky`.
 
 The diagonal blocks go through :func:`snngp_torch.ops.linalg.cholesky`, so
 they are symmetrized as ``jnp.linalg.cholesky`` symmetrizes, and a block
@@ -28,8 +29,8 @@ that is not PD puts NaN on its diagonal, which every later block inherits.
 
 Divergences from the JAX package: sizes that are not a multiple of the
 block get a ragged last block instead of an identity pad; the factor of a
-mesh factorization is returned whole on the input's device (JAX: a global
-array sharded by columns); ``inplace_blocked_cholesky`` reads the upper
+mesh factorization is returned whole on the input's device, on every rank
+of a mesh across ranks (JAX: a global array sharded by columns); ``inplace_blocked_cholesky`` reads the upper
 triangle of its input (the row panels JAX's reads), and ``block`` does not
 change its result (cuSOLVER and LAPACK block internally).
 """
@@ -41,7 +42,7 @@ from typing import List, Optional
 import torch
 
 from snngp_torch.ops.linalg import _nan_where_failed, cholesky
-from snngp_torch.parallel.mesh import Mesh, broadcast
+from snngp_torch.parallel.mesh import Mesh, broadcast, gather_rows_to
 
 __all__ = ["blocked_cholesky", "inplace_blocked_cholesky",
            "blocked_triangular_solve", "cyclic_cholesky",
@@ -200,10 +201,18 @@ def _axis_devices(mesh: Mesh, axis_name: str) -> List[torch.device]:
     return mesh.device_list()
 
 
-def _on_each(strip: torch.Tensor, devices) -> dict:
-    """The step's one broadcast: the strip on each distinct device."""
+def _on_each(strip: Optional[torch.Tensor], devices, mesh: Mesh, owner: int, shape,
+             like: torch.Tensor):
+    """The step's one broadcast: the strip from shard ``owner``'s rank to
+    every rank (another rank receives it into a buffer of ``shape`` on its
+    own device), then on each distinct device of ``devices`` (this rank's).
+    Returns (the strip on this rank, {device: strip})."""
+    if mesh.distributed:
+        if strip is None:
+            strip = torch.empty(shape, dtype=like.dtype, device=mesh.local_device())
+        strip = broadcast(strip, [strip.device], mesh=mesh, src=mesh.rank_of(owner))[0]
     uniq = list(dict.fromkeys(devices))
-    return dict(zip(uniq, broadcast(strip, uniq)))
+    return strip, dict(zip(uniq, broadcast(strip, uniq)))
 
 
 def cyclic_cholesky(a: torch.Tensor, mesh: Mesh, block: int = 512,
@@ -214,36 +223,45 @@ def cyclic_cholesky(a: torch.Tensor, mesh: Mesh, block: int = 512,
     Block column k lives on shard k mod P, so the trailing work stays
     balanced as the active submatrix shrinks. Each step: the owner factors
     its diagonal block and solves the panel below it; one broadcast sends
-    the panel to the shards' devices (the JAX package's psum); with one-step
-    lookahead, column k + 1 alone is updated and its panel factored before
-    the bulk update of every shard's later columns, so the next broadcast
-    does not wait for the bulk products. Out of place throughout, so
-    autograd differentiates it. Returns the lower factor on ``a``'s
-    device."""
+    the panel to the shards (the JAX package's psum; across ranks one
+    ``dist.broadcast`` from the owner's rank); with one-step lookahead,
+    column k + 1 alone is updated and its panel factored before the bulk
+    update of every shard's later columns, so the next broadcast does not
+    wait for the bulk products. Out of place throughout, so autograd
+    differentiates it (on a mesh of one process). ``a`` is whole on every
+    rank; each rank keeps every strip, so each returns the whole lower
+    factor on ``a``'s device."""
     devs = _axis_devices(mesh, axis_name)
     p = len(devs)
     n = a.shape[-1]
     starts = _starts(n, block)
     ends = starts[1:] + [n]
-    owner = [devs[k % p] for k in range(len(starts))]
-    cols = [a[s:, s:e].to(owner[k]) for k, (s, e) in enumerate(zip(starts, ends))]
+    owner = [k % p for k in range(len(starts))]
+    mine = [mesh.is_local(d) for d in range(p)]
+    cols = [a[s:, s:e].to(devs[owner[k]]) if mine[owner[k]] else None
+            for k, (s, e) in enumerate(zip(starts, ends))]
     strips = []
-    cand = _factor_column(cols[0])
+    cand = _factor_column(cols[0]) if mine[owner[0]] else None
     cols[0] = None
     for k, s in enumerate(starts):
+        later = [devs[o] for o in owner[k + 1:] if mine[o]]
+        cand, on = _on_each(cand, later, mesh, owner[k], (n - s, ends[k] - s), a)
         strips.append(cand)
         if k + 1 == len(starts):
             break
-        on = _on_each(cand, owner[k + 1:])
         nxt = k + 1
         off = starts[nxt] - s
-        cols[nxt] = _update(cols[nxt], on[owner[nxt]], off, off)     # lookahead
-        cand = _factor_column(cols[nxt])
+        cand = None
+        if mine[owner[nxt]]:
+            cols[nxt] = _update(cols[nxt], on[devs[owner[nxt]]], off, off)   # lookahead
+            cand = _factor_column(cols[nxt])
         cols[nxt] = None
-        for d in range(p):                                           # bulk update
+        for d in range(p):                                               # bulk update
+            if not mine[d]:
+                continue
             for c in range(nxt + 1 + (d - nxt - 1) % p, len(starts), p):
                 off = starts[c] - s
-                cols[c] = _update(cols[c], on[owner[c]], off, off)
+                cols[c] = _update(cols[c], on[devs[owner[c]]], off, off)
     return _assemble_lower(strips, starts, n, a)
 
 
@@ -252,7 +270,8 @@ def _row_panel_cholesky(a: torch.Tensor, mesh: Mesh, block: Optional[int],
     """Right-looking blocked Cholesky with every trailing update split by
     rows over the shards: shard d holds rows [r_d, r_{d+1}) of each block
     column's lower part. Each step gathers block column k to the first
-    shard, which factors its strip; one broadcast sends the strip to the
+    shard (across ranks: each rank sends its rows to the first shard's
+    rank), which factors its strip; one broadcast sends the strip to the
     shards, and each updates its own rows of the later columns."""
     devs = _axis_devices(mesh, axis_name)
     n = a.shape[-1]
@@ -260,16 +279,24 @@ def _row_panel_cholesky(a: torch.Tensor, mesh: Mesh, block: Optional[int],
     ends = starts[1:] + [n]
     step = -(-n // len(devs))
     bounds = [(min(d * step, n), min((d + 1) * step, n)) for d in range(len(devs))]
+    mine = [mesh.is_local(d) for d in range(len(devs))]
+    first = devs[0] if mine[0] else mesh.local_device()
     # pieces[c][d]: global rows [max(r0, s_c), r1) of block column c, on shard d
-    pieces = [[a[max(r0, s):r1, s:e].to(dev) if max(r0, s) < r1 else None
-               for (r0, r1), dev in zip(bounds, devs)]
+    pieces = [[a[max(r0, s):r1, s:e].to(dev) if max(r0, s) < r1 and ok else None
+               for (r0, r1), dev, ok in zip(bounds, devs, mine)]
               for s, e in zip(starts, ends)]
+    local_devs = [dev for dev, ok in zip(devs, mine) if ok]
     strips = []
-    for k, s in enumerate(starts):
-        col = torch.cat([t.to(devs[0]) for t in pieces[k] if t is not None])
-        strip = _factor_column(col)
+    for k, (s, e) in enumerate(zip(starts, ends)):
+        held = [t.to(first) for t in pieces[k] if t is not None]
+        rows = [0] * mesh.world
+        for d, (r0, r1) in enumerate(bounds):
+            rows[mesh.rank_of(d)] += max(r1 - max(r0, s), 0)
+        col = gather_rows_to(torch.cat(held) if held else None, mesh, mesh.rank_of(0), rows,
+                             torch.empty((0, e - s), dtype=a.dtype, device=first))
+        strip = _factor_column(col) if mine[0] else None
         pieces[k] = None
-        on = _on_each(strip, devs)
+        strip, on = _on_each(strip, local_devs, mesh, 0, (n - s, e - s), a)
         for c in range(k + 1, len(starts)):
             for d, (r0, _) in enumerate(bounds):
                 piece = pieces[c][d]

@@ -3,7 +3,8 @@
 Each shard evaluates the kernel for its block of rows on its own device, so
 the O(N^2 depth) recursion is split over the mesh with no traffic between
 shards until the solve stage. On the card each block is one launch of the
-fused Gram (K1 for the MLP / dense-ResNet kernels, K7 for Myrtle).
+fused Gram (K1 for the MLP / dense-ResNet kernels, K3 for the CNN, K7 for
+Myrtle). On a mesh across ranks each rank runs its own shards.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import List, Optional
 
 import torch
 
-from snngp_torch.parallel.mesh import Mesh
+from snngp_torch.parallel.mesh import Mesh, Shards
 
 __all__ = ["sharded_gram"]
 
@@ -38,10 +39,12 @@ def sharded_gram(kernel_fn, x: torch.Tensor, mesh: Mesh, axis_name: str = "data"
     same rows gets one block object as both operands, which the fused Grams
     take as their symmetric launch.
 
-    :func:`~snngp_torch.parallel.mesh.gather` assembles either into one
-    tensor. The leading dims must divide the mesh axes (pad upstream).
-    ``check_vma`` is accepted for the JAX package's signature (a shard_map
-    check there) and does nothing here."""
+    Each rank evaluates its own shards only; another rank's entry is None
+    (``x`` and ``x2`` are whole on every rank).
+    :func:`~snngp_torch.parallel.mesh.gather` assembles either layout into
+    one tensor, on every rank. The leading dims must divide the mesh axes
+    (pad upstream). ``check_vma`` is accepted for the JAX package's
+    signature (a shard_map check there) and does nothing here."""
     del check_vma
     same = x2 is None
     x2 = x if same else x2
@@ -52,14 +55,17 @@ def sharded_gram(kernel_fn, x: torch.Tensor, mesh: Mesh, axis_name: str = "data"
         for i in range(rows):
             row = []
             for j in range(cols):
+                if not mesh.is_local(i * cols + j):
+                    row.append(None)
+                    continue
                 dev = mesh.devices[i, j]
                 a = xr[i].to(dev)
                 diag = same and rows == cols and i == j
                 row.append(kernel_fn(a, a if diag else xc[j].to(dev), get="nngp"))
             tiles.append(row)
-        return tiles
+        return Shards(tiles, mesh)
     if mesh.axis_names[0] != axis_name:
         raise ValueError(f"no mesh axis {axis_name!r} in {mesh.axis_names}")
     devs = mesh.device_list()
-    return [kernel_fn(xb.to(dev), x2.to(dev), get="nngp")
-            for xb, dev in zip(_blocks(x, len(devs), "x"), devs)]
+    return Shards([kernel_fn(xb.to(dev), x2.to(dev), get="nngp") if mesh.is_local(d) else None
+                   for d, (xb, dev) in enumerate(zip(_blocks(x, len(devs), "x"), devs))], mesh)

@@ -65,11 +65,12 @@ def trace(logdir: Optional[str] = None):
     and ``logdir`` yielded, as the JAX package's ``jax.profiler`` capture
     does. It records the CPU, and the card's kernels when CUDA is
     initialized; a block that first touches CUDA is traced on the CPU
-    only. Late in a long process ``torch.profiler`` can lose the card's
-    kernel records of a capture (some, or all of them in every other
-    capture, on torch 2.x with CUPTI); when the capture holds fewer kernels
-    than kernel launches, ``trace`` warns (``RuntimeWarning``) that the
-    trace lacks device time."""
+    only. ``torch.profiler`` can lose the card's kernel records of a
+    capture (on torch 2.x with CUPTI: a few, or all of a short capture's,
+    when captures come seconds apart; ``tools/trace_repro.py --case idle``
+    shows it in a process that imports only torch); when the capture holds
+    fewer kernels than kernel launches, ``trace`` warns
+    (``RuntimeWarning``) that the trace lacks device time."""
     import tempfile
     import warnings
 

@@ -281,10 +281,59 @@ def test_get_mesh_on_cuda_needs_the_cards():
     assert TM.device_count("cpu") == 1
 
 
-def test_init_distributed(monkeypatch):
+def _joined_mesh(join):
+    """A one-rank gloo group joined by ``join()``: True, idempotent, and a mesh
+    that spans it; left again before returning."""
+    import torch.distributed as dist
+    try:
+        assert join() is True and TM.init_distributed() is True
+        assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
+        assert TM.device_count() == TM.device_count("cpu") == 1
+        mesh = TM.get_mesh(device="cpu")
+        assert mesh.distributed and mesh.size == 1 and mesh.ranks.tolist() == [0]
+        assert not TM.get_mesh(devices=["cpu"] * 2).distributed
+        x = torch.arange(12.0).reshape(4, 3)
+        assert torch.equal(TM.gather(sharded_gram(lambda a, b, get: a @ b.T, x, mesh)),
+                           x @ x.T)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_init_distributed(tmp_path):
+    """No coordinator: the single-process no-op in both packages; a
+    coordinator given as arguments: a one-rank gloo join."""
     assert TM.init_distributed() is False and j_init_distributed() is False
-    with pytest.raises(NotImplementedError):
-        TM.init_distributed("localhost:1234", num_processes=2, process_id=0)
-    monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError):
+    _joined_mesh(lambda: TM.init_distributed(f"file://{tmp_path / 'rendezvous'}",
+                                             num_processes=1, process_id=0, backend="gloo"))
+    assert TM.init_distributed() is False
+
+
+@pytest.mark.parametrize("names", [("COORDINATOR_ADDRESS", "WORLD_SIZE", "RANK"),
+                                   ("JAX_COORDINATOR_ADDRESS",),
+                                   ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")])
+def test_init_distributed_reads_the_environment(monkeypatch, names):
+    """JAX's coordinator names (the world size and rank as arguments or from
+    WORLD_SIZE / RANK), and torchrun's MASTER_ADDR / MASTER_PORT."""
+    for k in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
+              "MEGASCALE_COORDINATOR_ADDRESS", "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+              "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    port = _free_port()
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "WORLD_SIZE": "1",
+           "RANK": "0"}
+    for k in names:
+        monkeypatch.setenv(k, env.get(k, f"localhost:{port}"))
+    args = {} if "RANK" in names else dict(num_processes=1, process_id=0)
+    _joined_mesh(lambda: TM.init_distributed(backend="gloo", **args))
+    monkeypatch.setenv("COORDINATOR_ADDRESS", f"localhost:{port}")
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="WORLD_SIZE"):
         TM.init_distributed()
