@@ -40,6 +40,31 @@ def assert_parity(jax_fn, torch_fn, *arrays, atol=0.0, rtol=0.0):
     return got, want
 
 
+def assert_fp32_reach(got, want, witness64, ceiling, name):
+    """Hold the port's fp32 result ``got`` and the JAX package's ``want``
+    each against ``witness64``, a float64 run of the same computation on the
+    same fp32 inputs: each one's largest error, relative to max|witness|,
+    stays under the fixed ``ceiling``. Both errors print under ``pytest -s``;
+    returns them (port, JAX).
+
+    The bar for results that sit at the fp32 limit of an ill-conditioned
+    solve, where a bar between the two packages' results (or the port's
+    error against a multiple of JAX's) compares one rounding with another
+    and is decided by the host's BLAS code path. The ceiling is set from the
+    largest error either package shows on any MKL code path, and JAX's error
+    under it ties the witness (the port's code in float64) to the JAX
+    package."""
+    ref = np.asarray(to_numpy(witness64), np.float64)
+    scale = np.abs(ref).max()
+    err_t, err_j = (float(np.abs(np.asarray(to_numpy(v), np.float64) - ref).max() / scale)
+                    for v in (got, want))
+    print(f"{name} against float64, of max|{name}| {scale:.4g}: port {err_t:.3e}, "
+          f"JAX {err_j:.3e} (ceiling {ceiling:.1e})")
+    assert err_t <= ceiling, f"{name}: the port errs by {err_t:.3e} > {ceiling:.1e}"
+    assert err_j <= ceiling, f"{name}: the JAX package errs by {err_j:.3e} > {ceiling:.1e}"
+    return err_t, err_j
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; skips the test on a machine without one (the

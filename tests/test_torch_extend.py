@@ -21,6 +21,13 @@ cancel, such as a posterior variance or a mean near zero):
 - rtol 1e-3 on Student-t variances of an upper-factor state: they carry d,
   solved against (b/a) K + 1e-6 I (the reference's jitter), whose
   condition number is far above the regularized Gram's;
+- the extended Student-t d and variance, and the estimator's extended mean,
+  std and d, each package against a float64 fit of the same bordered matrix
+  under the fixed ceilings of REACH (``assert_fp32_reach``): there both
+  packages sit at the fp32 limit of that solve, and the port's error moves
+  by up to 5x with the host's MKL code path while JAX's does not, so a bar
+  between the two (or on the port at a multiple of JAX's error) passed on
+  one host and failed on another;
 - between the two CLIs, whose paths differ end to end, on the near-singular
   syn-normal Gram: rtol 5e-3, tests/test_cli_smoke.py's bar.
 """
@@ -44,18 +51,32 @@ from snngp.sklearn import SNNGPRegressor as JRegressor
 from snngp_torch.__main__ import main as torch_cli
 from snngp_torch.models import (SPR, FittedSPR, GaussianLikelihood, NNGPKernel,
                                 StudentTLikelihood, fit_spr)
+from snngp_torch.models import params as P
 from snngp_torch.nn import arch as tarch
 from snngp_torch.ops.linalg import chol_append
 from snngp_torch.sklearn import SNNGPRegressor
 from snngp_torch.utils import save_params
 
-from _torch_parity import randn, to_numpy, to_torch
+from _torch_parity import assert_fp32_reach, randn, to_numpy, to_torch
 
 RTOL = 1e-5
 GRAM_RTOL = 1e-4    # each package's own Grams
 T_VAR_RTOL = 1e-3   # Student-t variances through d
 CLI_RTOL = 5e-3
 EPS = 5e-2          # relative diag_reg of the toy models
+# Ceilings of assert_fp32_reach: each package's fp32 error against a float64
+# fit of the same bordered matrix (_bordered_fit64), relative to its largest
+# entry, within 4x the largest error either package showed on MKL's
+# COMPATIBLE, SSE4_2, AVX, AVX2 and AVX512 code paths and on AVX512 with one
+# thread (beside each). test_reach_refuses_a_wrong_result holds each against
+# a wrong result.
+REACH = {
+    "add_data mean": 5e-5,   # largest 1.50e-5: the port, SSE4_2 / AVX
+    "add_data std": 1e-3,    # largest 2.56e-4: the port, AVX512
+    "add_data d": 2e-3,      # largest 5.17e-4: the port, AVX512
+    "extend var": 4e-4,      # largest 1.21e-4: the port, COMPATIBLE
+    "extend d": 4e-4,        # largest 1.23e-4: the port, COMPATIBLE
+}
 
 
 def _close(got, want, rtol=RTOL, atol_rel=1e-5):
@@ -119,23 +140,39 @@ def test_chol_append_not_pd_gives_nan():
 
 # -- fit_spr(extendable=True) / extend -------------------------------------------------
 
-@pytest.mark.parametrize("method", ["gp", "tp"])
-def test_extend_matches_jax(method):
+def _extended(method):
+    """(the port's, the JAX package's) extendable fit of ``_data()``,
+    extended by its new points, and the test inputs."""
     x, y, x_new, y_new, x_test = _data()
     jm = _jax_model(method, x, y)
-    params = jm.init_params()
-    want = jfit_spr(jm, params, extendable=True)
+    want = jfit_spr(jm, jm.init_params(), extendable=True)
     got = fit_spr(_torch_model(method, x, y), extendable=True)
     _close(got.state["reg"], want.state["reg"], rtol=GRAM_RTOL)
-    want = want.extend(x_new, y_new)
     with torch.no_grad():
         got = got.extend(*to_torch(x_new, y_new))
-        assert got.model.num_data == x.shape[0] + x_new.shape[0]
-        for g, w in zip(got.predict(to_torch(x_test)), want.predict(x_test)):
-            _close(g, w, rtol=GRAM_RTOL)
-        if method == "tp":
-            _close(got.state["d"], want.state["d"], rtol=GRAM_RTOL)
-            assert float(got.state["cond_df"]) == float(want.state["cond_df"])
+    assert got.model.num_data == x.shape[0] + x_new.shape[0]
+    return got, want.extend(x_new, y_new), x_test
+
+
+@pytest.mark.parametrize("method", ["gp", "tp"])
+def test_extend_matches_jax(method):
+    # The Student-t d = 2a + y^T((b/a) K + 1e-6 I)^{-1} y, and the variance
+    # that carries it, are held against the float64 fit: here JAX's d errs
+    # by 7.6e-6 and the port's by 6.4e-5 to 1.23e-4 with the MKL code path,
+    # through the same steps; over 40 other seeds the two packages' errors
+    # have the same spread (medians 3.4e-5 and 4.6e-5 on AVX512).
+    got, want, x_test = _extended(method)
+    with torch.no_grad():
+        (gm, gv), (wm, wv) = got.predict(to_torch(x_test)), want.predict(x_test)
+    _close(gm, wm, rtol=GRAM_RTOL)
+    if method == "gp":
+        _close(gv, wv, rtol=GRAM_RTOL)
+    else:
+        ref = _served64(_bordered_fit64(got), x_test)
+        assert_fp32_reach(gv, wv, ref["var"], REACH["extend var"], "extend var")
+        assert_fp32_reach(got.state["d"], want.state["d"], ref["d"], REACH["extend d"],
+                          "extend d")
+        assert float(got.state["cond_df"]) == float(want.state["cond_df"])
 
 
 @pytest.mark.parametrize("method", ["gp", "tp"])
@@ -255,11 +292,13 @@ def test_extended_state_round_trips(tmp_path):
 
 # -- the estimator, the CLI and the example ------------------------------------------------
 
-def _bordered_fit64(fitted):
+def _bordered_fit64(fitted, t_jitter=1e-6, frozen_reg=True):
     """A fresh float64 fit of the bordered matrix that ``extend`` factored:
     K + reg I with the frozen regularizer, and the Student-t factor of
     (b/a) K + 1e-6 I (fit_spr's and extend's jitter), on a float64 copy of
-    the extended model."""
+    the extended model. The mistakes of test_reach_refuses_a_wrong_result:
+    another ``t_jitter``; ``frozen_reg=False``, the regularizer re-derived
+    from the grown Gram (eps tr(K) / N, as a refit would apply it)."""
     from snngp_torch.ops.linalg import chol_quad_form, chol_solve, cholesky
 
     model = copy.deepcopy(fitted.model).double()
@@ -267,42 +306,74 @@ def _bordered_fit64(fitted):
     eye = torch.eye(k.shape[0], dtype=torch.float64)
     a, b = model.likelihood._ab()
     y = model.y_data
-    chol_t = cholesky((b / a) * k + 1e-6 * eye)
-    chol = cholesky(k + float(fitted.state["reg"]) * eye)
+    reg = (float(fitted.state["reg"]) if frozen_reg
+           else float(P.constrained_read(model.eps, model.bij) * torch.trace(k) / k.shape[0]))
+    chol_t = cholesky((b / a) * k + t_jitter * eye)
+    chol = cholesky(k + reg * eye)
     return FittedSPR(model, {"chol": chol, "alpha": chol_solve(chol, y[:, None]),
                              "y_mean": model.y_mean, "y_std": model.y_std,
                              "d": 2.0 * a + chol_quad_form(chol_t, y),
                              "cond_df": 2.0 * a + k.shape[0], "scale_ba": b / a})
 
 
-def test_regressor_add_data_matches_jax():
-    # The means: each package's fp32 error against a float64 fit of the same
-    # bordered matrix, the port's within 2x the JAX package's (as the card's
-    # vs-float64 gates). On these inputs the two err by 1.24e-5 and 1.35e-5
-    # of max|mean| 0.97, so they differ by 1.5e-5, which two BLAS back ends
-    # move across any fixed bar on the means. The JAX package's error on the
-    # means is bounded too (1e-4 of max|mean|), which ties the float64
-    # witness, the port's own code, to the JAX package; the stds are tied to
-    # it directly (rtol T_VAR_RTOL).
+def _added():
+    """(the port's, the JAX package's) SNNGPRegressor fitted on seed 16's data
+    and grown by ``add_data``, and the test inputs."""
     x, y, x_new, y_new, x_test = _data(seed=16)
     kw = dict(method="tp", num_hiddens=2, eps=EPS, extendable=True)
     want = JRegressor(**kw).fit(x, y).add_data(x_new, y_new)
     got = SNNGPRegressor(**kw, device="cpu").fit(x, y).add_data(x_new, y_new)
     assert got.model_.num_data == want.model_.num_data == 48
+    return got, want, x_test
+
+
+def _served64(fitted, x_test):
+    """{"mean", "std", "var", "d"} of a float64 fitted state at ``x_test``."""
+    with torch.no_grad():
+        mean, var = fitted.predict(to_torch(x_test, dtype=torch.float64))
+    return {"mean": mean, "std": torch.sqrt(var), "var": var, "d": fitted.state["d"]}
+
+
+def test_regressor_add_data_matches_jax():
+    # Each package's fp32 mean, std and d against a float64 fit of the same
+    # bordered matrix. d goes through (b/a) K + 1e-6 I, of condition number
+    # 3.25e5 here: both packages sit at the fp32 limit of that solve, where
+    # the port's d errs by 1.05e-4 to 5.17e-4 with the MKL code path and
+    # JAX's by 1.99e-4 on every path. The stds are tied to each other too
+    # (rtol T_VAR_RTOL).
+    got, want, x_test = _added()
     (gm, gs), (wm, ws) = got.predict(x_test, return_std=True), want.predict(x_test,
                                                                             return_std=True)
-    with torch.no_grad():
-        m64, v64 = _bordered_fit64(got.fitted_).predict(to_torch(x_test, dtype=torch.float64))
-    for name, g, w, ref in (("mean", gm, wm, m64), ("std", gs, ws, torch.sqrt(v64))):
-        ref = to_numpy(ref)
-        err_t = np.abs(np.asarray(g, np.float64) - ref).max() / np.abs(ref).max()
-        err_j = np.abs(np.asarray(w, np.float64) - ref).max() / np.abs(ref).max()
-        print(f"add_data {name} against float64, of max|{name}| {np.abs(ref).max():.4f}: "
-              f"port {err_t:.3e}, JAX {err_j:.3e}")
-        if name == "mean":
-            assert err_j <= 1e-4, err_j
-        assert err_t <= 2.0 * max(err_j, 1e-6), (err_t, err_j)
+    ref = _served64(_bordered_fit64(got.fitted_), x_test)
+    for name, g, w in (("mean", gm, wm), ("std", gs, ws),
+                       ("d", got.fitted_.state["d"], want.fitted_.state["d"])):
+        assert_fp32_reach(g, w, ref[name], REACH[f"add_data {name}"], f"add_data {name}")
     _close(gs, ws, rtol=T_VAR_RTOL)
+
+
+@pytest.mark.parametrize("name", list(REACH))
+def test_reach_refuses_a_wrong_result(name):
+    """Each REACH ceiling refuses a stated mistake's float64 result, rounded
+    to fp32, on the same inputs, while the float64 fit itself passes. For d,
+    the std and the variance: the Student-t jitter at 2e-6 in place of 1e-6
+    (it moves d by 1.27% at seed 16, 0.124% at seed 11). For the mean, which
+    the jitter does not move: the regularizer re-derived from the grown Gram
+    in place of the frozen one (0.95% of max|mean| at seed 16)."""
+    case, quantity = name.split()
+    if case == "add_data":
+        got, want, x_test = _added()
+        fitted = got.fitted_
+        mean, std = want.predict(x_test, return_std=True)
+        jax_value = {"mean": mean, "std": std, "d": want.fitted_.state["d"]}[quantity]
+    else:
+        fitted, want, x_test = _extended("tp")
+        jax_value = {"var": want.predict(x_test)[1], "d": want.state["d"]}[quantity]
+    mistake = (dict(frozen_reg=False) if quantity == "mean" else dict(t_jitter=2e-6))
+    right = _served64(_bordered_fit64(fitted), x_test)[quantity]
+    wrong = _served64(_bordered_fit64(fitted, **mistake), x_test)[quantity]
+    assert_fp32_reach(right.float(), jax_value, right, REACH[name], name)
+    with pytest.raises(AssertionError, match="the port errs"):
+        assert_fp32_reach(wrong.float(), jax_value, right, REACH[name], name)
 
 
 def _jax_cli(argv):

@@ -19,7 +19,7 @@ from snngp_torch.nn import arch as tarch
 from snngp_torch.nn import layers as TL
 from snngp_torch.nn.state import input_state as t_input_state
 
-from _torch_parity import randn, to_numpy, to_torch
+from _torch_parity import assert_fp32_reach, randn, to_numpy, to_torch
 
 
 @pytest.mark.parametrize("act", ["relu", "erf"])
@@ -42,27 +42,53 @@ def test_dense_resnet_layer_kernel_matches(depth, act):
     np.testing.assert_allclose(to_numpy(got), np.asarray(want), atol=5e-6)
 
 
+# Ceilings of assert_fp32_reach on the layer-0 state: each package's fp32
+# error against float64, relative to the field's largest entry, within 4x
+# the largest error either package showed on MKL's COMPATIBLE, SSE4_2, AVX,
+# AVX2 and AVX512 code paths and on AVX512 with one thread (beside each).
+INPUT_STATE_REACH = {"nngp": 2e-7,    # largest 5.39e-8: both packages
+                     "var1": 1.2e-7,  # largest 3.02e-8: both packages
+                     "var2": 3e-7}    # largest 8.04e-8: both packages
+
+
+def _tf32(x):
+    """``x`` rounded to TF32's 10 fraction bits (round half up)."""
+    bits = torch.as_tensor(x).view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def test_input_state_matches():
-    # rtol 1e-6 plus atol 1e-6 of max|K|, as this file's other bars: an entry
-    # that nearly cancels (|K| ~ 3e-4 of max|K|) differs between two BLAS
-    # back ends by ~1e-5 of itself. Against float64 on these inputs the
-    # port's fp32 nngp errs by 3.9e-8 of max|K|, the JAX package's by 5.4e-8.
+    # rtol 1e-6 plus atol 1e-6 of max|K| between the packages, as this file's
+    # other bars: an entry that nearly cancels (|K| ~ 3e-4 of max|K|) differs
+    # between two BLAS back ends by ~1e-5 of itself. Each package's error
+    # against float64 stays under INPUT_STATE_REACH.
     x1, x2 = randn(12, (9, 4), (7, 4))
     want = j_input_state(x1, x2)
     got = t_input_state(*to_torch(x1, x2))
     exact = t_input_state(*to_torch(x1, x2, dtype=torch.float64))
     for field in ("nngp", "var1", "var2"):
         ref = to_numpy(getattr(exact, field))
-        scale = np.abs(ref).max()
         g, w = to_numpy(getattr(got, field)), np.asarray(getattr(want, field))
-        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6 * scale)
-        err_t, err_j = np.abs(g - ref).max() / scale, np.abs(w - ref).max() / scale
-        print(f"input_state {field} against float64, of its max: port {err_t:.3e}, "
-              f"JAX {err_j:.3e}")
-        assert err_t <= 2.0 * max(err_j, 1e-7)
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+        assert_fp32_reach(g, w, ref, INPUT_STATE_REACH[field], f"input_state {field}")
     assert got.ntk is None
     with_ntk = t_input_state(*to_torch(x1, x2), ntk=True)
     np.testing.assert_array_equal(to_numpy(with_ntk.ntk), np.zeros((9, 7), np.float32))
+
+
+@pytest.mark.parametrize("field", list(INPUT_STATE_REACH))
+def test_input_state_reach_refuses_tf32(field):
+    """Each INPUT_STATE_REACH ceiling refuses the state of inputs rounded to
+    TF32 (a matmul that the card runs at TF32, not fp32): it errs by 3.4e-4
+    to 5.2e-4 of each field's largest entry here, ~1,000x the ceilings."""
+    x1, x2 = randn(12, (9, 4), (7, 4))
+    want = getattr(j_input_state(x1, x2), field)
+    exact = getattr(t_input_state(*to_torch(x1, x2, dtype=torch.float64)), field)
+    wrong = getattr(t_input_state(_tf32(x1), _tf32(x2)), field)
+    name = f"input_state {field}"
+    assert_fp32_reach(exact.float(), want, exact, INPUT_STATE_REACH[field], name)
+    with pytest.raises(AssertionError, match="the port errs"):
+        assert_fp32_reach(wrong, want, exact, INPUT_STATE_REACH[field], name)
 
 
 @pytest.mark.parametrize("layer", ["Relu", "Erf"])

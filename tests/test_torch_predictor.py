@@ -9,7 +9,14 @@ differ by ~1e-7 relative; the regularized train Gram (eps = 1e-3 of its mean
 diagonal) has a condition number ~1e3, which amplifies that to ~1e-4 in the
 solves. Within one framework the fitted path equals SPR.test_nll at 3e-5
 (tests/test_predictor.py).
+
+The fitted variances are held against a float64 fit instead
+(``assert_fp32_reach``, ceilings in VAR_REACH): between the two packages
+they differ by 2.9e-5 to 1.21e-4 of themselves with the host's MKL code
+path, so a 1e-4 bar between them passed on one host and failed on another.
 """
+
+import copy
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,9 +38,16 @@ from snngp_torch.models.params import from_jax_named, named_leaves
 from snngp_torch.nn import arch as tarch
 from snngp_torch.utils import load_named, save_params
 
-from _torch_parity import randn, to_numpy, to_torch
+from _torch_parity import assert_fp32_reach, randn, to_numpy, to_torch
 
 RTOL = 1e-4
+# Ceilings of assert_fp32_reach on the fitted variance: each package's fp32
+# error against a float64 fit, relative to its largest entry, within 4x the
+# largest error either package showed on MKL's COMPATIBLE, SSE4_2, AVX, AVX2
+# and AVX512 code paths and on AVX512 with one thread (beside each).
+# test_var_reach_refuses_a_wrong_result holds each against a wrong result.
+VAR_REACH = {"gp": 2e-5,     # largest 5.77e-6: the port, AVX2
+             "tp": 1.2e-4}   # largest 3.12e-5: the port, AVX2
 JAX_NAMES = {"gp": ["eps", "kernel.b_std", "kernel.last_w_std", "kernel.w_std"],
              "tp": ["eps", "kernel.b_std", "kernel.last_w_std", "kernel.w_std",
                     "likelihood.a", "likelihood.b"]}
@@ -101,18 +115,52 @@ def test_spr_test_nll_matches(method):
     np.testing.assert_allclose(got, want, rtol=RTOL)
 
 
+def _fitted_var64(model, x_test, **fit_kw):
+    """The fitted variance of a float64 copy of ``model``: the port's code
+    in float64 on the same fp32 inputs and parameters."""
+    with torch.no_grad():
+        return fit_spr(copy.deepcopy(model).double(), **fit_kw).predict(
+            to_torch(x_test, dtype=torch.float64))[1]
+
+
 @pytest.mark.parametrize("method", ["gp", "tp"])
 def test_fitted_predict_matches(method):
     x, y, x_test, _ = _data()
     jm = _jax_model(method, x, y)
     jmean, jvar = jfit_spr(jm, jm.init_params()).predict(x_test)
-    mean, var = fit_spr(_torch_model(method, x, y)).predict(to_torch(x_test))
+    model = _torch_model(method, x, y)
+    mean, var = fit_spr(model).predict(to_torch(x_test))
     assert mean.shape == (9,) and var.shape == (9,) and bool((var > 0).all())
     # The mean's error is absolute: RTOL times its largest entry (~1.7) covers
     # entries that sit near zero.
     np.testing.assert_allclose(to_numpy(mean), np.asarray(jmean), rtol=RTOL,
                                atol=RTOL * float(np.abs(jmean).max()))
-    np.testing.assert_allclose(to_numpy(var), np.asarray(jvar), rtol=RTOL)
+    assert_fp32_reach(var, jvar, _fitted_var64(model, x_test), VAR_REACH[method],
+                      f"fitted {method} var")
+
+
+@pytest.mark.parametrize("method", ["gp", "tp"])
+def test_var_reach_refuses_a_wrong_result(method):
+    """Each VAR_REACH ceiling refuses a stated mistake's float64 variance,
+    rounded to fp32, that moves the result by a few times the ceiling or
+    more: for tp the Student-t jitter at 2e-6 in place of 1e-6 (3.7e-4); for
+    gp the relative regularizer over N - 1 points in place of N (eps tr(K) /
+    (N - 1), 1.7e-3)."""
+    x, y, x_test, _ = _data()
+    jm = _jax_model(method, x, y)
+    jvar = jfit_spr(jm, jm.init_params()).predict(x_test)[1]
+    model = _torch_model(method, x, y)
+    right = _fitted_var64(model, x_test)
+    if method == "tp":
+        wrong = _fitted_var64(model, x_test, t_jitter=2e-6)
+    else:
+        n = x.shape[0]
+        wrong = _fitted_var64(SPR(model.kernel, model.likelihood, x, y, 0.7, 1.3,
+                                  eps=1e-3 * n / (n - 1)), x_test)
+    name = f"fitted {method} var"
+    assert_fp32_reach(right.float(), jvar, right, VAR_REACH[method], name)
+    with pytest.raises(AssertionError, match="the port errs"):
+        assert_fp32_reach(wrong.float(), jvar, right, VAR_REACH[method], name)
 
 
 @pytest.mark.parametrize("method", ["gp", "tp"])
