@@ -1,0 +1,10 @@
+"""k2_roofline.<cell>: K2 as a share of its roofline.
+
+The least time of its launches in the capture (``benchmark.counts``, from
+the shapes) over their device time there."""
+
+from benchmark.readers import roofline
+
+
+def read(rec):
+    return roofline(rec, "k2")
