@@ -30,6 +30,7 @@ from snngp_torch.models.bijectors import positive
 from snngp_torch.ops.linalg import (add_diag_reg, add_jitter, inv_psd, pinv_psd_eigh,
                                     psd_safety_lift)
 from snngp_torch.ops.softmax import get_correct_count, log_likelihood, test_log_likelihood
+from snngp_torch.utils.profiling import span
 
 __all__ = ["SVSP", "SPR"]
 
@@ -97,7 +98,7 @@ class SVSP(nn.Module):
         z = self.inducing_variable
         eps = P.constrained_read(self.eps, self.bij)
         q_sqrt = P.constrained_read(self.q_sqrt, self.bij)
-        with phase("gram"):
+        with phase("gram"), span("svsp.grams"):
             kernel_fn = self.kernel.get_kernel_fn()
             if mesh is None:
                 k_bi = self.kernel.K(kernel_fn, x_batch, z)      # [B, I]
@@ -110,7 +111,7 @@ class SVSP(nn.Module):
                 k_bi = gather(sharded_gram(shard_fn, x_batch, mesh, x2=z_in), z.device)
                 k_bb = gather(sharded_gram(shard_fn, x_batch, mesh), z.device)
             k_ii = self.kernel.K(kernel_fn, z)                   # [I, I]
-        with phase("posterior"):
+        with phase("posterior"), span("svsp.inverses"):
             # The lift is a no-op while (k_ii + eps I) is numerically PD.
             k_ii_inv = inv_psd(psd_safety_lift(add_jitter(k_ii, eps)), self.chol_fn)
             a_b = k_bi @ k_ii_inv
@@ -137,18 +138,19 @@ class SVSP(nn.Module):
         blocks (see :meth:`_posterior_pieces`)."""
         a_b, b_b, _, _, k_ii, k_ii_inv, q_mu, q_sqrt = self._posterior_pieces(
             x_batch, phase, mesh)
-        with phase("posterior"):
-            mean = q_mu @ a_b.T                                  # [C, B]
-            cov = torch.einsum("ij,cj,kj->cik", a_b, q_sqrt, a_b) + b_b[None, :, :]
-            # A no-op unless fp32 round-off makes the sampling covariance
-            # indefinite; detached, so the pathwise gradients are untouched.
-            cov = psd_safety_lift(cov, mult=cov.shape[-1])
-        with phase("sampling+likelihood"):
-            sampled_f = self.prior.sample_f(mean, cov, num_samples, generator, draws)
-            ll = log_likelihood(sampled_f, y_batch)
-            kl = self.prior.kl_divergence(k_ii, k_ii_inv, q_mu, q_sqrt, self.num_inducing,
-                                          self.num_latent_gps)
-            n_elbo = -ll + kl / num_train
+        with span("svsp.likelihood"):
+            with phase("posterior"):
+                mean = q_mu @ a_b.T                              # [C, B]
+                cov = torch.einsum("ij,cj,kj->cik", a_b, q_sqrt, a_b) + b_b[None, :, :]
+                # A no-op unless fp32 round-off makes the sampling covariance
+                # indefinite; detached, so the pathwise gradients are untouched.
+                cov = psd_safety_lift(cov, mult=cov.shape[-1])
+            with phase("sampling+likelihood"):
+                sampled_f = self.prior.sample_f(mean, cov, num_samples, generator, draws)
+                ll = log_likelihood(sampled_f, y_batch)
+                kl = self.prior.kl_divergence(k_ii, k_ii_inv, q_mu, q_sqrt,
+                                              self.num_inducing, self.num_latent_gps)
+                n_elbo = -ll + kl / num_train
         if aux:
             return n_elbo, (-ll, kl / num_train)
         return n_elbo
@@ -202,18 +204,20 @@ class SPR(nn.Module):
         ``kernel_fn`` must be the kernel's own, as every caller's is): on a
         mesh across ranks each rank runs its own panels and gets the whole
         Gram."""
-        if self.mesh is None:
-            return self.kernel.K(kernel_fn, self.x_data)
-        from snngp_torch.parallel.gram import sharded_gram
-        from snngp_torch.parallel.mesh import gather, to_shards
-        n = self.num_data
-        pad = (-n) % self.mesh.size
-        x = self.x_data
-        if pad:
-            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-        shard_fn = self.kernel._get_kernel_fn(*to_shards(self.mesh, *self.kernel.get_params()))
-        gram = gather(sharded_gram(shard_fn, x, self.mesh), x.device)
-        return gram[:n, :n] if pad else gram
+        with span("spr.gram"):
+            if self.mesh is None:
+                return self.kernel.K(kernel_fn, self.x_data)
+            from snngp_torch.parallel.gram import sharded_gram
+            from snngp_torch.parallel.mesh import gather, to_shards
+            n = self.num_data
+            pad = (-n) % self.mesh.size
+            x = self.x_data
+            if pad:
+                x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            shard_fn = self.kernel._get_kernel_fn(*to_shards(self.mesh,
+                                                             *self.kernel.get_params()))
+            gram = gather(sharded_gram(shard_fn, x, self.mesh), x.device)
+            return gram[:n, :n] if pad else gram
 
     def loss(self, gram=None):
         """Negative marginal log-likelihood / N (spax/models.py:93-98), with
@@ -223,7 +227,8 @@ class SPR(nn.Module):
         eps = P.constrained_read(self.eps, self.bij)
         if gram is None:
             gram = self._gram(self.kernel.get_kernel_fn())
-        log_prob = self.likelihood.prior_logpdf(self.y_data, add_jitter(gram, eps))
+        with span("spr.marginal"):
+            log_prob = self.likelihood.prior_logpdf(self.y_data, add_jitter(gram, eps))
         return -log_prob / self.num_data
 
     def test_nll(self, x, y):

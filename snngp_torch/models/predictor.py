@@ -54,6 +54,7 @@ from snngp_torch.ops.linalg import (_add_diag_reg_, add_diag_reg, add_jitter, ch
                                     chol_quad_form, chol_solve, cholesky, inv_psd)
 from snngp_torch.parallel.cholesky import blocked_triangular_solve, inplace_blocked_cholesky
 from snngp_torch.ops.softmax import get_correct_count, test_log_likelihood
+from snngp_torch.utils.profiling import span
 
 __all__ = ["fit_spr", "FittedSPR", "fit_svsp", "FittedSVSP"]
 
@@ -206,8 +207,9 @@ class FittedSPR:
         Gram per chunk; ~4096 keeps it at 64 MB. Each diagonal element is
         computed by the same arithmetic either way.
         """
-        mean_n, var_n = self._posterior(x, batch=batch)
-        return self._denorm(mean_n, var_n)
+        with span("predict"):
+            mean_n, var_n = self._posterior(x, batch=batch)
+            return self._denorm(mean_n, var_n)
 
     def test_nll(self, x, y, batch: int = None):
         """Predictive NLL on de-normalized targets; equals SPR.test_nll."""
@@ -222,8 +224,9 @@ class FittedSPR:
         the variance takes the streaming form ``k_tt_diag - sum(v * v)``,
         which cancels in fp32 when the posterior variance is tiny: pair it
         with a ``var_floor`` at scale."""
-        mean_n, var_n = self._posterior_given(k_td, k_tt_diag)
-        return self._denorm(mean_n, var_n)
+        with span("predict"):
+            mean_n, var_n = self._posterior_given(k_td, k_tt_diag)
+            return self._denorm(mean_n, var_n)
 
     def test_nll_given(self, k_td, k_tt_diag, y):
         """:meth:`test_nll` from precomputed Gram pieces (see
@@ -314,13 +317,18 @@ class FittedSPR:
             return (torch.cat([p[0] for p in parts]),
                     torch.cat([p[1] for p in parts]))
         model, s = self.model, self.state
-        k_td = model.kernel.K(self._kernel_fn, x, model.x_data)  # [n, N]
-        mean = (k_td @ s["alpha"]).flatten()
-        v = self._whiten(k_td)                                   # [N, n]
-        k_tt = model.kernel.K(self._kernel_fn, x)                # [n, n]
-        var = torch.diagonal(k_tt - v.T @ v)
-        if self._var_floor:
-            var = torch.maximum(var, self._var_floor * torch.diagonal(k_tt))
+        with span("predict.cross_gram"):
+            k_td = model.kernel.K(self._kernel_fn, x, model.x_data)  # [n, N]
+        with span("predict.mean"):
+            mean = (k_td @ s["alpha"]).flatten()
+        with span("predict.whiten"):
+            v = self._whiten(k_td)                                   # [N, n]
+        with span("predict.test_gram"):
+            k_tt = model.kernel.K(self._kernel_fn, x)                # [n, n]
+        with span("predict.variance"):
+            var = torch.diagonal(k_tt - v.T @ v)
+            if self._var_floor:
+                var = torch.maximum(var, self._var_floor * torch.diagonal(k_tt))
         return mean, var
 
     def _posterior_given(self, k_td, k_tt_diag):
@@ -329,11 +337,14 @@ class FittedSPR:
         like = self.state["alpha"]
         k_td = torch.as_tensor(k_td, dtype=like.dtype, device=like.device)
         k_tt_diag = torch.as_tensor(k_tt_diag, dtype=like.dtype, device=like.device)
-        mean = (k_td @ self.state["alpha"]).flatten()
-        v = self._whiten(k_td)                                   # [N, n]
-        var = k_tt_diag - torch.sum(v * v, dim=0)
-        if self._var_floor:
-            var = torch.maximum(var, self._var_floor * k_tt_diag)
+        with span("predict.mean"):
+            mean = (k_td @ self.state["alpha"]).flatten()
+        with span("predict.whiten"):
+            v = self._whiten(k_td)                                   # [N, n]
+        with span("predict.variance"):
+            var = k_tt_diag - torch.sum(v * v, dim=0)
+            if self._var_floor:
+                var = torch.maximum(var, self._var_floor * k_tt_diag)
         return mean, var
 
     def _whiten(self, k_td):

@@ -41,6 +41,7 @@ import math
 import torch
 
 from snngp_torch.ops import _build
+from snngp_torch.utils.profiling import span
 
 __all__ = ["mlp_gram", "resnet_gram", "mlp_var_stack", "resnet_var_stack",
            "gram_plain", "gram_cuda", "gram_tangents_plain", "gram_grads_plain",
@@ -410,6 +411,11 @@ class _Gram(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with span("k2"):
+            return _Gram._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         x1, x2, w, b, last = ctx.saved_tensors
         mode, depth, act, trainable_inputs, same = ctx.conf
         if trainable_inputs:

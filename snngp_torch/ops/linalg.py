@@ -39,6 +39,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from snngp_torch.utils.profiling import span
+
 __all__ = [
     "jitter",
     "add_jitter",
@@ -245,14 +247,15 @@ def psd_safety_lift(mat: torch.Tensor, mult: float = 1.0) -> torch.Tensor:
     are detached: gradients flow through ``mat`` as without the guard. A
     matrix that holds NaN or inf is returned as it is: JAX's eigvalsh
     gives NaN there and the lift spreads it, where torch's raises."""
-    sym = _sym(mat.detach())
-    if not bool(torch.isfinite(sym).all()):
-        return mat
-    ev = torch.linalg.eigvalsh(sym)
-    lo, hi = ev[..., 0], ev[..., -1]
-    floor = mult * torch.finfo(mat.dtype).eps * hi
-    boost = torch.clamp(floor - lo, min=0.0)
-    return _add_to_diagonal(mat, boost[..., None])
+    with span("linalg.safety_lift"):
+        sym = _sym(mat.detach())
+        if not bool(torch.isfinite(sym).all()):
+            return mat
+        ev = torch.linalg.eigvalsh(sym)
+        lo, hi = ev[..., 0], ev[..., -1]
+        floor = mult * torch.finfo(mat.dtype).eps * hi
+        boost = torch.clamp(floor - lo, min=0.0)
+        return _add_to_diagonal(mat, boost[..., None])
 
 
 class _PinvPsdEigh(torch.autograd.Function):

@@ -67,6 +67,7 @@ import torch
 from snngp_torch.ops import _build
 from snngp_torch.ops.gram import _ACT_T, _ACT_T_PARTIALS, _ACTS
 from snngp_torch.ops.tiled import assemble_tiles
+from snngp_torch.utils.profiling import span
 
 __all__ = ["MYRTLE_GROUPS", "myrtle_var_profiles", "myrtle_profile_tangents",
            "myrtle_gram_plain", "myrtle_gram_tangents_plain", "myrtle_gram_cuda",
@@ -592,8 +593,9 @@ def _use_kernel(x, plain):
 
 def _forward(x1, x2, w, b, last, depth, act, same, plain=False, state=None):
     groups = MYRTLE_GROUPS[depth]
-    p1 = pack_profiles(myrtle_var_profiles(x1, groups, act, w, b))
-    p2 = p1 if same else pack_profiles(myrtle_var_profiles(x2, groups, act, w, b))
+    with span("k7.profiles"):
+        p1 = pack_profiles(myrtle_var_profiles(x1, groups, act, w, b))
+        p2 = p1 if same else pack_profiles(myrtle_var_profiles(x2, groups, act, w, b))
     xc1 = x1.contiguous()
     xc2 = xc1 if same else x2.contiguous()
     args = (xc1, xc2, p1, p2, _scales(x1, w, b, last, False))
@@ -608,15 +610,16 @@ def _tangents(x1, x2, w, b, last, depth, act, profiles=None, tangents="wb", plai
     ``((p1, d1), (p2, d2))``. ``x2 is x1`` launches the kernel's symmetric
     mode (each pair of K(x, x) once), with x1's profiles on both sides."""
     same = x2 is x1
-    if profiles is None:
-        groups = MYRTLE_GROUPS[depth]
-        pr1 = _profiles_with_tangents(x1, groups, act, w, b)
-        pr2 = pr1 if same else _profiles_with_tangents(x2, groups, act, w, b)
-    else:
-        pr1, pr2 = profiles
-    p1, d1 = pack_profiles(pr1[0]), pack_profiles(pr1[1])
-    p2, d2 = (p1, d1) if same or pr2 is pr1 else (pack_profiles(pr2[0]),
-                                                  pack_profiles(pr2[1]))
+    with span("k7.profiles"):
+        if profiles is None:
+            groups = MYRTLE_GROUPS[depth]
+            pr1 = _profiles_with_tangents(x1, groups, act, w, b)
+            pr2 = pr1 if same else _profiles_with_tangents(x2, groups, act, w, b)
+        else:
+            pr1, pr2 = profiles
+        p1, d1 = pack_profiles(pr1[0]), pack_profiles(pr1[1])
+        p2, d2 = (p1, d1) if same or pr2 is pr1 else (pack_profiles(pr2[0]),
+                                                      pack_profiles(pr2[1]))
     xc1 = x1.contiguous()
     xc2 = xc1 if same else x2.contiguous()
     args = (xc1, xc2, p1, p2, d1, d2, _scales(x1, w, b, last, True))
@@ -647,10 +650,16 @@ class _MyrtleGram(torch.autograd.Function):
                 state=None):
         ctx.save_for_backward(x1, x2, w, b, last)
         ctx.conf = (depth, act, trainable_inputs, same, plain)
-        return _forward(x1, x2, w, b, last, depth, act, same, plain, state)
+        with span("k7.forward"):
+            return _forward(x1, x2, w, b, last, depth, act, same, plain, state)
 
     @staticmethod
     def backward(ctx, g):
+        with span("k7.tangents"):
+            return _MyrtleGram._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         x1, x2, w, b, last = ctx.saved_tensors
         depth, act, trainable_inputs, same, plain = ctx.conf
         if trainable_inputs:

@@ -23,8 +23,6 @@ from typing import Dict
 import numpy as np
 import torch
 
-from snngp_torch.models.params import named_leaves
-
 __all__ = ["save_params", "load_named", "Checkpointer", "save_training_state",
            "load_training_state"]
 
@@ -37,6 +35,7 @@ def _to_numpy(v) -> np.ndarray:
 
 def save_params(path: str, params) -> None:
     """``params``: an ``nn.Module`` (its parameters) or a nested dict."""
+    from snngp_torch.models.params import named_leaves   # models import ops, ops utils
     leaves = named_leaves(params)
     payload = {"names": np.array([n for n, _ in leaves])}
     for i, (_, v) in enumerate(leaves):
@@ -100,6 +99,7 @@ def save_training_state(path: str, model, optimizer, meta: Dict) -> None:
     """Write the parameters, the state of the optimizer (or of a list of
     them) and the loop metadata to one .npz (atomically: a temporary file,
     then a rename)."""
+    from snngp_torch.models.params import named_leaves
     p_leaves = [v for _, v in named_leaves(model)]
     o_leaves = [leaf for opt in _optimizers(optimizer) for leaf in opt.state_leaves()]
     payload: Dict[str, np.ndarray] = {"num_params": np.array(len(p_leaves)),
@@ -120,6 +120,7 @@ def load_training_state(path: str, model, optimizer) -> Dict[str, np.ndarray]:
     """Load the parameters into ``model`` and the state into ``optimizer``
     (or a list of them, in the order they were saved); return the loop
     metadata."""
+    from snngp_torch.models.params import named_leaves
     with np.load(path) as data:
         params = [p for _, p in named_leaves(model)]
         n_p, n_o = int(data["num_params"]), int(data["num_opt"])

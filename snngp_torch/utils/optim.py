@@ -29,13 +29,12 @@ from typing import Callable, List, Optional
 
 import torch
 
-from snngp_torch.models.params import named_leaves
-
 __all__ = ["Adam", "SGD"]
 
 
 class _Optimizer:
     def __init__(self, module, mask: Optional[Callable[[str], bool]] = None):
+        from snngp_torch.models.params import named_leaves   # models import ops, ops utils
         named = named_leaves(module)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]

@@ -1,6 +1,8 @@
 """Per-phase wall-clock counters (counterpart of ``Profiler`` in
 ``snngp/utils/profiling.py``), for ``reg tr -prof`` and the ML-II step
-breakdown, and :func:`trace`, a ``torch.profiler`` capture of a block.
+breakdown, :func:`trace`, a ``torch.profiler`` capture of a block, and
+:func:`span`, the ranges ``snngp.<layer>`` that the port opens at each
+layer boundary and that only a capture records.
 
 ``phase`` waits for the card before and after its block, so each phase owns
 its interval: ``torch.cuda.synchronize()`` where the JAX package fetches a
@@ -17,12 +19,35 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["Profiler", "trace"]
+__all__ = ["Profiler", "span", "trace"]
 
 
 def _sync():
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+# A range on the profiler's clock that is not a user annotation: Kineto
+# mirrors a user annotation (``record_function``) on the card's timeline
+# as a device-side event spanning its kernels, which a reading of device
+# busy time would count as work. ``record_function`` where torch lacks it.
+_range = (getattr(torch._C._profiler, "_RecordFunctionFast", None)
+          or torch.profiler.record_function)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The range ``snngp.<name>`` around a block while a ``torch.profiler``
+    capture is recording this thread (as one by :func:`trace` does), so
+    that the capture's Chrome trace and events show the layer's host
+    interval and the kernels it launched; otherwise a shared no-op context,
+    after one check of the profiler's flag. A span opened in an autograd
+    ``backward`` runs on autograd's thread and nests there. ``span`` never
+    synchronizes: unlike :meth:`Profiler.phase`, it leaves the device's
+    queue as it finds it."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return _range("snngp." + name)
 
 
 class Profiler:

@@ -22,6 +22,8 @@ from typing import Optional
 
 import numpy as np
 
+from snngp_torch.utils.profiling import span
+
 __all__ = ["train_step", "svsp_train_step", "DataLoader", "ReduceLROnPlateau",
            "Logger", "progress", "get_context_summary"]
 
@@ -41,9 +43,9 @@ def train_step(model, optimizer, lr, prof=None):
         gram = model._gram(model.kernel.get_kernel_fn())
     with phase("cholesky+solves"):
         loss = model.loss(gram)
-    with phase("backward"):
+    with phase("backward"), span("train.backward"):
         loss.backward()
-    with phase("optimizer"):
+    with phase("optimizer"), span("train.optimizer"):
         optimizer.update(lr)
     return loss.detach()
 
@@ -70,9 +72,9 @@ def svsp_train_step(model, optimizers, lrs, x_batch, y_batch, num_train, num_sam
         opt.zero_grad()
     loss = model.loss(x_batch, y_batch, num_train, num_samples, generator=generator,
                       phase=phase, mesh=mesh)
-    with phase("backward"):
+    with phase("backward"), span("train.backward"):
         loss.backward()
-    with phase("optimizer"):
+    with phase("optimizer"), span("train.optimizer"):
         for opt, lr in zip(optimizers, lrs):
             opt.update(lr)
     return loss.detach()
