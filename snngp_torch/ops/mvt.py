@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from snngp_torch.ops.linalg import cholesky
+from snngp_torch.ops.linalg import cholesky, quad_logdet
 
 __all__ = ["TDraws", "draw_t", "standard_t", "multivariate_t", "multivariate_t_logpdf"]
 
@@ -108,18 +108,26 @@ def multivariate_t_logpdf(x: torch.Tensor, loc, shape_mat: torch.Tensor, df,
     log p(x) = -((df+n)/2) log(1 + (1/df) y^T y) - (n/2) log(df pi)
                + lgamma((df+n)/2) - lgamma(df/2) - sum log diag(L)
     with L = chol(shape) and y = L^{-1}(x - loc); ``x`` is [n]. ``chol_fn``
-    swaps in another factorization.
+    swaps in another factorization. One [n] ``x`` against one [n, n] shape
+    without a ``chol_fn`` takes y^T y and log det(shape) from
+    :func:`~snngp_torch.ops.linalg.quad_logdet` (the same value, the
+    closed-form backward).
     """
     n = x.shape[-1]
     half = 0.5 * (df + n)
-    chol = (chol_fn or cholesky)(shape_mat)
     diff = x - loc
-    y = torch.linalg.solve_triangular(chol, diff[..., None], upper=False)[..., 0]
-    quad = torch.sum(y * y, dim=-1)
+    if chol_fn is None and x.ndim == 1 and shape_mat.ndim == 2:
+        quad, logdet_shape = quad_logdet(shape_mat, diff)
+        half_logdet = 0.5 * logdet_shape
+    else:
+        chol = (chol_fn or cholesky)(shape_mat)
+        y = torch.linalg.solve_triangular(chol, diff[..., None], upper=False)[..., 0]
+        quad = torch.sum(y * y, dim=-1)
+        half_logdet = torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
     return (
         -half * torch.log1p(quad / df)
         - 0.5 * n * torch.log(df * math.pi)
         + torch.lgamma(half)
         - torch.lgamma(0.5 * df)
-        - torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+        - half_logdet
     )

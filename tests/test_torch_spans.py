@@ -105,6 +105,7 @@ PATHS = {
     "train_step": (_train_step, {
         ("snngp.spr.gram", None), ("snngp.spr.marginal", None),
         ("snngp.train.backward", None), ("snngp.k2", "snngp.train.backward"),
+        ("snngp.linalg.marginal_backward", "snngp.train.backward"),
         ("snngp.train.optimizer", None)}),
     "predict": (_predict, {
         ("snngp.predict", None)} | {(f"snngp.predict.{c}", "snngp.predict") for c in (
