@@ -30,32 +30,57 @@ and mirror them.
 the kernels for CUDA tensors, :func:`resnet_tail_plain` /
 :func:`strided_block_plain` for CPU tensors; the backward recomputes through
 the layer tier and differentiates it, as the JAX package's ``custom_vjp``
-does. There is no scalar-tangent kernel for the resnet in either package:
-``trainable_inputs=False`` asks the same recompute for the three scales
-only, and x gets zero cotangents.
+does, in panels of the pair grid whose recompute fits the device's free
+memory (:func:`_panels`; for K(x, x) only the panels on and below the
+diagonal). There is no scalar-tangent kernel for the resnet in either
+package: ``trainable_inputs=False`` asks the same recompute for the three
+scales only, and x gets zero cotangents.
 
 A CUDA tensor never reaches a plain version: the wrappers launch their
-kernel or raise. ``LAUNCHES`` counts the launches of each kernel.
+kernel or raise. ``LAUNCHES`` counts the launches of each kernel and
+``RECOMPUTE`` the backward's panels and the pairs they recomputed. The
+spans ``snngp.resnet.forward`` (inside it ``snngp.resnet.front``: the input
+moment, the initial conv and every variance map) and
+``snngp.resnet.backward`` (one ``snngp.resnet.panel`` a panel) mark the
+layer in a ``torch.profiler`` capture.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from snngp_torch.ops import _build
 from snngp_torch.ops.conv_gram import _INT_MAX, _stencil, stream_geometry
 from snngp_torch.ops.gram import _ACT_T, _ACTS, _check_same, _post_act_var
+from snngp_torch.utils.profiling import span
 
 __all__ = ["conv_resnet_gram", "tail_var_stack", "strided_var_pieces",
            "resnet_tail_plain", "strided_block_plain", "resnet_tail_cuda",
-           "strided_cuda", "strided_geometry", "tail_chunks", "MAX_HW", "LAUNCHES"]
+           "strided_cuda", "strided_geometry", "tail_chunks", "MAX_HW", "LAUNCHES",
+           "RECOMPUTE"]
 
 # Launches of each CUDA kernel in this process; the wrappers add one per
 # launch. "resnet_tail" is K5, "resnet_strided" is K6.
 LAUNCHES = {"resnet_tail": 0, "resnet_strided": 0}
+
+# The backward's recompute in this process: its panels and the image pairs
+# they recomputed.
+RECOMPUTE = {"panels": 0, "pairs": 0}
+
+# The layer tier's recompute of one pair of [H, W] images at depth d holds
+# about (12 + 17 d) H W values for its backward (its saved tensors: 289,681
+# bytes a pair in float32 at 32 x 32 and depth 4, 20,551 at 8 x 8). A panel
+# takes at most _BUDGET_SHARE of the card's free memory (the caching
+# allocator's free blocks included), leaving room for the backward's own
+# temporaries, or _CPU_BUDGET bytes on the CPU. _PANEL_PAIRS, when set,
+# replaces the budget's pairs a panel.
+_BUDGET_SHARE = 0.4
+_CPU_BUDGET = 2 ** 30
+_PANEL_PAIRS = None
 
 MAX_HW = 1024     # the route's gate (arch.get_conv_resnet_kernel), as in the JAX package
 
@@ -84,6 +109,18 @@ def _lattice(z: torch.Tensor, h: int, w: int) -> torch.Tensor:
     oh, ow = _stride2_offsets(h, w)
     lead = z.shape[:-1]
     return z.reshape(lead + (h, w))[..., oh::2, ow::2].reshape(lead + (-1,))
+
+
+def _check_state_size(shape):
+    """A pair state ([N1, N2, H W]) of at most 2^31 - 1 elements, K(x, x)
+    of up to 1,448 images of 32 x 32: K5 and K6 offset into the state in 64
+    bits but have not run on a larger one. A larger Gram is computed in
+    row blocks by the caller."""
+    size = math.prod(shape)
+    if size > _INT_MAX:
+        raise ValueError(f"a WideResNet pair state of shape {tuple(shape)} has {size} "
+                         f"elements, more than the {_INT_MAX} one Gram holds at once; "
+                         "compute the Gram in row blocks")
 
 
 # -- the variance maps --------------------------------------------------------------
@@ -258,6 +295,7 @@ def resnet_tail_cuda(k, v1s, v2s, scales, *, nblocks: int, act: str, h: int, w: 
     :func:`resnet_tail_plain`. ``same=True`` says that k is K(x, x)'s state
     (bitwise symmetric) and v2s is v1s: the kernel runs each pair j <= i
     once and writes both entries."""
+    _check_state_size(k.shape)
     _check_same_state(same, k, dict(v=(v1s, v2s)))
     n1, n2 = _check_cuda_inputs(dict(k=k, v1s=v1s, v2s=v2s, scales=scales), act, h, w)
     if nblocks < 1:
@@ -291,6 +329,7 @@ def strided_cuda(k, v1s, v2s, scales, *, act: str, h: int, w: int, same: bool = 
     that k is K(x, x)'s state (bitwise symmetric) and v2s is v1s: the
     kernel runs each pair j <= i once and writes both entries."""
     (v1_in, v1_mid), (v2_in, v2_mid) = v1s, v2s
+    _check_state_size(k.shape)
     _check_same_state(same, k, dict(v_in=(v1_in, v2_in), v_mid=(v1_mid, v2_mid)))
     n1, n2 = _check_cuda_inputs(dict(k=k, v1_in=v1_in, v1_mid=v1_mid, v2_in=v2_in,
                                      v2_mid=v2_mid, scales=scales), act, h, w)
@@ -322,7 +361,8 @@ def _front(x1, x2, w2, b2, same):
     """The input moment and the initial Conv (plain PyTorch, as XLA runs
     them in the JAX package): (k [N1, N2, H, W], v1 [N1, H, W], v2)."""
     from snngp_torch.nn.layers import _patch_mean
-    c = x1.shape[-1]
+    n1, h, w, c = x1.shape
+    _check_state_size((n1, x2.shape[0], h * w))
     # The moment summed in channel order, so K(x, x) is symmetric bitwise.
     k = x1[:, None, ..., 0] * x2[None, ..., 0]
     for ch in range(1, c):
@@ -338,6 +378,28 @@ def _front(x1, x2, w2, b2, same):
     return conv(k), v1c, v1c if same else conv(v2)
 
 
+def _var_plan(v, depth, act, w, b):
+    """Every launch's variance rows, in launch order, for images whose
+    variance leaving the initial conv is v [N, H, W]: ("tail", rows
+    [2 nblocks, N, H W], nblocks, conv shortcut, H, W) for K5 and
+    ("strided", (v_in [N, H W], v_mid [N, H2 W2]), H, W) for K6."""
+    plan = []
+
+    def tail(v, nblocks, mismatch):
+        rows, out = tail_var_stack(v, nblocks, act, w, b, mismatch)
+        plan.append(("tail", _flat(rows), nblocks, mismatch, *v.shape[-2:]))
+        return out
+
+    v = tail(v, depth, True)                              # group 1, stride 1
+    for _ in range(3):                                    # groups 2-4, stride 2
+        mid, out = strided_var_pieces(v, act, w, b)
+        plan.append(("strided", (_flat(v), _flat(mid)), *v.shape[-2:]))
+        v = out
+        if depth > 1:
+            v = tail(v, depth - 1, False)
+    return plan
+
+
 def _resnet_forward(x1, x2, w, b, last, depth, act, same):
     """The Gram through K5 / K6 on CUDA tensors, their plain versions on
     CPU tensors (``_conv_resnet_gram`` in the JAX package); K(x, x) takes
@@ -350,27 +412,21 @@ def _resnet_forward(x1, x2, w, b, last, depth, act, same):
     w2, b2 = w * w, b * b
     scales = torch.stack([w2, b2])
     n1, n2 = x1.shape[0], x2.shape[0]
-    k, v1, v2 = _front(x1, x2, w2, b2, same)
-    h, wd = k.shape[2:]
-    k = k.reshape(n1, n2, h * wd)
-
-    def tail(k, v1, v2, nblocks, mismatch):
-        s1, v1o = tail_var_stack(v1, nblocks, act, w, b, mismatch)
-        s2, v2o = (s1, v1o) if same else tail_var_stack(v2, nblocks, act, w, b, mismatch)
-        k = tail_fn(k, _flat(s1), _flat(s2), scales, nblocks=nblocks, act=act,
-                    h=v1.shape[-2], w=v1.shape[-1], mismatch=mismatch)
-        return k, v1o, v2o
-
-    k, v1, v2 = tail(k, v1, v2, depth, True)              # group 1, stride 1
-    for _ in range(3):                                    # groups 2-4, stride 2
-        m1, o1 = strided_var_pieces(v1, act, w, b)
-        m2, o2 = (m1, o1) if same else strided_var_pieces(v2, act, w, b)
-        k = strided_fn(k, (_flat(v1), _flat(m1)), (_flat(v2), _flat(m2)),
-                       scales, act=act, h=v1.shape[-2], w=v1.shape[-1])
-        v1, v2 = o1, o2
-        if depth > 1:
-            k, v1, v2 = tail(k, v1, v2, depth - 1, False)
-    return (last * last) * torch.mean(k, dim=-1)           # Flatten + Dense
+    with span("resnet.forward"):
+        with span("resnet.front"):
+            k, v1, v2 = _front(x1, x2, w2, b2, same)
+            plan1 = _var_plan(v1, depth, act, w, b)
+            plan2 = plan1 if same else _var_plan(v2, depth, act, w, b)
+        k = k.reshape(n1, n2, -1)
+        for (kind, rows1, *conf), (_, rows2, *_) in zip(plan1, plan2):
+            if kind == "tail":
+                nblocks, mismatch, h, wd = conf
+                k = tail_fn(k, rows1, rows2, scales, nblocks=nblocks, act=act, h=h, w=wd,
+                            mismatch=mismatch)
+            else:
+                h, wd = conf
+                k = strided_fn(k, rows1, rows2, scales, act=act, h=h, w=wd)
+        return (last * last) * torch.mean(k, dim=-1)       # Flatten + Dense
 
 
 def _reference_recursion(x1, x2, depth, act, w, b, last):
@@ -380,9 +436,45 @@ def _reference_recursion(x1, x2, depth, act, w, b, last):
         x1, x2, get="nngp")
 
 
+def _panel_pairs(x, depth):
+    """Pairs a panel of the backward recomputes at once: the budget over
+    the bytes one pair's recompute holds."""
+    if _PANEL_PAIRS is not None:
+        return _PANEL_PAIRS
+    _, h, w, _ = x.shape
+    if x.device.type == "cuda":
+        free = torch.cuda.mem_get_info(x.device)[0] + (torch.cuda.memory_reserved(x.device)
+                                                       - torch.cuda.memory_allocated(x.device))
+        budget = _BUDGET_SHARE * free
+    else:
+        budget = _CPU_BUDGET
+    return max(1, int(budget // (x.element_size() * h * w * (12 + 17 * depth))))
+
+
+def _split(n, most):
+    """[0, n) in the fewest slices of at most ``most``, of equal sizes (but
+    the last): panels of one shape, whose tensors the caching allocator
+    reuses from panel to panel."""
+    size = -(-n // -(-n // most))
+    return [slice(i, min(i + size, n)) for i in range(0, n, size)]
+
+
+def _panels(n1, n2, pairs, same):
+    """The panels (rows, cols) of the [n1, n2] pair grid, each of at most
+    ``pairs`` pairs (one pair at least): tiles of at most isqrt(pairs)
+    rows, and as many columns as the budget leaves; for K(x, x) square
+    tiles on and below the diagonal only."""
+    rows = _split(n1, min(n1, max(1, math.isqrt(pairs))))
+    if same:
+        return [(r, c) for i, r in enumerate(rows) for c in rows[:i + 1]]
+    tr = rows[0].stop
+    cols = _split(n2, min(n2, max(1, pairs // tr)))
+    return [(r, c) for r in rows for c in cols]
+
+
 class _ConvResnetGram(torch.autograd.Function):
     """Fused conv-WideResNet Gram; the backward recomputes through the
-    layer tier (the JAX package's ``_bwd``)."""
+    layer tier (the JAX package's ``_bwd``), panel by panel."""
 
     @staticmethod
     def forward(ctx, x1, x2, w, b, last, depth, act, trainable_inputs, same):
@@ -392,24 +484,62 @@ class _ConvResnetGram(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """Each panel's recompute differentiated against its slice of g;
+        the scales' gradients summed over the panels, the inputs' added
+        into their rows. For K(x, x) (``same``) an off-diagonal panel
+        (r, c) takes g[r, c] + g[c, r]^T, since K(x_c, x_r) = K(x_r, x_c)^T,
+        and a diagonal one g[r, r] with one operand for both sides."""
         x1, x2, w, b, last = ctx.saved_tensors
         depth, act, trainable_inputs, same = ctx.conf
         # trainable_inputs=False: only the scales are differentiated; x1 / x2
         # get zero cotangents by contract.
-        need = [n and trainable_inputs for n in ctx.needs_input_grad[:2]]
-        need += list(ctx.needs_input_grad[2:5])
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n) for t, n in zip((x1, x2, w, b, last), need)]
-            a1, a2, ww, bb, ll = leaves
-            k = _reference_recursion(a1, a1 if same else a2, depth, act, ww, bb, ll)
-            wanted = [t for t in leaves if t.requires_grad]
-            grads = iter(torch.autograd.grad(k, wanted, g, allow_unused=True)
-                         if wanted else ())
-        out = [next(grads) if t.requires_grad else None for t in leaves]
+        need_x = [n and trainable_inputs for n in ctx.needs_input_grad[:2]]
+        gx = [torch.zeros_like(x) if n else None for x, n in zip((x1, x2), need_x)]
+        scales = [t.detach().requires_grad_(n)
+                  for t, n in zip((w, b, last), ctx.needs_input_grad[2:5])]
+        gs = [torch.zeros_like(t) if t.requires_grad else None for t in scales]
+        if any(need_x) or any(t is not None for t in gs):
+            pairs = _panel_pairs(x1, depth)
+            with span("resnet.backward"):
+                for r, c in _panels(x1.shape[0], x2.shape[0], pairs, same):
+                    with span("resnet.panel"):
+                        _panel_grads(x1, x2, g, r, c, same, need_x, scales, gx, gs,
+                                     depth, act)
         for i in range(2):
-            if ctx.needs_input_grad[i] and out[i] is None:
-                out[i] = torch.zeros_like((x1, x2)[i])
-        return (*out, None, None, None, None)
+            if ctx.needs_input_grad[i] and gx[i] is None:
+                gx[i] = torch.zeros_like((x1, x2)[i])
+        return (*gx, *gs, None, None, None, None)
+
+
+def _panel_grads(x1, x2, g, r, c, same, need_x, scales, gx, gs, depth, act):
+    """One panel's recompute and its gradients, added into ``gx`` (the
+    inputs' rows) and ``gs`` (the scales)."""
+    diag = same and r == c
+    with torch.enable_grad():
+        a = x1[r].detach().requires_grad_(need_x[0])
+        if diag:
+            o, cot = a, g[r, c]
+        elif same:
+            o, cot = x1[c].detach().requires_grad_(need_x[0]), g[r, c] + g[c, r].mT
+        else:
+            o, cot = x2[c].detach().requires_grad_(need_x[1]), g[r, c]
+        k = _reference_recursion(a, o, depth, act, *scales)
+        leaves = [a, *([] if diag else [o]), *scales]
+        found = iter(torch.autograd.grad(k, [t for t in leaves if t.requires_grad], cot,
+                                         allow_unused=True))
+        grads = [next(found) if t.requires_grad else None for t in leaves]
+    RECOMPUTE["panels"] += 1
+    RECOMPUTE["pairs"] += k.shape[0] * k.shape[1]
+    if diag:
+        grads.insert(1, None)
+    ga, go, *g_scales = grads
+    for acc, d in zip(gs, g_scales):
+        if acc is not None and d is not None:
+            acc += d
+    if ga is not None:
+        gx[0][r] += ga
+    if go is not None:
+        gx[0 if same else 1][c] += go
 
 
 def conv_resnet_gram(x1: torch.Tensor, x2: torch.Tensor, *, depth: int, num_class: int = 1,

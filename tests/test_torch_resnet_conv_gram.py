@@ -255,10 +255,14 @@ def test_conv_resnet_gram_and_its_gradients_match_jax_interpret():
                                    atol=1e-6 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("panel", [None, 1, 9], ids=["one panel", "1x1", "3x3 ragged"])
 @pytest.mark.parametrize("same", [False, True], ids=["x1,x2", "x,x"])
 @pytest.mark.parametrize("act", ACTS)
-def test_gradients_match_jax_reference_recursion(act, same):
-    # x1, x2 and scale cotangents against jax.vjp of _reference_conv_resnet.
+def test_gradients_match_jax_reference_recursion(act, same, panel, monkeypatch):
+    # x1, x2 and scale cotangents against jax.vjp of _reference_conv_resnet,
+    # with the backward's recompute in one panel or in panels of 1 and of
+    # at most 9 pairs (off-diagonal panels of K(x, x) take g[r, c] + g[c, r]^T).
+    monkeypatch.setattr(TRG, "_PANEL_PAIRS", panel)
     x1, x2 = _images(12, (7, 6), n1=5, n2=4)
     x2 = x1 if same else x2
     (g,) = randn(13, (x1.shape[0], x2.shape[0]))
@@ -272,7 +276,10 @@ def test_gradients_match_jax_reference_recursion(act, same):
     k = TRG.conv_resnet_gram(a, a if same else b, depth=2, act=act, w_std=w, b_std=bs,
                              last_w_std=last)
     wanted = [a, w, bs, last] if same else leaves
+    before = TRG.RECOMPUTE["panels"]
     got = torch.autograd.grad(k, wanted, to_torch(g))
+    assert TRG.RECOMPUTE["panels"] - before == {None: 1, 1: 15 if same else 20,
+                                                9: 3 if same else 4}[panel]
     for gt, wt in zip(got, [want[0]] + want[2:] if same else want):
         np.testing.assert_allclose(to_numpy(gt), wt, rtol=1e-5,
                                    atol=1e-6 * np.abs(wt).max())

@@ -3,9 +3,11 @@ the benchmark's reading of them (``benchmark/spans.py`` and the readers in
 ``benchmark/metrics/`` that use it), on CPU-only torch.
 
 - Under a CPU ``torch.profiler`` capture an ML-II ``train_step``,
-  ``FittedSPR.predict`` / ``predict_given`` and an 8 x 8 Myrtle-5 SVTP step
-  (``svsp_train_step``: ``SVSP.loss`` and its backward) record each layer's
-  span, nested as the calls nest.
+  ``FittedSPR.predict`` / ``predict_given`` and 8 x 8 Myrtle-5 and
+  WideResNet SVTP steps (``svsp_train_step``: ``SVSP.loss`` and its
+  backward) record each layer's span, nested as the calls nest; the
+  WideResNet step's backward recomputes the pairs on and below the
+  diagonal of K(x, x) (``RECOMPUTE``).
 - Without a capture ``span`` opens no range, and the range it opens under
   one is not a user annotation (which Kineto would mirror on the card's
   timeline as a device op).
@@ -53,11 +55,14 @@ def _spr(n=12, d=3):
     return SPR(kernel, StudentTLikelihood(2.0, 2.0), x, y, 0.0, 1.0, eps=1e-2), x
 
 
-def _svsp(num_inducing=3, batch=2, classes=2):
+def _svsp(num_inducing=3, batch=2, classes=2, network="myrtle"):
     rng = np.random.RandomState(5)
     z = rng.randn(num_inducing, 8, 8, 3).astype(np.float32)
 
     def kernel_fn(w, b, last):
+        if network == "resnet":
+            return arch.get_conv_resnet_kernel(1, classes, "relu", w_std=w, b_std=b,
+                                               last_w_std=last, trainable_inputs=False)
         return arch.get_myrtle_kernel(5, classes, "relu", w_std=w, b_std=b, last_w_std=last,
                                       trainable_inputs=False)
 
@@ -93,11 +98,15 @@ def _predict_given():
     return lambda: fitted.predict_given(k_td, torch.diagonal(k_tt))
 
 
-def _svsp_step():
-    model, x, y = _svsp()
+def _svsp_step(network="myrtle"):
+    model, x, y = _svsp(network=network)
     opt = Adam(model)
     return lambda: svsp_train_step(model, [opt], [1e-2], x, y, 50, 2,
                                    torch.Generator().manual_seed(0))
+
+
+def _resnet_step():
+    return _svsp_step("resnet")
 
 
 # Each path's spans as (span, its innermost enclosing span or None).
@@ -120,6 +129,13 @@ PATHS = {
         ("snngp.svsp.likelihood", None), ("snngp.linalg.safety_lift", "snngp.svsp.likelihood"),
         ("snngp.train.backward", None), ("snngp.k7.tangents", "snngp.train.backward"),
         ("snngp.k7.profiles", "snngp.k7.tangents"), ("snngp.train.optimizer", None)}),
+    "svsp_train_step.resnet": (_resnet_step, {
+        ("snngp.svsp.grams", None), ("snngp.resnet.forward", "snngp.svsp.grams"),
+        ("snngp.resnet.front", "snngp.resnet.forward"),
+        ("snngp.svsp.inverses", None), ("snngp.linalg.safety_lift", "snngp.svsp.inverses"),
+        ("snngp.svsp.likelihood", None), ("snngp.linalg.safety_lift", "snngp.svsp.likelihood"),
+        ("snngp.train.backward", None), ("snngp.resnet.backward", "snngp.train.backward"),
+        ("snngp.resnet.panel", "snngp.resnet.backward"), ("snngp.train.optimizer", None)}),
 }
 
 
@@ -149,6 +165,23 @@ def test_without_a_capture_a_span_opens_no_range(path, monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     assert profiling.span("predict") is profiling._NO_SPAN
     PATHS[path][0]()()
+
+
+@pytest.mark.parametrize("panel", [1, None], ids=["pair by pair", "budget"])
+def test_a_wideresnet_step_recomputes_the_pairs_on_and_below_the_diagonal(panel,
+                                                                          monkeypatch):
+    """3 inducing images and a batch of 2: K(Z, Z), K(B, Z) and K(B, B),
+    pair by pair 6 + 6 + 3 panels; within the CPU's budget one panel a
+    block, K(x, x)'s whole square."""
+    from snngp_torch.ops import resnet_conv_gram as RG
+    monkeypatch.setattr(RG, "_PANEL_PAIRS", panel)
+    step = _resnet_step()
+    before = dict(RG.RECOMPUTE)
+    step()
+    got = {k: RG.RECOMPUTE[k] - before[k] for k in before}
+    want = ({"panels": 6 + 6 + 3, "pairs": 6 + 6 + 3} if panel == 1
+            else {"panels": 3, "pairs": 9 + 6 + 4})
+    assert got == want
 
 
 def test_a_spans_range_is_not_a_user_annotation():
@@ -243,6 +276,9 @@ def test_an_idle_gap_counts_where_the_host_is_inside_a_span_at_its_middle():
     ("serve.test_var_ms", [_ev("snngp.predict.test_gram", 10.0, 30.0),
                            _ev("snngp.predict.variance", 45.0, 60.0)]),
     ("span_idle_ms.serve", [_ev("snngp.predict", 10.0, 60.0)]),
+    ("rg_backward_ms.wrn", [_ev("snngp.resnet.backward", 10.0, 60.0),
+                            _ev("snngp.resnet.panel", 20.0, 40.0)]),
+    ("rg_front_ms.wrn", [_ev("snngp.resnet.front", 20.0, 30.0)]),
 ])
 def test_each_span_reader_reads_its_spans_and_nothing_without_them(metric, events):
     read = brun.reader(metric)
@@ -250,7 +286,9 @@ def test_each_span_reader_reads_its_spans_and_nothing_without_them(metric, event
             "k7_glue_ms.elbo": (2 + 15) * 1e-3 / 2,        # not the K7 tangent kernel
             "serve.solve_ms": (2 + 15 + 10) * 1e-3 / 2,
             "serve.test_var_ms": (2 + 15 + 10) * 1e-3 / 2,
-            "span_idle_ms.serve": (21 + 6 + 10) * 1e-3 / 2}[metric]
+            "span_idle_ms.serve": (21 + 6 + 10) * 1e-3 / 2,
+            "rg_backward_ms.wrn": (2 + 15 + 10) * 1e-3 / 2,
+            "rg_front_ms.wrn": (2 + 15) * 1e-3 / 2}[metric]
     assert read(_rec(BASE + events)) == pytest.approx(want)
     assert read(_rec(BASE)) is None
     assert read(types.SimpleNamespace(capture=None, captured=0)) is None
@@ -302,3 +340,29 @@ def test_ops_that_do_not_pair_with_their_launch_calls_read_as_nothing(fault):
     assert bspans.spans_of(rec.capture).ops is None
     assert bspans.launched_ms(rec, ["snngp.outer"]) is None
     assert bspans.idle_ms(rec) is None
+
+
+def test_k5_and_k6_rooflines_read_their_kernels_and_nothing_else():
+    """Two captured steps, each with one K5 and one K6 launch of 2 us and
+    1 us of counted least time, on kernels of 4 us and 10 us a launch; a
+    third step's launches lie outside the capture. A lost record reads as
+    nothing."""
+    work = {"launches": {"k5": [2e-6], "k6": [1e-6]}, "least_s": 3e-6}
+    events = ([_ev("bench.step", 0.0, 100.0)]
+              + _launch(5.0, "void resnet_tail_kernel<0, 4, true>(float const*)", 10.0, 14.0)
+              + _launch(15.0, "void resnet_strided_kernel<0>(float const*)", 20.0, 30.0)
+              + _launch(35.0, "void resnet_tail_kernel<0, 3, false>(float const*)", 40.0, 44.0)
+              + _launch(45.0, "void resnet_strided_kernel<0>(float const*)", 50.0, 60.0))
+    units = [dict(work=work)] * 3
+
+    def rec(evs):
+        cap = bcapture.Pending(_Prof(evs), {}).reduce()
+        return types.SimpleNamespace(capture=cap, captured=2, units=units)
+
+    assert brun.reader("k5_roofline.wrn")(rec(events)) == pytest.approx(100 * 4 / 8)
+    assert brun.reader("k6_roofline.wrn")(rec(events)) == pytest.approx(100 * 2 / 20)
+    lost = [e for e in events if not (e.name.startswith("void resnet_strided")
+                                      and e.time_range.start == 50.0)]
+    assert brun.reader("k6_roofline.wrn")(rec(lost)) is None
+    assert brun.reader("k5_roofline.wrn")(rec(BASE)) is None
+    assert brun.reader("k5_roofline.wrn")(types.SimpleNamespace(capture=None, captured=0)) is None
